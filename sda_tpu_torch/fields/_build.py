@@ -3,9 +3,11 @@
 Each kernel is one ``csrc/<name>.cu`` file with a plain C interface,
 compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared library and
 loaded with ``ctypes``. The library is built at first use into
-``sda_tpu_torch/_build/`` and keyed by a hash of its source, so an edited
-kernel is rebuilt and an unchanged one is not. There is no fallback: a
-missing ``nvcc`` or a failed build raises.
+``sda_tpu_torch/_build/`` and keyed by a hash of its source, of every
+``csrc`` header it includes (``#include "<name>.cuh"``, transitively) and
+of the compiler flags, so an edited kernel, header or flag is rebuilt and
+an unchanged one is not. There is no fallback: a missing ``nvcc`` or a
+failed build raises.
 """
 
 from __future__ import annotations
@@ -14,15 +16,17 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Tuple
+from typing import List, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 
 
 def _nvcc() -> str:
@@ -35,10 +39,28 @@ def _nvcc() -> str:
     return path
 
 
+def sources(name: str) -> List[Path]:
+    """``csrc/<name>.cu`` and the ``csrc`` headers it includes,
+    transitively, in the order they are first met."""
+    seen: List[Path] = []
+    todo = [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path not in seen:
+            seen.append(path)
+            todo += [CSRC / inc for inc in _INCLUDE.findall(path.read_text())]
+    return seen
+
+
 def library_path(name: str) -> Path:
-    """Where the library of ``csrc/<name>.cu``'s current source lives."""
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()
-    return BUILD_DIR / f"lib{name}_{digest[:16]}.so"
+    """Where the library of ``csrc/<name>.cu`` lives, keyed by its current
+    sources and ``NVCC_FLAGS``."""
+    h = hashlib.sha256()
+    for flag in NVCC_FLAGS:
+        h.update(flag.encode() + b"\0")
+    for path in sources(name):
+        h.update(path.name.encode() + b"\0" + path.read_bytes() + b"\0")
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
 def build(name: str) -> Tuple[Path, str]:

@@ -40,6 +40,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "philox.cuh"
+
 namespace {
 
 constexpr int kMaxRows = 16;    // k + t: value rows per column
@@ -51,24 +53,6 @@ struct ShareMatrix {
   // is dropped), canonical residues, [n][k + t]
   uint32_t m[kMaxShares][kMaxRows];
 };
-
-__device__ __forceinline__ void philox4x32_10(uint32_t& c0, uint32_t& c1,
-                                              uint32_t& c2, uint32_t& c3,
-                                              uint32_t k0, uint32_t k1) {
-#pragma unroll
-  for (int i = 0; i < 10; ++i) {
-    const uint32_t lo0 = 0xD2511F53u * c0, hi0 = __umulhi(0xD2511F53u, c0);
-    const uint32_t lo1 = 0xCD9E8D57u * c2, hi1 = __umulhi(0xCD9E8D57u, c2);
-    const uint32_t n0 = hi1 ^ c1 ^ k0;
-    const uint32_t n2 = hi0 ^ c3 ^ k1;
-    c0 = n0;
-    c1 = lo1;
-    c2 = n2;
-    c3 = lo0;
-    k0 += 0x9E3779B9u;
-    k1 += 0xBB67AE85u;
-  }
-}
 
 // value row c of a column: rows [0, k) are the secrets (plus, when masked,
 // mask draws), rows [k, k + t) the share randomness

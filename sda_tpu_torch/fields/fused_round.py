@@ -145,6 +145,15 @@ def philox_bits(seed: int, P: int, k: int, t: int, B: int, masked: bool,
     return out
 
 
+def draw_sum(bits, rows: int, row0: int, sp: SolinasPrime):
+    """Σ over participants of the [rows, B] uniform residues of a draw in
+    the external-bits layout ([P, 2*draws, B] int64 words): hi words in
+    rows [2*row0, 2*row0+rows), lo in [2*row0+rows, 2*(row0+rows))."""
+    hi = bits[:, 2 * row0:2 * row0 + rows]
+    lo = bits[:, 2 * row0 + rows:2 * (row0 + rows)]
+    return modsum32(uniform_from_bits(hi, lo, sp), sp, axis=0)
+
+
 # ---------------------------------------------------------------------------
 # K1: plain version and kernel wrapper
 
@@ -169,28 +178,47 @@ def fused_mask_share_combine_plain(x_cols, seed, sp: SolinasPrime, m_host,
     else:
         bits = _words64(external_bits)
 
-    def draw_sum(rows, row0):
-        """Σ over participants of [rows, B] uniform residues; hi words in
-        rows [2*row0, 2*row0+rows), lo in [2*row0+rows, 2*(row0+rows))."""
-        hi = bits[:, 2 * row0:2 * row0 + rows]
-        lo = bits[:, 2 * row0 + rows:2 * (row0 + rows)]
-        return modsum32(uniform_from_bits(hi, lo, sp), sp, axis=0)
-
     mh, ml = matrix_limbs(np.asarray(m_host)[:, 1:], sp, dev)
     if masked:
-        masksum = draw_sum(k, 0)
+        masksum = draw_sum(bits, k, 0, sp)
         values_k = modadd32(xsum, masksum, sp)
-        randsum = draw_sum(t, k)
+        randsum = draw_sum(bits, t, k, sp)
     else:
         masksum = torch.zeros((k, B), dtype=torch.int64, device=dev)
         values_k = xsum
-        randsum = draw_sum(t, 0)
+        randsum = draw_sum(bits, t, 0, sp)
     shares = modadd32(
         modmatmul32_limbs(mh[:, :k], ml[:, :k], values_k, sp),
         modmatmul32_limbs(mh[:, k:], ml[:, k:], randsum, sp),
         sp,
     )
     return shares, masksum
+
+
+def kernel_operands(x_cols, sp: SolinasPrime, m_host, t: int) -> np.ndarray:
+    """What a CUDA kernel of K1's shape takes (K1, and K5 in
+    ``benchmarks/kernel_probe.py``): checks the device, the word type and
+    strides of ``x_cols`` [P, k, B], the kernel's row and clerk limits and
+    the prime; returns the active share-matrix columns (the zero column
+    dropped) as contiguous uint32 canonical residues."""
+    dev = x_cols.device
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    if x_cols.dtype not in _WORD_DTYPES:
+        raise TypeError(f"x_cols must hold 32-bit words, got {x_cols.dtype}")
+    if min(x_cols.stride()) < 0:
+        raise ValueError("x_cols strides must be non-negative")
+    k = x_cols.shape[1]
+    n = np.shape(m_host)[0]
+    if k + t > _MAX_ROWS or n > _MAX_SHARES:
+        raise ValueError(
+            f"kernel supports k+t <= {_MAX_ROWS} and n <= {_MAX_SHARES}, "
+            f"got k+t={k + t}, n={n}")
+    # raw per-row contraction sums: (k+t) products < p^2 must fit uint64
+    if (k + t) * (sp.p - 1) ** 2 >= 1 << 64:
+        raise ValueError(f"prime {sp.p} too large for the kernel")
+    return np.ascontiguousarray(
+        np.asarray(m_host, dtype=np.int64)[:, 1:] % sp.p, dtype=np.uint32)
 
 
 @functools.lru_cache(maxsize=None)
@@ -225,12 +253,7 @@ def fused_mask_share_combine(x_cols, seed, sp: SolinasPrime, m_host,
     if dev.type == "cpu":
         return fused_mask_share_combine_plain(
             x_cols, seed, sp, m_host, t, masked, external_bits)
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
-    if x_cols.dtype not in _WORD_DTYPES:
-        raise TypeError(f"x_cols must hold 32-bit words, got {x_cols.dtype}")
-    if min(x_cols.stride()) < 0:
-        raise ValueError("x_cols strides must be non-negative")
+    m_active = kernel_operands(x_cols, sp, m_host, t)
     if external_bits is not None:
         if external_bits.device != dev or \
                 external_bits.dtype not in _WORD_DTYPES:
@@ -239,15 +262,6 @@ def fused_mask_share_combine(x_cols, seed, sp: SolinasPrime, m_host,
                             f"{external_bits.device}")
         if not external_bits.is_contiguous():
             raise ValueError("external_bits must be contiguous")
-    if k + t > _MAX_ROWS or n > _MAX_SHARES:
-        raise ValueError(
-            f"kernel supports k+t <= {_MAX_ROWS} and n <= {_MAX_SHARES}, "
-            f"got k+t={k + t}, n={n}")
-    # raw per-row contraction sums: (k+t) products < p^2 must fit uint64
-    if (k + t) * (sp.p - 1) ** 2 >= 1 << 64:
-        raise ValueError(f"prime {sp.p} too large for the kernel")
-    m_active = np.ascontiguousarray(
-        np.asarray(m_host, dtype=np.int64)[:, 1:] % sp.p, dtype=np.uint32)
     shares = torch.empty((n, B), dtype=torch.int64, device=dev)
     mask_tot = torch.empty((k, B), dtype=torch.int64, device=dev)
     fn = _kernel()

@@ -8,6 +8,7 @@ against this plain version there.
 
 import contextlib
 import itertools
+import shutil
 
 import jax
 import jax.numpy as jnp
@@ -239,3 +240,23 @@ def test_build_is_for_hopper_and_raises_without_nvcc(monkeypatch, tmp_path):
     monkeypatch.setattr(_build.os.path, "exists", lambda path: False)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build("fused_round")
+
+
+def test_build_key_covers_included_headers_and_flags(monkeypatch, tmp_path):
+    """An edited shared header or compiler flag must not load a stale
+    library: both kernels include philox.cuh."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    names = ("fused_round", "kernel_probe")
+    for name in names:
+        assert [p.name for p in _build.sources(name)] == \
+            [f"{name}.cu", "philox.cuh"]
+    before = {name: _build.library_path(name) for name in names}
+    header = csrc / "philox.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    edited = {name: _build.library_path(name) for name in names}
+    assert all(edited[name] != before[name] for name in names)
+    assert all(edited[name].name.startswith(f"lib{name}_") for name in names)
+    monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ("-G",))
+    assert all(_build.library_path(name) != edited[name] for name in names)

@@ -59,7 +59,10 @@ def test_no_source_imports_jax_or_reference(path):
 
 
 def _entry_points():
+    from sda_tpu_torch.benchmarks import kernel_probe
     from sda_tpu_torch.convert import matrices_from_numpy
+    from sda_tpu_torch.device import resolve_device
+    from sda_tpu_torch.fields.fastfield import SolinasPrime
     from sda_tpu_torch.fields import numtheory
     from sda_tpu_torch.fields.fused_round import single_chip_round_pallas
     from sda_tpu_torch.mesh import single_chip_round
@@ -69,7 +72,22 @@ def _entry_points():
     s = PackedShamirSharing(3, 8, t, p, w2, w3)
     m = numtheory.share_matrix_for(s)
     l_ = numtheory.reconstruct_matrix_for(s, tuple(range(8)))
+    def probe_call(device=None):
+        x = torch.zeros((2, 3, 8), dtype=torch.int32,
+                        device=resolve_device(device))
+        return kernel_probe.probe_call(
+            x, 0, SolinasPrime.try_from(p), m, t, do_x=True, do_prng=True,
+            do_matmul=True)
+
+    def probe_main(**kw):
+        argv = ["--participants", "4", "--dim", "300"]
+        if "device" in kw:
+            argv += ["--device", kw["device"]]
+        return kernel_probe.main(argv, emit=lambda *a, **k: None)
+
     return {
+        "kernel_probe.main": probe_main,
+        "kernel_probe.probe_call": probe_call,
         "single_chip_round": lambda **kw: single_chip_round(
             s, FullMasking(p), **kw),
         "single_chip_round_pallas": lambda **kw: single_chip_round_pallas(
@@ -81,7 +99,9 @@ def _entry_points():
 
 @pytest.mark.parametrize("name", ["single_chip_round",
                                   "single_chip_round_pallas",
-                                  "matrices_from_numpy"])
+                                  "matrices_from_numpy",
+                                  "kernel_probe.main",
+                                  "kernel_probe.probe_call"])
 def test_entry_points_default_to_cuda(name):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default does not raise")
