@@ -11,10 +11,15 @@ uint32 inputs below 2^20) through the port's entry points, checks every
 output exactly, and times the fused kernel K1 and both rounds. Then it
 runs the kernel probe's entry point (``sda_tpu_torch.benchmarks.
 kernel_probe``) at the same width: K5's variants of K1, timed, with the
-component budget of K1. Each kernel's operation bound is counted in the
-instruction forms of its own participant loop, read from ``cuobjdump
--sass`` of the build. Prints the card's name and power limit, one JSON line
-of kernel measurements, and as its last line
+component budget of K1. K1 has three instances, the main path's (the
+``batch_columns`` layout, internal draws, k=3, t=4), masked and unmasked,
+and the generic one (every other call); each is held to the plain version
+and its registers, spills and resident warps an SM are printed. Each kernel's
+operation bound is counted from the algorithm's work (``MULS``, ``XORS``,
+``ACCUMULATES``), beside the count K1's first CUDA version used; the
+participant loop's SASS opcode mix (``cuobjdump -sass``) is printed as a
+diagnostic. Prints the card's name and power limit, one JSON line of
+kernel measurements, and as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Any failed check raises and exits non-zero; without CUDA, or without the
 package beside it, it exits non-zero and prints no result.
@@ -24,7 +29,6 @@ from __future__ import annotations
 
 import collections
 import json
-import re
 import statistics
 import subprocess
 import sys
@@ -43,10 +47,28 @@ SMS = 132
 SM_CLOCK_HZ = 67e12 / (SMS * 128 * 2)
 PIPE_OPS_PER_S = SMS * 64 * SM_CLOCK_HZ
 INSTR_PER_S = SMS * 128 * SM_CLOCK_HZ
-#: the K1 instance on the main path: 8 value rows, internal Philox draws
-MAIN_KERNEL = "fused_round_kernelILi8ELb0E"
-#: wide-multiply instruction forms (Philox's multiplies)
-MUL_OPS = ("IMAD.WIDE", "IMAD.HI", "UIMAD.WIDE", "UIMAD.HI")
+#: K1's instances in the SASS: the main path's, masked and unmasked, and
+#: the generic one with internal draws and at most 8 value rows
+K1_KERNELS = {"columns": "fused_round_columnsILi3ELi4ELb1EE",
+              "columns_unmasked": "fused_round_columnsILi3ELi4ELb0EE",
+              "generic": "fused_round_kernelILi8ELb0EE"}
+#: participants a loop iteration of the main path's instances and of K5
+#: (fields/csrc/columns.cuh)
+UNROLL = 2
+#: The work of one participant and column on the main path (masked
+#: internal draws, k=3, t=4, a column index below 2^32), counted from the
+#: algorithm and not from a compiled loop: 7 drawn rows take 3.5 Philox
+#: blocks of 10 rounds (2 wide multiplies and 2 three-input xors a round),
+#: 80 and 80 in all. The counter (column, participant, row pair) makes 20
+#: multiplies and 12 xors of rounds 1-3 invariant in the participant or
+#: the column (fields/csrc/columns.cuh), and the half-used block's last
+#: multiply and xor are dead: 60 wide multiplies (FMA pipe) and 68 LOP3
+#: (ALU pipe) stay. Each input word (3) and drawn word (14) is one 64-bit
+#: accumulate, an IADD3 (ALU pipe) and a carry-in add (FMA pipe).
+MULS, XORS, ACCUMULATES = 60, 68, 17
+#: the count of K1's first CUDA version: 35 whole Philox rounds, nothing
+#: factored
+WHOLE_ROUND_MULS, WHOLE_ROUND_XORS = 70, 70
 
 DEVICE = "cuda"
 P_MAIN, D_MAIN = 100, 999_999
@@ -116,98 +138,34 @@ def _profile(label: str, fn, reps: int = 3) -> None:
               f" calls/round  {key[:100]}")
 
 
-_SASS_LINE = re.compile(
-    r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)"
-    r"(?:\s+0x([0-9a-f]+))?")
-
-
-def _loop_mix(lib_path: Path, cuobjdump: Path, kernel: str):
-    """Opcode counts of the participant loop of ``kernel`` in the built
-    library (``cuobjdump -sass``): the instructions between a backward
-    branch and its target, for the branch whose body holds the most global
-    loads and wide multiplies (the inputs and Philox), the longest among
-    equals. Returns the Counter and the kernel's compiled row count (its
-    MAXR template argument)."""
-    sass = subprocess.run([str(cuobjdump), "-sass", str(lib_path)],
-                          capture_output=True, text=True, timeout=120,
-                          check=True).stdout
-    body = None
-    for chunk in sass.split("Function : ")[1:]:
-        if kernel in chunk.split("\n", 1)[0]:
-            body = chunk
-    _check(body is not None, f"{kernel} not in the SASS of {lib_path.name}")
-    instrs = [(int(m[1], 16), m[2], m[3]) for m in _SASS_LINE.finditer(body)]
-
-    def weight(loop):
-        work = sum(op.startswith(("LDG",) + MUL_OPS) for addr, op, _ in instrs
-                   if loop[0] <= addr <= loop[1])
-        return work, loop[1] - loop[0]
-
-    lo, hi = max(((int(tgt, 16), addr) for addr, op, tgt in instrs
-                  if op.split(".")[0] == "BRA" and tgt
-                  and int(tgt, 16) < addr), key=weight)
-    mix = collections.Counter(op for addr, op, _ in instrs if lo <= addr <= hi)
-    return mix, int(re.search(r"ILi(\d+)E", kernel)[1])
-
-
-def _muls(mix) -> int:
-    """Wide multiplies (Philox's, and address arithmetic's) in a loop mix."""
-    return sum(c for op, c in mix.items() if op.startswith(MUL_OPS))
-
-
-def _ptxas(log: str) -> dict:
-    """``nvcc -Xptxas -v`` log -> {mangled kernel: its register, stack and
-    spill lines}."""
-    info, cur = {}, None
-    for line in log.splitlines():
-        m = re.search(r"Compiling entry function '(\w+)'", line)
-        if m:
-            cur = info.setdefault(m[1], [])
-        elif cur is not None and ("registers" in line or "spill" in line):
-            cur.append(line.split("ptxas info    :")[-1].strip())
-    return info
-
-
-def _bound(P, B, k, draws, do_x, out_rows, mix, compiled_rows):
+def _bound(P, B, k, draws, do_x, out_rows, muls=MULS, xors=XORS):
     """Least time (ms) the card could take for the work of a kernel of K1's
     shape at these shapes, and what bounds it: the larger of its bytes
     (input words once, int64 outputs once) at the memory rate and its
-    integer operations, in the instruction forms of its own participant
-    loop (``mix``, compiled for ``compiled_rows`` value rows).
-
-    The operations are 2*draws Philox words per participant and column, 4
-    to a block of 10 rounds (a half block is 2 words), and one 64-bit
-    accumulate per input word and drawn word: an IADD3 (ALU pipe) plus a
-    carry-in add, which the compiler puts on the FMA pipe (IMAD.X). A
-    Philox round costs the loop's multiplies and xors per compiled round,
-    rounded to whole instructions: the loop also holds a few wide
-    multiplies of its address arithmetic, which are not work on the data,
-    nor is the key schedule, which depends on the seed alone. The
-    per-column epilogue (one reduction and contraction a column, not a
-    participant) is left out. Returns (bound_ms, bound_by, detail)."""
-    compiled_rounds = compiled_rows // 2 * 10
-    mul = _muls(mix)
-    xor = mix["LOP3.LUT"]
-    mul_round = round(mul / compiled_rounds)
-    xor_round = round(xor / compiled_rounds)
-    rounds_needed = 2 * draws / 4 * 10
+    integer operations: a participant and column takes ``muls`` wide
+    multiplies (FMA pipe) and ``xors`` LOP3 (ALU pipe) when it draws, and
+    one 64-bit accumulate (an IADD3 on the ALU pipe and a carry-in add on
+    the FMA pipe) per input word and drawn word. The per-column epilogue
+    (one reduction and contraction a column, not a participant) is left
+    out. Returns (bound_ms, bound_by, detail)."""
     fold_words = (k if do_x else 0) + 2 * draws
-    fma_ops = P * B * (rounds_needed * mul_round + fold_words)
-    alu_ops = P * B * (rounds_needed * xor_round + fold_words)
+    if not draws:
+        muls = xors = 0
+    fma_ops = P * B * (muls + fold_words)
+    alu_ops = P * B * (xors + fold_words)
     ops_ms = max(max(fma_ops, alu_ops) / PIPE_OPS_PER_S,
                  (fma_ops + alu_ops) / INSTR_PER_S) * 1e3
     # the same work if a wide multiply took two FMA-pipe issue slots
-    fma_half = fma_ops + P * B * rounds_needed * mul_round
+    fma_half = fma_ops + P * B * muls
     half_ms = max(max(fma_half, alu_ops) / PIPE_OPS_PER_S,
                   (fma_half + alu_ops) / INSTR_PER_S) * 1e3
     bytes_moved = (P * k * B * 4 if do_x else 0) + out_rows * B * 8
     bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
     detail = (f"{bytes_moved} bytes -> {bytes_ms:.4f} ms; {fma_ops:.0f} "
-              f"FMA-pipe + {alu_ops:.0f} ALU-pipe ops, {mul}/{xor} "
-              f"multiplies/xors in the loop's {compiled_rounds} compiled "
-              f"Philox rounds ({mul_round}/{xor_round} a round) -> "
-              f"{ops_ms:.4f} ms ({half_ms:.4f} ms with wide multiplies at "
-              f"half rate)")
+              f"FMA-pipe + {alu_ops:.0f} ALU-pipe ops ({muls} multiplies, "
+              f"{xors} xors, {fold_words} accumulates a participant and "
+              f"column) -> {ops_ms:.4f} ms ({half_ms:.4f} ms with wide "
+              f"multiplies at half rate)")
     return (max(bytes_ms, ops_ms),
             "operations" if ops_ms >= bytes_ms else "bytes", detail)
 
@@ -238,6 +196,7 @@ def main() -> int:
     from sda_tpu_torch.mesh import single_chip_round
     from sda_tpu_torch.protocol import (BasicShamirSharing, FullMasking,
                                         PackedShamirSharing)
+    from sda_tpu_torch.utils import sass
     from sda_tpu_torch.utils.benchtime import median_ms
 
     K1 = fused_round.fused_mask_share_combine
@@ -261,34 +220,54 @@ def main() -> int:
         built = dict(zip(names, pool.map(_build.build, names)))
     print(f"build: {', '.join(built[n][0].name for n in names)} in "
           f"{time.perf_counter() - t0:.2f} s")
-    lib_path, log = built["fused_round"]
-    for kernel, lines in _ptxas(log).items():
-        print(f"  nvcc: {kernel}: {'; '.join(lines)}")
     cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
-    loop_mix, compiled_rows = _loop_mix(lib_path, cuobjdump, MAIN_KERNEL)
-    print(f"  participant loop of {MAIN_KERNEL} (cuobjdump -sass), "
-          f"{sum(loop_mix.values())} instructions: "
-          + ", ".join(f"{op} {c}" for op, c in loop_mix.most_common()))
-    k1_mul = _muls(loop_mix)
-    probe_lib, probe_log = built["kernel_probe"]
-    probe_ptxas = _ptxas(probe_log)
-    probe_mix = {}
-    for name, flags in kernel_probe.VARIANTS.items():
-        inst = "probe_kernelILi8E" + "".join(
-            f"Lb{int(bool(flags.get(f)))}E"
-            for f in ("do_x", "do_prng", "do_matmul", "tree"))
-        probe_mix[name], _ = _loop_mix(probe_lib, cuobjdump, inst)
-        mix = probe_mix[name]
-        ptx = next((v for key, v in probe_ptxas.items() if inst in key), [])
-        print(f"  K5 {name} ({inst}): {'; '.join(ptx)}; participant loop "
-              f"{sum(mix.values())} instructions: "
+
+    def report(label, lib, info, kernel):
+        """Print a kernel's ptxas line and the SASS opcode mix of its
+        participant loop; fail on a spill. Returns the loop's opcode mix
+        and its count of Philox multiplies."""
+        ptx = next((v for key, v in info.items() if kernel in key), None)
+        _check(ptx is not None, f"{kernel}: no ptxas line")
+        _check(not sass.spills(ptx), f"{kernel} spills: {'; '.join(ptx)}")
+        lines = sass.loop_instructions(lib, cuobjdump, kernel)
+        mix = collections.Counter(op for op, _ in lines)
+        muls = sass.philox_muls(lines)
+        print(f"  {label} ({kernel}): {'; '.join(ptx)}; participant loop "
+              f"{sum(mix.values())} instructions, {muls} Philox multiplies: "
               + ", ".join(f"{op} {c}" for op, c in mix.most_common()))
-    prng_mul = _muls(probe_mix["prng_only"])
-    print(f"  Philox multiplies in the loop: prng_only {prng_mul}, "
-          f"K1 {k1_mul}")
+        return mix, muls
+
+    lib_path, log = built["fused_round"]
+    k1_ptxas = sass.ptxas_info(log)
+    k1_mix = {}
+    for instance, kernel in K1_KERNELS.items():
+        k1_mix[instance], muls = report(f"K1 {instance}", lib_path,
+                                        k1_ptxas, kernel)
+        warps = fused_round.resident_blocks(instance) * 256 // 32
+        print(f"    resident warps an SM: {warps} (256-thread blocks, "
+              "cudaOccupancyMaxActiveBlocksPerMultiprocessor)")
+        if instance == "columns":
+            k1_mul = muls
+    loop_mix = k1_mix["columns"]
+    probe_lib, probe_log = built["kernel_probe"]
+    probe_ptxas = sass.ptxas_info(probe_log)
+    probe_mix, probe_muls = {}, {}
+    for name, flags in kernel_probe.VARIANTS.items():
+        inst = "probe_kernelI" + "".join(
+            f"Lb{int(bool(flags.get(f)))}E"
+            for f in ("do_x", "do_prng", "do_matmul", "tree")) + "E"
+        probe_mix[name], probe_muls[name] = report(
+            f"K5 {name}", probe_lib, probe_ptxas, inst)
+    prng_mul = probe_muls["prng_only"]
+    print(f"  Philox multiplies a compiled participant: prng_only "
+          f"{prng_mul / UNROLL}, K1 {k1_mul / UNROLL}")
     _check(prng_mul == k1_mul and k1_mul > 0,
            f"prng_only's loop holds {prng_mul} Philox multiplies, K1's "
            f"{k1_mul}: draws were compiled away")
+    loops = {name: sum(probe_mix[name].values())
+             for name in ("no_matmul", "full")}
+    _check(loops["no_matmul"] == loops["full"],
+           f"the loops of no_matmul and full differ: {loops}")
 
     t, p, w2, w3 = numtheory.generate_packed_params(3, 8, 28)
     flagship = PackedShamirSharing(3, 8, t, p, w2, w3)
@@ -315,6 +294,21 @@ def main() -> int:
         return torch.from_numpy(
             rng.integers(0, 1 << 32, size=shape, dtype=np.uint32)).to(dev)
 
+    def k1_hold(case, instance, args, **kw):
+        """K1 against its plain version on the same arguments; the call
+        must run the given instance."""
+        before = dict(K1.instance_launches)
+        got = K1(*args, **kw)
+        ran = [i for i in fused_round.INSTANCES
+               if K1.instance_launches[i] != before[i]]
+        _check(ran == [instance], f"{case}: ran {ran}, want {instance}")
+        hold(f"{case} [{instance}]", got,
+             fused_round.fused_mask_share_combine_plain(*args, **kw))
+
+    def batch_view(P, d):
+        """The main path's layout: the batch_columns view of [P, d] words."""
+        return batch_columns(words((P, d)).view(torch.int32), 3)
+
     # -- 3. K1 vs its plain version, external bits --------------------------
     print("K1 vs plain, external bits (tolerance: exact, torch.equal):")
     for scheme in (flagship, basic):
@@ -328,24 +322,34 @@ def main() -> int:
                 else:
                     x_cols = words((P, k, B))
                 bits = words((P, 2 * draws, B))
-                args = (x_cols, 0, sp, m_host, ts, masked)
-                hold(f"{type(scheme).__name__} P={P} B={B} masked={masked}",
-                     K1(*args, external_bits=bits),
-                     fused_round.fused_mask_share_combine_plain(
-                         *args, external_bits=bits))
+                k1_hold(f"{type(scheme).__name__} P={P} B={B} "
+                        f"masked={masked}", "generic",
+                        (x_cols, 0, sp, m_host, ts, masked),
+                        external_bits=bits)
                 del x_cols, bits
                 torch.cuda.synchronize()
 
     # -- 4. K1 internal Philox draws ---------------------------------------
+    # every instance: the main path's take the strided view, masked or
+    # not; P=33 x d=3003 makes every participant's run start at another
+    # word offset mod 4 and leaves a ragged last block
     print("K1 vs plain, internal Philox draws (tolerance: exact):")
     m_flag = numtheory.share_matrix_for(flagship)
-    for P, B, masked in ((7, 1000, True), (7, 1000, False),
-                         (P_MAIN, D_MAIN // 3, True)):
-        x_cols = words((P, 3, B))
-        args = (x_cols, 12345 + P, sp, m_flag, t, masked)
-        hold(f"PackedShamir P={P} B={B} masked={masked}", K1(*args),
-             fused_round.fused_mask_share_combine_plain(*args))
-    del x_cols
+    for P, d, strided, masked in (
+            (7, 3000, False, True), (7, 3000, False, False),
+            (7, 3000, True, True), (7, 3000, True, False),
+            (33, 3003, True, True), (33, 3003, True, False),
+            (P_MAIN, D_MAIN, False, True), (P_MAIN, D_MAIN, True, True),
+            (P_MAIN, D_MAIN, True, False)):
+        x_cols = batch_view(P, d) if strided else words((P, 3, d // 3))
+        instance = ("generic" if not strided else
+                    "columns" if masked else "columns_unmasked")
+        k1_hold(f"PackedShamir P={P} d={d} "
+                f"{'strided' if strided else 'contiguous'} masked={masked}",
+                instance,
+                (x_cols, 12345 + P, sp, m_flag, t, masked))
+        del x_cols
+        torch.cuda.synchronize()
     small = torch.from_numpy(
         rng.integers(0, 1 << 20, size=(7, 3001), dtype=np.uint32)).to(dev)
     small_fn = fused_round.single_chip_round_pallas(flagship, FullMasking(p),
@@ -368,9 +372,13 @@ def main() -> int:
             flagship, FullMasking(p), dim_tile=dim_tile, device=dev)
         gen.manual_seed(0)
         K1.launches = K5.launches = 0
+        K1.instance_launches.update(dict.fromkeys(fused_round.INSTANCES, 0))
         out = fn(inputs, gen)
         torch.cuda.synchronize()
         launches, round_k5_launches = K1.launches, K5.launches
+        _check(K1.instance_launches["columns"] == launches,
+               f"{label}: K1 instances {K1.instance_launches}, want every "
+               "launch on the main path's")
         _check(out.dtype == torch.int64 and out.shape == (D_MAIN,),
                f"{label}: output {out.dtype}{tuple(out.shape)}")
         _check(torch.equal(out, expect), f"{label}: != plain sum mod p")
@@ -394,16 +402,21 @@ def main() -> int:
         lambda: fused_round.fused_mask_share_combine_plain(*k1_args),
         dev, reps=3, warmup=1)
     # the work these inputs need (3 input rows, 3 + t drawn rows, shares
-    # and mask totals out), in the instruction forms of K1's own loop
+    # and mask totals out), counted from the algorithm
     n = flagship.share_count
     bound_ms, bound_by, detail = _bound(P_MAIN, B_main, 3, 3 + t, True,
-                                        n + 3, loop_mix, compiled_rows)
-    loop_ms = sum(loop_mix.values()) * P_MAIN * B_main / INSTR_PER_S * 1e3
-    print(f"K1 at P={P_MAIN} B={B_main} (internal draws): {k1_ms:.4f} ms "
-          f"median of 20 (CUDA events); plain {plain_ms:.3f} ms; bound "
-          f"{bound_ms:.4f} ms ({detail}); the loop's own "
-          f"{sum(loop_mix.values())} instructions a participant and column "
-          f"need {loop_ms:.4f} ms to issue")
+                                        n + 3)
+    whole_ms, _, whole_detail = _bound(P_MAIN, B_main, 3, 3 + t, True,
+                                       n + 3, WHOLE_ROUND_MULS,
+                                       WHOLE_ROUND_XORS)
+    loop_ms = (sum(loop_mix.values()) / UNROLL * P_MAIN * B_main
+               / INSTR_PER_S * 1e3)
+    print(f"K1 at P={P_MAIN} B={B_main} (internal draws, main path's "
+          f"instance): {k1_ms:.4f} ms median of 20 (CUDA events); plain "
+          f"{plain_ms:.3f} ms; bound {bound_ms:.4f} ms ({detail}); with the "
+          f"whole-round count {whole_ms:.4f} ms ({whole_detail}); its "
+          f"compiled loop of {sum(loop_mix.values())} instructions ({UNROLL} "
+          f"participants) needs {loop_ms:.4f} ms to issue")
 
     # -- 6. the plain-torch round on the card -------------------------------
     plain_fn = single_chip_round(flagship, FullMasking(p), device=dev)
@@ -420,7 +433,8 @@ def main() -> int:
     # -- 7. K5, the kernel probe, at the main path's width -----------------
     print("K5 vs plain (tolerance: exact, torch.equal):")
     checked = dict(kernel_probe.VARIANTS, x_matmul=kernel_probe.X_MATMUL)
-    for P, B, x_cols in ((7, 1000, words((7, 3, 1000))),
+    for P, B, x_cols in ((7, 1000, batch_view(7, 3000)),
+                         (33, 1001, batch_view(33, 3003)),
                          (P_MAIN, B_main, x_main)):
         args = (x_cols, 4321 + P, sp, m_flag, t)
         got = {}
@@ -471,15 +485,18 @@ def main() -> int:
             reps=3, warmup=1)
         v_bound, v_by, v_detail = _bound(
             P_MAIN, B_main, 3, 3 + t if flags["do_prng"] else 0,
-            flags["do_x"], n, probe_mix[name], 8)
+            flags["do_x"], n)
         k5[name] = {"ms": comp[name]["ms"], "plain_ms": v_plain_ms,
                     "bound_ms": v_bound, "bound_by": v_by,
                     "library_ms": lib_ms if name == "fold_only" else None}
         loop = sum(probe_mix[name].values())
         print(json.dumps({"stage": "component_bound", "name": name,
                           **k5[name], "loop_instructions": loop,
-                          "issue_ms": loop * P_MAIN * B_main / INSTR_PER_S
-                          * 1e3, "detail": v_detail}))
+                          "issue_ms": loop / UNROLL
+                          * (kernel_probe.TREE_GROUP if flags.get("tree")
+                             else 1)
+                          * P_MAIN * B_main / INSTR_PER_S * 1e3,
+                          "detail": v_detail}))
     del x_probe
     print(f"library fold (torch.remainder(x.to(int64).sum(0), p)) at "
           f"P={P_MAIN} B={B_main}: {lib_ms:.4f} ms median of 20 "
@@ -499,6 +516,7 @@ def main() -> int:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,
+        "bound_ms_whole_rounds": whole_ms,
     }, {
         "name": "probe_call",
         "route": "cuda",

@@ -2,16 +2,18 @@
 
 Port of ``benchmarks/kernel_probe.py``. It times stripped variants of the
 fused mask-share-combine kernel (K1, ``fields/csrc/fused_round.cu``), each
-exercising some of its components on K1's own structure (one thread a
-column, raw uint64 sums over the participants, one reduction and one share
-contraction a column). The variants are K5, a hand-written CUDA kernel for
-Hopper (``fields/csrc/kernel_probe.cu``):
+exercising some of its components in K1's own main-path loop (the column
+skeleton ``fields/csrc/columns.cuh``: raw uint64 sums over the
+participants, one reduction and one share contraction a column, after the
+loop). The variants are K5, a hand-written CUDA kernel for Hopper
+(``fields/csrc/kernel_probe.cu``):
 
     fold_only   read the inputs + participant fold (device-memory bytes)
     prng_only   per-participant mask/randomness draws + fold (no inputs)
     no_matmul   fold + draws (the full round minus the share contraction)
     full        fold + draws + contraction (== K1's shares, same seed)
-    fold_tree, full_tree   the same with 4 threads a column (``tree=True``)
+    fold_tree, full_tree   the same, each column's participants folded in
+                4 groups (``tree=True``)
 
 Each variant pays the launch/loop overhead O once, so ``solve_budget``
 solves matmul = full - no_matmul, prng = no_matmul - fold_only,
@@ -68,6 +70,7 @@ from ..fields.fused_round import (
     fused_mask_share_combine,
     kernel_operands,
     philox_bits,
+    kernel_scalars,
 )
 from ..fields.sharing import batch_columns
 from ..utils.benchtime import median_ms
@@ -83,7 +86,7 @@ VARIANTS = {
 }
 #: the x-only contraction: checked, not timed
 X_MATMUL = dict(do_x=True, do_prng=False, do_matmul=True)
-#: threads a column with ``tree=True``
+#: participant groups a column with ``tree=True``
 TREE_GROUP = 4
 N_LIMBS = 5  # ceil(29 bits / 7): base-128 keeps limbs in int8's [0, 127]
 
@@ -165,12 +168,23 @@ def probe_call_plain(x_cols, seed, sp: SolinasPrime, m_host, t: int, *,
     return out
 
 
+def _check_kernel_shape(k: int, t: int, strides, do_x: bool) -> None:
+    """The shapes K5's kernel takes: K1's main-path instance, the
+    flagship's k=3, t=4, and when it reads the inputs the
+    ``batch_columns`` layout of [P, d] (strides (d, 1, k))."""
+    if (k, t) != (3, 4):
+        raise ValueError(f"the probe kernel runs k=3, t=4, got k={k}, t={t}")
+    if do_x and tuple(strides[1:]) != (1, k):
+        raise ValueError("the probe kernel reads the batch_columns layout "
+                         f"(strides (., 1, {k})), got {tuple(strides)}")
+
+
 @functools.lru_cache(maxsize=None)
 def _kernel():
     fn = _build.load("kernel_probe").sda_kernel_probe
     ptr, i64, i32, u64 = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
                           ctypes.c_ulonglong)
-    fn.argtypes = [ptr, i64, i64, i64, ptr, i32, i32, i32, i32, i64, u64,
+    fn.argtypes = [ptr, i64, ptr, i32, i32, i32, i32, i64, ptr, u64, i32,
                    u64, ptr, i32, i32, i32, i32, ptr]
     fn.restype = ctypes.c_int
     return fn
@@ -180,28 +194,32 @@ def probe_call(x_cols, seed, sp: SolinasPrime, m_host, t: int, *,
                do_x: bool, do_prng: bool, do_matmul: bool,
                tree: bool = False):
     """K1 running only the selected components: [P, k, B] 32-bit words
-    (uint32 or int32 storage, any strides) -> [n, B] int64 canonical
-    residues, as :func:`probe_call_plain` defines them. ``tree=True`` folds
-    each column with 4 threads and a shared-memory tree instead of one
-    thread (bit-identical).
+    (uint32 or int32 storage) -> [n, B] int64 canonical residues, as
+    :func:`probe_call_plain` defines them. ``tree=True`` folds each
+    column's participants in 4 groups summed by warp shuffles instead of
+    one (bit-identical).
 
     A CUDA tensor launches K5 (errors raise) and counts the launch in
-    ``probe_call.launches``; a CPU tensor runs :func:`probe_call_plain`.
+    ``probe_call.launches``; the kernel is K1's main-path instance, so it
+    takes the flagship's k=3, t=4 and, when it reads the inputs, the
+    ``batch_columns`` layout (strides (·, 1, k)). A CPU tensor runs
+    :func:`probe_call_plain` at any shape and strides.
     """
     P, k, B, n = _check(x_cols, m_host, t, do_x, do_prng, do_matmul)
     if x_cols.device.type == "cpu":
         return probe_call_plain(x_cols, seed, sp, m_host, t, do_x=do_x,
                                 do_prng=do_prng, do_matmul=do_matmul)
     m_active = kernel_operands(x_cols, sp, m_host, t)
+    _check_kernel_shape(k, t, x_cols.stride(), do_x)
     dev = x_cols.device
     out = torch.empty((n, B), dtype=torch.int64, device=dev)
-    fn = _kernel()
+    keys, p, e, c = kernel_scalars(sp, seed)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(x_cols.data_ptr(), *x_cols.stride(), out.data_ptr(), P, k,
-                 t, n, B, int(seed) & ((1 << 64) - 1), sp.p,
-                 m_active.ctypes.data, int(do_x), int(do_prng),
-                 int(do_matmul), TREE_GROUP if tree else 1, stream)
+        err = _kernel()(x_cols.data_ptr(), x_cols.stride(0), out.data_ptr(),
+                        P, k, t, n, B, keys.ctypes.data, p, e, c,
+                        m_active.ctypes.data, int(do_x), int(do_prng),
+                        int(do_matmul), TREE_GROUP if tree else 1, stream)
     if err != 0:
         raise RuntimeError(f"probe_call kernel launch failed: CUDA error {err}")
     probe_call.launches += 1

@@ -21,272 +21,164 @@
 //   one difference from the Pallas probe: with draws, rows [k, k+t) hold
 //   the sums of the randomness residues. The Pallas probe leaves them zero
 //   and relies on the TPU PRNG being stateful. Here draws whose sums are
-//   never stored are removed by the compiler (a store behind a run-time
-//   flag does not help: the draws sink into its branch), so the draw-only
-//   variants would time a fraction of the Philox work.
+//   never stored are removed by the compiler, so the draw-only variants
+//   would time a fraction of the Philox work.
+//
+// Every variant is K1's main-path instance: the same column skeleton
+// (columns.cuh: one thread a column, factored Philox, round keys by value,
+// loads in flight), the same launch shape, the flagship's k = 3, t = 4 and the
+// batch_columns layout, with components compiled out. The contraction
+// lies after the participant loop, so the loops of no_matmul and full are
+// the same code and full - no_matmul is the contraction.
 //
 // SPLIT is the counterpart of the Pallas probe's tree=True. There the tree
 // filled idle sublanes, which has no meaning here; the question on this
-// card is whether one thread per column, folding all P alone, is the right
-// shape for K1. With SPLIT a column gets kGroup threads of a block: thread g
-// folds the participants q = g (mod kGroup) into raw uint64 partials, a
-// shared-memory halving tree sums them, and one thread runs the epilogue.
-// Raw uint64 sums are exact and order-free for P < 2^32, so the output is
-// bit-identical to one thread a column.
+// card is whether one thread a column, folding all P alone, is the right
+// shape. With SPLIT a column gets kGroup adjacent threads: thread s folds
+// the participants q = s (mod kGroup) into raw uint64 partials, and a
+// butterfly of warp shuffles sums them. Raw uint64 sums are exact and
+// order-free for P < 2^32, so the output is bit-identical.
 //
 // What bounds it on this card: the fold alone reads P*k*B words once and is
 // bound by device-memory bytes; every variant with draws is bound by 32-bit
-// integer operations (Philox: 10 instructions a word), as K1 is. The
-// structure is K1's (one column a thread, raw uint64 sums in the
-// participant loop, one reduction and one contraction a column), so the
-// component times subtract cleanly. The participant loop is kept rolled
-// (#pragma unroll 1), as the compiler leaves K1's, so each variant's loop
-// is one participant's work.
+// integer operations, as K1 is.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "columns.cuh"
 #include "philox.cuh"
 
 namespace {
 
-constexpr int kMaxRows = 16;    // k + t: value rows per column
-constexpr int kMaxShares = 32;  // n: clerks
-constexpr int kThreads = 256;
-constexpr int kGroup = 4;       // threads a column under SPLIT
+using columns::kThreads;
+using columns::mod_p;
+using columns::Solinas;
+
+constexpr int K = 3, T = 4, ROWS = K + T;  // the flagship's value rows
+constexpr int kMaxShares = 32;             // n: clerks
+constexpr int kGroup = 4;                  // threads a column under SPLIT
 
 struct ShareMatrix {
   // active share-matrix columns, canonical residues, [n][k + t]
-  uint32_t m[kMaxShares][kMaxRows];
+  uint32_t m[kMaxShares][ROWS];
 };
 
 struct ProbeArgs {
-  const uint32_t* x;             // [P, k, B] words at element strides
-  long long sx_p, sx_j, sx_b;
-  long long* out;                // [n, B] int64
-  int P, k, t, n;
+  const uint32_t* x;  // [P, k, B] words, batch_columns layout
+  long long sx_p;
+  long long* out;     // [n, B] int64
+  int P, n;
   long long B;
-  uint32_t key0, key1;
-  unsigned long long p;
+  PhiloxKeys key;
+  Solinas sp;
   ShareMatrix mat;
 };
 
-template <int MAXR, bool DO_X, bool DO_PRNG, bool DO_MATMUL, bool SPLIT>
-__global__ void __launch_bounds__(kThreads)
+template <bool DO_X, bool DO_PRNG, bool DO_MATMUL, bool SPLIT>
+__global__ void __launch_bounds__(kThreads, columns::kMinBlocks)
 probe_kernel(const ProbeArgs a) {
-  constexpr int G = SPLIT ? kGroup : 1;
-  constexpr int kCols = kThreads / G;
-  const long long b = blockIdx.x * (long long)kCols + threadIdx.x;
-  const int g = SPLIT ? (int)threadIdx.y : 0;
-  // under SPLIT every thread of the block reaches the tree's barriers
-  if (!SPLIT && b >= a.B) return;
+  constexpr int S = SPLIT ? kGroup : 1;  // threads a column
+  using F = columns::Fold<K, T, true, DO_X, DO_PRNG, S>;
+  const int s = (int)threadIdx.x % S;
+  const long long b = (blockIdx.x * (long long)kThreads + threadIdx.x) / S;
   const bool active = b < a.B;
-  const int k = a.k;
-  const int rows = a.k + a.t;
+  F f;
+  f.run(a.x, a.sx_p, a.P, (uint32_t)b, active, (uint32_t)(a.B - 1), s,
+        a.key);
+  f.reduce_split();
+  uint32_t vx[K], vd[ROWS];
+  f.residues(a.sp, vx, vd);
+  if (!active) return;
 
-  unsigned long long xs[MAXR], hs[MAXR], ls[MAXR];
+  unsigned long long v[ROWS];
 #pragma unroll
-  for (int c = 0; c < MAXR; ++c) {
-    xs[c] = 0;
-    hs[c] = 0;
-    ls[c] = 0;
+  for (int c = 0; c < K; ++c) {
+    v[c] = mod_p((DO_X ? vx[c] : 0u) + (unsigned long long)vd[c], a.sp);
   }
-
-  if (active) {
-#pragma unroll 1
-    for (int q = g; q < a.P; q += G) {
-      if (DO_X) {
-        const uint32_t* xq = a.x + q * a.sx_p + b * a.sx_b;
 #pragma unroll
-        for (int c = 0; c < MAXR; ++c) {
-          if (c < k) xs[c] += xq[c * a.sx_j];
-        }
-      }
-      if (DO_PRNG) {
-#pragma unroll
-        for (int c = 0; c < MAXR; c += 2) {
-          if (c < rows) {
-            uint32_t w0 = (uint32_t)b, w1 = (uint32_t)(b >> 32);
-            uint32_t w2 = (uint32_t)q, w3 = (uint32_t)(c >> 1);
-            philox4x32_10(w0, w1, w2, w3, a.key0, a.key1);
-            hs[c] += w0;
-            ls[c] += w1;
-            if (c + 1 < rows) {
-              hs[c + 1] += w2;
-              ls[c + 1] += w3;
-            }
-          }
-        }
-      }
-    }
-  }
-
-  if (SPLIT) {
-    // partials in [slot][g][column]: xs[c] in slot c, hs[c] in kx + c,
-    // ls[c] in kx + rows + c
-    extern __shared__ unsigned long long part[];
-    const int tid = g * kCols + (int)threadIdx.x;
-    const int kx = DO_X ? k : 0;
-#pragma unroll
-    for (int c = 0; c < MAXR; ++c) {
-      if (DO_X && c < k) part[c * kThreads + tid] = xs[c];
-      if (DO_PRNG && c < rows) {
-        part[(kx + c) * kThreads + tid] = hs[c];
-        part[(kx + rows + c) * kThreads + tid] = ls[c];
-      }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int h = G / 2; h >= 1; h /= 2) {
-      if (g < h) {
-        const int up = tid + h * kCols;
-#pragma unroll
-        for (int c = 0; c < MAXR; ++c) {
-          if (DO_X && c < k) {
-            xs[c] += part[c * kThreads + up];
-            part[c * kThreads + tid] = xs[c];
-          }
-          if (DO_PRNG && c < rows) {
-            hs[c] += part[(kx + c) * kThreads + up];
-            ls[c] += part[(kx + rows + c) * kThreads + up];
-            part[(kx + c) * kThreads + tid] = hs[c];
-            part[(kx + rows + c) * kThreads + tid] = ls[c];
-          }
-        }
-      }
-      __syncthreads();
-    }
-    if (g != 0 || !active) return;
-  }
-
-  // sum_p ((hi_p * 2^32 + lo_p) mod p) = (2^32 * sum hi + sum lo) mod p
-  const unsigned long long p = a.p;
-  const unsigned long long c32 = (1ull << 32) % p;
-  unsigned long long v[MAXR];
-#pragma unroll
-  for (int c = 0; c < MAXR; ++c) {
-    unsigned long long drawn = 0;
-    if (DO_PRNG) drawn = ((hs[c] % p) * c32 + ls[c] % p) % p;
-    if (c < k) {
-      v[c] = ((DO_X ? xs[c] % p : 0ull) + drawn) % p;
-    } else {
-      v[c] = c < rows ? drawn : 0ull;
-    }
-  }
-  long long* out = a.out;
+  for (int c = K; c < ROWS; ++c) v[c] = DO_PRNG ? vd[c] : v[(c - K) % K];
   const long long B = a.B;
-  if (DO_MATMUL) {
-    if (!DO_PRNG) {
-      // no draws: randomness row c repeats value row c - k
+  for (int i = s; i < a.n; i += S) {
+    unsigned long long r = 0;
+    if (DO_MATMUL) {
+      // products < p^2 < 2^58 and 7 of them: the sum fits uint64
 #pragma unroll
-      for (int c = 1; c < MAXR; ++c) {
-        unsigned long long r = 0;
+      for (int c = 0; c < ROWS; ++c) {
+        r += (unsigned long long)a.mat.m[i][c] * v[c];
+      }
+      r = mod_p(r, a.sp);
+    } else {
+      // rows [0, k) the values, [k, k+t) the randomness sums when drawn
 #pragma unroll
-        for (int j = 0; j < c; ++j) {
-          if (j + k == c) r = v[j];
-        }
-        if (c >= k && c < rows) v[c] = r;
+      for (int c = 0; c < ROWS; ++c) {
+        if (i == c && (c < K || DO_PRNG)) r = v[c];
       }
     }
-    // products < p^2 < 2^58 and at most 16 of them: the sum fits uint64
-    for (int i = 0; i < a.n; ++i) {
-      unsigned long long acc = 0;
-#pragma unroll
-      for (int c = 0; c < MAXR; ++c) {
-        if (c < rows) acc += (unsigned long long)a.mat.m[i][c] * v[c];
-      }
-      out[i * B + b] = (long long)(acc % p);
-    }
-  } else {
-    const int stored = DO_PRNG ? rows : k;
-#pragma unroll
-    for (int i = 0; i < MAXR; ++i) {
-      if (i < a.n) out[i * B + b] = i < stored ? (long long)v[i] : 0ll;
-    }
-#pragma unroll
-    for (int i = MAXR; i < kMaxShares; ++i) {
-      if (i < a.n) out[i * B + b] = 0ll;
-    }
+    a.out[i * B + b] = (long long)r;
   }
 }
 
-template <int MAXR, bool DX, bool DP, bool DM, bool SPLIT>
+template <bool DX, bool DP, bool DM, bool SPLIT>
 int launch(const ProbeArgs& a, cudaStream_t stream) {
-  constexpr int G = SPLIT ? kGroup : 1;
-  const dim3 block(kThreads / G, G);
-  const dim3 grid((unsigned)((a.B + block.x - 1) / block.x));
-  const int slots = (DX ? a.k : 0) + (DP ? 2 * (a.k + a.t) : 0);
-  const size_t smem =
-      SPLIT ? (size_t)slots * kThreads * sizeof(unsigned long long) : 0;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        probe_kernel<MAXR, DX, DP, DM, SPLIT>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  probe_kernel<MAXR, DX, DP, DM, SPLIT><<<grid, block, smem, stream>>>(a);
+  const long long threads = a.B * (SPLIT ? kGroup : 1);
+  const dim3 grid((unsigned)((threads + kThreads - 1) / kThreads));
+  probe_kernel<DX, DP, DM, SPLIT><<<grid, kThreads, 0, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-template <int MAXR, bool DX, bool DP>
+template <bool DX, bool DP>
 int by_matmul(bool dm, bool split, const ProbeArgs& a, cudaStream_t s) {
   if (dm) {
-    return split ? launch<MAXR, DX, DP, true, true>(a, s)
-                 : launch<MAXR, DX, DP, true, false>(a, s);
+    return split ? launch<DX, DP, true, true>(a, s)
+                 : launch<DX, DP, true, false>(a, s);
   }
-  return split ? launch<MAXR, DX, DP, false, true>(a, s)
-               : launch<MAXR, DX, DP, false, false>(a, s);
-}
-
-template <int MAXR>
-int by_flags(bool dx, bool dp, bool dm, bool split, const ProbeArgs& a,
-             cudaStream_t s) {
-  if (dx && dp) return by_matmul<MAXR, true, true>(dm, split, a, s);
-  if (dx) return by_matmul<MAXR, true, false>(dm, split, a, s);
-  return by_matmul<MAXR, false, true>(dm, split, a, s);
+  return split ? launch<DX, DP, false, true>(a, s)
+               : launch<DX, DP, false, false>(a, s);
 }
 
 }  // namespace
 
-// x: [P, k, B] 32-bit words at element strides (sx_p, sx_j, sx_b), unread
-// without do_x; out: [n, B] int64; matrix: host [n][k + t] canonical
-// residues; group: threads a column, 1 or 4 (SPLIT). Returns
-// cudaGetLastError() after the launch.
-extern "C" int sda_kernel_probe(const void* x, long long sx_p, long long sx_j,
-                                long long sx_b, void* out, int P, int k, int t,
-                                int n, long long B, unsigned long long seed,
-                                unsigned long long p,
+// x: [P, k, B] 32-bit words in the batch_columns layout (strides
+// (sx_p, 1, k)), unread without do_x; out: [n, B] int64; keys: host
+// [2][10] round keys of the seed; p = 2^e - c; matrix: host [n][k + t]
+// canonical residues; group: threads a column, 1 or 4 (SPLIT).
+// Only the flagship's k = 3, t = 4. Returns cudaGetLastError() after the
+// launch.
+extern "C" int sda_kernel_probe(const void* x, long long sx_p, void* out,
+                                int P, int k, int t, int n, long long B,
+                                const unsigned int* keys,
+                                unsigned long long p, int e,
+                                unsigned long long c,
                                 const unsigned int* matrix, int do_x,
                                 int do_prng, int do_matmul, int group,
                                 void* stream) {
-  if (k < 1 || t < 0 || k + t > kMaxRows || n < 1 || n > kMaxShares ||
-      P < 0 || B < 0 || p < 2 || !(do_x || do_prng) ||
+  if (k != K || t != T || n < 1 || n > kMaxShares || P < 0 || B < 0 ||
+      B > (1ll << 32) || e < 2 || e > 62 || c >= (1ull << e) ||
+      p != (1ull << e) - c || p < 2 || !(do_x || do_prng) ||
       (group != 1 && group != kGroup) ||
-      (!do_matmul && n < (do_prng ? k + t : k))) {
+      (!do_matmul && n < (do_prng ? ROWS : K))) {
     return (int)cudaErrorInvalidValue;
   }
   ProbeArgs a = {};
   a.x = static_cast<const uint32_t*>(x);
   a.sx_p = sx_p;
-  a.sx_j = sx_j;
-  a.sx_b = sx_b;
   a.out = static_cast<long long*>(out);
   a.P = P;
-  a.k = k;
-  a.t = t;
   a.n = n;
   a.B = B;
-  a.key0 = (uint32_t)seed;
-  a.key1 = (uint32_t)(seed >> 32);
-  a.p = p;
+  for (int r = 0; r < kPhiloxRounds; ++r) {
+    a.key.k0[r] = keys[r];
+    a.key.k1[r] = keys[kPhiloxRounds + r];
+  }
+  a.sp = columns::make_solinas(p, e, c);
   for (int i = 0; i < n; ++i) {
-    for (int c = 0; c < k + t; ++c) a.mat.m[i][c] = matrix[i * (k + t) + c];
+    for (int j = 0; j < ROWS; ++j) a.mat.m[i][j] = matrix[i * ROWS + j];
   }
   if (B == 0) return (int)cudaSuccess;
   const auto s = static_cast<cudaStream_t>(stream);
   const bool split = group != 1;
-  if (k + t <= 8) {
-    return by_flags<8>(do_x, do_prng, do_matmul, split, a, s);
-  }
-  return by_flags<16>(do_x, do_prng, do_matmul, split, a, s);
+  if (do_x && do_prng) return by_matmul<true, true>(do_matmul, split, a, s);
+  if (do_x) return by_matmul<true, false>(do_matmul, split, a, s);
+  return by_matmul<false, true>(do_matmul, split, a, s);
 }

@@ -8,7 +8,11 @@ inputs. Here that kernel is hand-written CUDA for Hopper
 
 - ``fused_mask_share_combine``: the kernel's wrapper. For a CUDA tensor it
   launches the kernel (or raises); for a CPU tensor it runs the plain
-  version. It counts its launches in ``fused_mask_share_combine.launches``;
+  version. It counts its launches in ``fused_mask_share_combine.launches``,
+  and by which of the kernel's instances ran (``INSTANCES``) in
+  ``fused_mask_share_combine.instance_launches``;
+- ``philox_round_keys`` and ``kernel_scalars``: what the host hands the
+  kernel besides the tensors (the seed's Philox round keys, p = 2^e - c);
 - ``fused_mask_share_combine_plain``: the same function in plain torch
   int64 (the port's Solinas algebra), the kernel's yardstick;
 - ``philox_bits``: the words the kernel draws in internal mode, in the
@@ -19,7 +23,7 @@ inputs. Here that kernel is hand-written CUDA for Hopper
 The TPU block knobs (``tile``, ``p_block``, ``p_tile``, ``tree_fold``) have
 no counterpart: each CUDA thread owns one column and folds every
 participant, and mod-p sums are order-free, so the output is the one the
-Pallas kernel gives for any of those settings.
+Pallas kernel gives for any of those settings, from every instance.
 
 Randomness: with ``external_bits`` ([P, 2*draws, B] words, 2 per drawn
 residue, the reference's row layout) the output is bit-identical to the
@@ -105,6 +109,17 @@ def philox4x32_10(c0, c1, c2, c3, key0: int, key1: int):
         key0 = (key0 + _PHILOX_W[0]) & _MASK32
         key1 = (key1 + _PHILOX_W[1]) & _MASK32
     return c0, c1, c2, c3
+
+
+def philox_round_keys(seed: int) -> np.ndarray:
+    """[2, 10] uint32: the round keys of Philox4x32-10 under the 64-bit
+    ``seed``, as the kernels take them (``csrc/philox.cuh``): round r is
+    keyed by (seed mod 2^32 + r*W0, seed >> 32 + r*W1) mod 2^32, the key
+    schedule :func:`philox4x32_10` runs."""
+    seed = int(seed) & ((1 << 64) - 1)
+    halves = (seed & _MASK32, seed >> 32)
+    return np.array([[(key + r * w) & _MASK32 for r in range(10)]
+                     for key, w in zip(halves, _PHILOX_W)], dtype=np.uint32)
 
 
 def philox_bits(seed: int, P: int, k: int, t: int, B: int, masked: bool,
@@ -221,14 +236,50 @@ def kernel_operands(x_cols, sp: SolinasPrime, m_host, t: int) -> np.ndarray:
         np.asarray(m_host, dtype=np.int64)[:, 1:] % sp.p, dtype=np.uint32)
 
 
+def kernel_scalars(sp: SolinasPrime, seed: int):
+    """(round keys, p, e, c): what a kernel of K1's shape takes besides
+    the tensors, the seed's Philox round keys and p = 2^e - c, the
+    Solinas form in which it reduces mod p."""
+    return philox_round_keys(seed), sp.p, sp.b, sp.delta
+
+
 @functools.lru_cache(maxsize=None)
-def _kernel():
-    fn = _build.load("fused_round").sda_fused_mask_share_combine
-    ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+def _library():
+    return bind_library(_build.load("fused_round"))
+
+
+def bind_library(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C interface of a built ``csrc/fused_round.cu`` on
+    ``lib`` (ctypes would otherwise pass pointers as 32-bit ints)."""
+    ptr, i64, i32, u64 = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                          ctypes.c_ulonglong)
+    fn = lib.sda_fused_mask_share_combine
     fn.argtypes = [ptr, i64, i64, i64, ptr, ptr, ptr, i32, i32, i32, i32,
-                   i64, i32, ctypes.c_ulonglong, ctypes.c_ulonglong, ptr, ptr]
+                   i64, i32, ptr, u64, i32, u64, ptr,
+                   ctypes.POINTER(ctypes.c_int), ptr]
     fn.restype = ctypes.c_int
-    return fn
+    lib.sda_fused_round_occupancy.argtypes = [i32,
+                                              ctypes.POINTER(ctypes.c_int)]
+    lib.sda_fused_round_occupancy.restype = ctypes.c_int
+    return lib
+
+
+#: K1's instances (``csrc/fused_round.cu``), in the kernel's numbering:
+#: the generic one (every call below), and the main path's for internal
+#: draws, k=3, t=4 and the ``batch_columns`` layout, masked and unmasked
+INSTANCES = ("generic", "columns", "columns_unmasked")
+
+
+def resident_blocks(instance: str) -> int:
+    """Blocks of 256 threads an SM holds at once of K1's ``instance``
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``; the generic one
+    with internal draws and at most 8 value rows). Needs the card."""
+    blocks = ctypes.c_int()
+    err = _library().sda_fused_round_occupancy(
+        INSTANCES.index(instance), ctypes.byref(blocks))
+    if err != 0:
+        raise RuntimeError(f"occupancy query failed: CUDA error {err}")
+    return blocks.value
 
 
 def fused_mask_share_combine(x_cols, seed, sp: SolinasPrime, m_host,
@@ -264,22 +315,27 @@ def fused_mask_share_combine(x_cols, seed, sp: SolinasPrime, m_host,
             raise ValueError("external_bits must be contiguous")
     shares = torch.empty((n, B), dtype=torch.int64, device=dev)
     mask_tot = torch.empty((k, B), dtype=torch.int64, device=dev)
-    fn = _kernel()
+    keys, p, e, c = kernel_scalars(sp, seed)
+    instance = ctypes.c_int()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(x_cols.data_ptr(), *x_cols.stride(),
-                 None if external_bits is None else external_bits.data_ptr(),
-                 shares.data_ptr(), mask_tot.data_ptr(), P, k, t, n, B,
-                 int(masked), int(seed) & ((1 << 64) - 1), sp.p,
-                 m_active.ctypes.data, stream)
+        err = _library().sda_fused_mask_share_combine(
+            x_cols.data_ptr(), *x_cols.stride(),
+            None if external_bits is None else external_bits.data_ptr(),
+            shares.data_ptr(), mask_tot.data_ptr(), P, k, t, n, B,
+            int(masked), keys.ctypes.data, p, e, c, m_active.ctypes.data,
+            ctypes.byref(instance), stream)
     if err != 0:
         raise RuntimeError(
             f"fused_mask_share_combine kernel launch failed: CUDA error {err}")
     fused_mask_share_combine.launches += 1
+    fused_mask_share_combine.instance_launches[INSTANCES[instance.value]] += 1
     return shares, mask_tot
 
 
 fused_mask_share_combine.launches = 0
+#: launches by instance (``INSTANCES``); they add up to ``launches``
+fused_mask_share_combine.instance_launches = dict.fromkeys(INSTANCES, 0)
 
 
 # ---------------------------------------------------------------------------

@@ -23,15 +23,23 @@ from typing import Callable
 import torch
 
 
+#: device clock cycles the stream spins before each timed call (~1 ms at
+#: an H100's 1.98 GHz), longer than a wrapper's host work before a launch
+_BUSY_CYCLES = 2_000_000
+
+
 def median_ms(fn: Callable[[], object], device, reps: int = 20,
               warmup: int = 3) -> float:
     """Median time of one call of ``fn()`` in ms, over ``reps`` calls
     after ``warmup`` untimed ones.
 
     On a CUDA ``device``: device time between CUDA events recorded on the
-    current stream just before and just after each call. Inputs larger
-    than the card's 50 MB L2 need no flush between calls. On the CPU:
-    host time by ``perf_counter``.
+    current stream just before and just after each call. The stream is
+    first kept busy for about a millisecond (``torch.cuda._sleep``), so
+    that the host has queued the call's launches before the first event
+    fires: the time is the device's, not the host's work in ``fn`` before
+    its first launch. Inputs larger than the card's 50 MB L2 need no flush
+    between calls. On the CPU: host time by ``perf_counter``.
     """
     dev = torch.device(device)
     for _ in range(warmup):
@@ -42,6 +50,7 @@ def median_ms(fn: Callable[[], object], device, reps: int = 20,
         for _ in range(reps):
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(_BUSY_CYCLES)
             start.record()
             fn()
             end.record()

@@ -244,14 +244,14 @@ def test_build_is_for_hopper_and_raises_without_nvcc(monkeypatch, tmp_path):
 
 def test_build_key_covers_included_headers_and_flags(monkeypatch, tmp_path):
     """An edited shared header or compiler flag must not load a stale
-    library: both kernels include philox.cuh."""
+    library: both kernels include columns.cuh, which includes philox.cuh."""
     csrc = tmp_path / "csrc"
     shutil.copytree(_build.CSRC, csrc)
     monkeypatch.setattr(_build, "CSRC", csrc)
     names = ("fused_round", "kernel_probe")
     for name in names:
         assert [p.name for p in _build.sources(name)] == \
-            [f"{name}.cu", "philox.cuh"]
+            [f"{name}.cu", "columns.cuh", "philox.cuh"]
     before = {name: _build.library_path(name) for name in names}
     header = csrc / "philox.cuh"
     header.write_text(header.read_text() + "\n// edited\n")

@@ -31,6 +31,7 @@ from sda_tpu.fields import numtheory as ref_nt  # noqa: E402
 from sda_tpu_torch.benchmarks import kernel_probe as kp  # noqa: E402
 from sda_tpu_torch.fields import fused_round  # noqa: E402
 from sda_tpu_torch.fields.fastfield import SolinasPrime  # noqa: E402
+from sda_tpu_torch.fields.sharing import batch_columns  # noqa: E402
 
 T, P29, W2, W3 = ref_nt.generate_packed_params(3, 8, 28)
 SCHEME = ref_proto.PackedShamirSharing(3, 8, T, P29, W2, W3)
@@ -161,6 +162,19 @@ def test_wrapper_validates_variant_shapes_and_device():
         kp.probe_call(torch.empty((2, 3, 10), dtype=torch.int32,
                                   device="meta"),
                       0, SP, M_HOST, T, **kp.VARIANTS["full"])
+
+
+def test_kernel_takes_the_main_path_shape_only():
+    """K5's kernel is K1's main-path instance: the flagship's k=3, t=4 and,
+    when it reads the inputs, their batch_columns layout; the plain
+    version (CPU tensors) takes any shape and strides."""
+    view = batch_columns(torch.zeros((4, 30), dtype=torch.int32), K)
+    kp._check_kernel_shape(K, T, view.stride(), True)
+    kp._check_kernel_shape(K, T, (30, 10, 1), False)   # inputs unread
+    with pytest.raises(ValueError, match="runs k=3, t=4"):
+        kp._check_kernel_shape(1, 3, view.stride(), True)
+    with pytest.raises(ValueError, match="batch_columns layout"):
+        kp._check_kernel_shape(K, T, (30, 10, 1), True)
 
 
 def test_cpu_tensor_never_counts_a_launch():
