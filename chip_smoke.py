@@ -15,10 +15,16 @@ component budget of K1. K1 has three instances, the main path's (the
 ``batch_columns`` layout, internal draws, k=3, t=4), masked and unmasked,
 and the generic one (every other call); each is held to the plain version
 and its registers, spills and resident warps an SM are printed. Each kernel's
-operation bound is counted from the algorithm's work (``MULS``, ``XORS``,
-``ACCUMULATES``), beside the count K1's first CUDA version used; the
-participant loop's SASS opcode mix (``cuobjdump -sass``) is printed as a
-diagnostic. Prints the card's name and power limit, one JSON line of
+operation bound is counted from the algorithm's work
+(``sda_tpu_torch/benchmarks/bounds.py``), beside the count K1's first
+CUDA version used; the participant loop's SASS opcode mix (``cuobjdump
+-sass``) is printed as a diagnostic. Then the protocol path: the role
+crypto (``CryptoModule`` on the card) at the flagship width, P=100,
+without transport; and, where libsodium is present, one round through
+``SdaClient``s on the card over the in-process memory server (P=20 at
+the same width) and the README walkthrough's round over the HTTP server,
+each revealed exactly, with the port's field ops counted by the device
+they ran on. Prints the card's name and power limit, one JSON line of
 kernel measurements, and as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Any failed check raises and exits non-zero; without CUDA, or without the
@@ -32,21 +38,11 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
-#: H100 SXM (NVIDIA data sheet, dense, 700 W): device memory rate; 132 SMs
-#: whose fp32 peak of 67 TFLOP/s (an FMA counted as 2, 128 lanes an SM)
-#: implies the SM clock. Integer work goes to two pipes of 64 lanes an SM
-#: that issue side by side: multiplies (IMAD*) to the FMA pipe, logic and
-#: adds (LOP3, IADD3) to the ALU pipe; carry-in adds may go to either.
-#: Each SM issues at most 128 thread instructions a clock (4 x 32).
-HBM_BYTES_PER_S = 3.35e12
-SMS = 132
-SM_CLOCK_HZ = 67e12 / (SMS * 128 * 2)
-PIPE_OPS_PER_S = SMS * 64 * SM_CLOCK_HZ
-INSTR_PER_S = SMS * 128 * SM_CLOCK_HZ
 #: K1's instances in the SASS: the main path's, masked and unmasked, and
 #: the generic one with internal draws and at most 8 value rows
 K1_KERNELS = {"columns": "fused_round_columnsILi3ELi4ELb1EE",
@@ -55,24 +51,21 @@ K1_KERNELS = {"columns": "fused_round_columnsILi3ELi4ELb1EE",
 #: participants a loop iteration of the main path's instances and of K5
 #: (fields/csrc/columns.cuh)
 UNROLL = 2
-#: The work of one participant and column on the main path (masked
-#: internal draws, k=3, t=4, a column index below 2^32), counted from the
-#: algorithm and not from a compiled loop: 7 drawn rows take 3.5 Philox
-#: blocks of 10 rounds (2 wide multiplies and 2 three-input xors a round),
-#: 80 and 80 in all. The counter (column, participant, row pair) makes 20
-#: multiplies and 12 xors of rounds 1-3 invariant in the participant or
-#: the column (fields/csrc/columns.cuh), and the half-used block's last
-#: multiply and xor are dead: 60 wide multiplies (FMA pipe) and 68 LOP3
-#: (ALU pipe) stay. Each input word (3) and drawn word (14) is one 64-bit
-#: accumulate, an IADD3 (ALU pipe) and a carry-in add (FMA pipe).
-MULS, XORS, ACCUMULATES = 60, 68, 17
-#: the count of K1's first CUDA version: 35 whole Philox rounds, nothing
-#: factored
-WHOLE_ROUND_MULS, WHOLE_ROUND_XORS = 70, 70
 
 DEVICE = "cuda"
 P_MAIN, D_MAIN = 100, 999_999
 DIM_TILE = 262_144
+#: participants of the protocol round over the in-process server (phase
+#: 10): cut from P_MAIN for time only, since the host's sealing and ChaCha
+#: draws cost about a second a participant at D_MAIN
+P_PROTOCOL = 20
+#: the port's field ops that the role crypto calls (sda_tpu_torch.fields,
+#: looked up there at each call), counted by the device of their inputs
+ROLE_OPS = ("combine", "packed_share_from_randomness", "packed_reconstruct",
+            "modadd", "modsub", "additive_share_from_randomness")
+#: the README walkthrough's round: three participants' 10-dim inputs
+WALKTHROUGH = ([0, 0, 0, 1, 1, 1, 2, 2, 2, 3], [0, 1, 1, 1, 1, 2, 2, 3, 3, 3],
+               [0, 1, 1, 2, 2, 3, 2, 3, 3, 4])
 
 
 def _fail(msg: str) -> None:
@@ -138,36 +131,231 @@ def _profile(label: str, fn, reps: int = 3) -> None:
               f" calls/round  {key[:100]}")
 
 
-def _bound(P, B, k, draws, do_x, out_rows, muls=MULS, xors=XORS):
-    """Least time (ms) the card could take for the work of a kernel of K1's
-    shape at these shapes, and what bounds it: the larger of its bytes
-    (input words once, int64 outputs once) at the memory rate and its
-    integer operations: a participant and column takes ``muls`` wide
-    multiplies (FMA pipe) and ``xors`` LOP3 (ALU pipe) when it draws, and
-    one 64-bit accumulate (an IADD3 on the ALU pipe and a carry-in add on
-    the FMA pipe) per input word and drawn word. The per-column epilogue
-    (one reduction and contraction a column, not a participant) is left
-    out. Returns (bound_ms, bound_by, detail)."""
-    fold_words = (k if do_x else 0) + 2 * draws
-    if not draws:
-        muls = xors = 0
-    fma_ops = P * B * (muls + fold_words)
-    alu_ops = P * B * (xors + fold_words)
-    ops_ms = max(max(fma_ops, alu_ops) / PIPE_OPS_PER_S,
-                 (fma_ops + alu_ops) / INSTR_PER_S) * 1e3
-    # the same work if a wide multiply took two FMA-pipe issue slots
-    fma_half = fma_ops + P * B * muls
-    half_ms = max(max(fma_half, alu_ops) / PIPE_OPS_PER_S,
-                  (fma_half + alu_ops) / INSTR_PER_S) * 1e3
-    bytes_moved = (P * k * B * 4 if do_x else 0) + out_rows * B * 8
-    bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
-    detail = (f"{bytes_moved} bytes -> {bytes_ms:.4f} ms; {fma_ops:.0f} "
-              f"FMA-pipe + {alu_ops:.0f} ALU-pipe ops ({muls} multiplies, "
-              f"{xors} xors, {fold_words} accumulates a participant and "
-              f"column) -> {ops_ms:.4f} ms ({half_ms:.4f} ms with wide "
-              f"multiplies at half rate)")
-    return (max(bytes_ms, ops_ms),
-            "operations" if ops_ms >= bytes_ms else "bytes", detail)
+class DeviceCounts:
+    """While entered, wraps the port's field ops ``ROLE_OPS`` to count
+    their calls by the device type of their tensor arguments."""
+
+    def __init__(self):
+        from sda_tpu_torch import fields
+
+        self.fields = fields
+        self.calls = {name: collections.Counter() for name in ROLE_OPS}
+
+    def _wrap(self, name, fn):
+        import torch
+
+        def counted(*args, **kwargs):
+            self.calls[name].update(
+                {a.device.type for a in list(args) + list(kwargs.values())
+                 if isinstance(a, torch.Tensor)})
+            return fn(*args, **kwargs)
+        return counted
+
+    def __enter__(self):
+        self._saved = {n: getattr(self.fields, n) for n in ROLE_OPS}
+        for name, fn in self._saved.items():
+            setattr(self.fields, name, self._wrap(name, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self._saved.items():
+            setattr(self.fields, name, fn)
+
+    def check(self, label, device_type, required):
+        """Each op of ``required`` ran on ``device_type`` and no op ran on
+        another device."""
+        for name in required:
+            _check(self.calls[name][device_type] > 0,
+                   f"{label}: {name} never ran on {device_type}")
+        for name, by_dev in self.calls.items():
+            other = {d: c for d, c in by_dev.items() if d != device_type}
+            _check(not other, f"{label}: {name} ran on {other}")
+        return {name: dict(c) for name, c in self.calls.items() if c}
+
+
+def _flagship():
+    from sda_tpu_torch.fields import numtheory
+    from sda_tpu_torch.protocol import FullMasking, PackedShamirSharing
+
+    t, p, w2, w3 = numtheory.generate_packed_params(3, 8, 28)
+    return PackedShamirSharing(3, 8, t, p, w2, w3), FullMasking(p), p
+
+
+def _phases(utils):
+    return {name: stat["total_s"]
+            for name, stat in utils.phase_report().items()}
+
+
+def role_crypto(dev, P, D, seed=0):
+    """Phase 9: the role crypto at the flagship width, no transport. Each
+    of P participants masks and shares, the n clerk combiners and the mask
+    combiner fold, the recipient reconstructs from all shares and from a
+    dropout's survivors and unmasks; both reveals must equal the column
+    sum. Returns the phase's JSON record."""
+    import numpy as np
+
+    from sda_tpu_torch import utils
+    from sda_tpu_torch.crypto import CryptoModule, MemoryKeystore, rand
+    from sda_tpu_torch.utils import timed_phase
+
+    scheme, masking, p = _flagship()
+    n = scheme.share_count
+    cm = CryptoModule(MemoryKeystore(), device=dev)
+    inputs = np.random.default_rng(seed).integers(0, 1 << 20, size=(P, D))
+    expect = inputs.sum(0) % p
+    utils.reset_phase_report()
+    per_clerk, masks = [[] for _ in range(n)], []
+    with DeviceCounts() as counts:
+        t0 = time.perf_counter()
+        for x in inputs:   # a masker and a generator a call, as a client
+            with timed_phase("participant.mask"):
+                mask, masked = cm.new_secret_masker(masking).mask(x)
+            with timed_phase("participant.share"):
+                shares = cm.new_share_generator(scheme).generate(masked)
+            masks.append(mask)
+            for clerk, share in zip(per_clerk, shares):
+                clerk.append(share)
+        combined = []
+        for clerk in per_clerk:
+            with timed_phase("clerk.combine"):
+                combined.append(cm.new_share_combiner(scheme).combine(clerk))
+        del per_clerk
+        with timed_phase("recipient.combine_masks"):
+            mask_total = cm.new_mask_combiner(masking).combine(masks)
+        reveals = {}
+        for label, survivors in (("all", range(n)),
+                                 ("dropout", [i for i in range(n) if i != 2])):
+            with timed_phase("recipient.reconstruct"):
+                total = cm.new_secret_reconstructor(scheme, D).reconstruct(
+                    [(i, combined[i]) for i in survivors])
+            with timed_phase("recipient.unmask"):
+                out = cm.new_secret_unmasker(masking).unmask(mask_total, total)
+            _check(out.dtype == np.int64 and out.shape == (D,),
+                   f"role crypto ({label}): output {out.dtype}{out.shape}")
+            _check(np.array_equal(out, expect),
+                   f"role crypto ({label}): != column sum mod p")
+            reveals[label] = len(list(survivors))
+        wall = time.perf_counter() - t0
+    calls = counts.check("role crypto", dev.type, ROLE_OPS[:5])
+    return {"stage": "role_crypto", "participants": P, "dim": D,
+            "rand_mode": rand.get_mode(), "survivors": reveals, "exact": True,
+            "wall_s": wall, "phases_s": _phases(utils), "device_calls": calls}
+
+
+def _round(service, dev, aggregation, inputs, clerks):
+    """``tests/test_full_loop.py``'s flow through ``SdaClient``s on
+    ``dev``; returns the revealed values."""
+    from sda_tpu_torch.client import SdaClient
+    from sda_tpu_torch.crypto import MemoryKeystore
+
+    def client():
+        keystore = MemoryKeystore()
+        return SdaClient(SdaClient.new_agent(keystore), keystore, service,
+                         device=dev)
+
+    recipient = client()
+    key = recipient.new_encryption_key()
+    recipient.upload_agent()
+    recipient.upload_encryption_key(key)
+    aggregation = aggregation.replace(recipient=recipient.agent.id,
+                                      recipient_key=key)
+    recipient.upload_aggregation(aggregation)
+    workers = [client() for _ in range(clerks)]
+    for clerk in workers:
+        clerk_key = clerk.new_encryption_key()
+        clerk.upload_agent()
+        clerk.upload_encryption_key(clerk_key)
+    recipient.begin_aggregation(aggregation.id)
+    for x in inputs:
+        participant = client()
+        participant.upload_agent()
+        participant.participate(x, aggregation.id)
+    recipient.end_aggregation(aggregation.id)
+    for worker in [recipient] + workers:
+        worker.run_chores(-1)
+    return recipient.reveal_aggregation(aggregation.id).positive().values
+
+
+def _aggregation(dim, modulus, masking, sharing):
+    from sda_tpu_torch.protocol import (Aggregation, AggregationId, AgentId,
+                                        EncryptionKeyId, SodiumEncryption)
+
+    return Aggregation(
+        id=AggregationId.random(), title="chip smoke", vector_dimension=dim,
+        modulus=modulus, recipient=AgentId.random(),
+        recipient_key=EncryptionKeyId.random(), masking_scheme=masking,
+        committee_sharing_scheme=sharing,
+        recipient_encryption_scheme=SodiumEncryption(),
+        committee_encryption_scheme=SodiumEncryption())
+
+
+def protocol_round(dev, P, D, seed=0):
+    """Phase 10: one round over the in-process memory server at the
+    flagship width, every role an ``SdaClient`` on ``dev``: one recipient,
+    n clerks, P participants. Returns the phase's JSON record."""
+    import numpy as np
+
+    from sda_tpu_torch import utils
+    from sda_tpu_torch.server import new_memory_server
+
+    scheme, masking, p = _flagship()
+    inputs = np.random.default_rng(seed).integers(0, 1 << 20, size=(P, D))
+    utils.reset_phase_report()
+    with DeviceCounts() as counts:
+        t0 = time.perf_counter()
+        out = _round(new_memory_server(), dev,
+                     _aggregation(D, p, masking, scheme), inputs,
+                     scheme.share_count)
+        wall = time.perf_counter() - t0
+    _check(np.array_equal(out, inputs.sum(0) % p),
+           "protocol round: reveal != column sum mod p")
+    calls = counts.check("protocol round", dev.type, ROLE_OPS[:5])
+    return {"stage": "protocol_round", "run": True, "participants": P,
+            "clerks": scheme.share_count, "dim": D, "exact": True,
+            "wall_s": wall, "elements_per_s": P * D / wall,
+            "phases_s": _phases(utils), "device_calls": calls}
+
+
+def http_round(dev, host_path_max):
+    """Phase 11: the README walkthrough's round (additive sharing over 3
+    clerks, mod 433, d=10, 3 participants) over the threaded HTTP server,
+    with the sharing module's ``HOST_PATH_MAX`` set as given (0 sends even
+    this round's algebra to ``dev``). Returns the phase's JSON record."""
+    import numpy as np
+
+    from sda_tpu_torch.crypto import sharing
+    from sda_tpu_torch.http import SdaHttpClient, SdaHttpServer
+    from sda_tpu_torch.protocol import AdditiveSharing, NoMasking
+    from sda_tpu_torch.server import new_memory_server
+    from sda_tpu_torch.store import Filebased
+
+    saved = sharing.HOST_PATH_MAX
+    sharing.HOST_PATH_MAX = host_path_max
+    server = SdaHttpServer(new_memory_server(), bind="127.0.0.1:0")
+    server.start_background()
+    try:
+        with tempfile.TemporaryDirectory() as tokens, \
+                DeviceCounts() as counts:
+            proxy = SdaHttpClient(server.address, store=Filebased(tokens))
+            t0 = time.perf_counter()
+            out = _round(proxy, dev, _aggregation(
+                10, 433, NoMasking(), AdditiveSharing(3, 433)),
+                WALKTHROUGH, 3)
+            wall = time.perf_counter() - t0
+    finally:
+        server.shutdown()
+        sharing.HOST_PATH_MAX = saved
+    want = [0, 2, 2, 4, 4, 6, 6, 8, 8, 10]
+    _check(np.array_equal(out, want), f"HTTP round: reveal {out} != {want}")
+    on_device = host_path_max == 0
+    calls = counts.check(
+        f"HTTP round (HOST_PATH_MAX={host_path_max})", dev.type,
+        ("combine", "additive_share_from_randomness") if on_device else ())
+    _check(on_device or not calls,
+           f"HTTP round: device work below HOST_PATH_MAX: {calls}")
+    return {"stage": "http_round", "run": True,
+            "host_path_max": host_path_max, "reveal": [int(v) for v in out],
+            "exact": True, "wall_s": wall, "device_calls": calls}
 
 
 def main() -> int:
@@ -189,6 +377,10 @@ def main() -> int:
     import numpy as np
 
     from sda_tpu_torch.benchmarks import kernel_probe
+    from sda_tpu_torch.benchmarks.bounds import (INSTR_PER_S,
+                                                 WHOLE_ROUND_MULS,
+                                                 WHOLE_ROUND_XORS)
+    from sda_tpu_torch.benchmarks.bounds import k1_bound as _bound
     from sda_tpu_torch.fields import _build, fused_round, numtheory
     from sda_tpu_torch.fields.dimtile import tile_plan
     from sda_tpu_torch.fields.sharing import batch_columns
@@ -501,6 +693,24 @@ def main() -> int:
     print(f"library fold (torch.remainder(x.to(int64).sum(0), p)) at "
           f"P={P_MAIN} B={B_main}: {lib_ms:.4f} ms median of 20 "
           f"(CUDA events); fold_only kernel {k5['fold_only']['ms']:.4f} ms")
+
+    # -- 9. the role crypto at the flagship width, no transport -----------
+    print(f"role crypto: flagship scheme, Full masking, P={P_MAIN} x "
+          f"d={D_MAIN} ({smi}):")
+    print(json.dumps(role_crypto(dev, P_MAIN, D_MAIN)), flush=True)
+
+    # -- 10-11. protocol rounds through SdaClient (need libsodium) ----------
+    from sda_tpu_torch.crypto import sharing, sodium
+
+    if not sodium.available():
+        print(json.dumps({"stage": "protocol_round", "run": False,
+                          "why": "libsodium not found on this machine"}))
+    else:
+        print(f"protocol round: memory server, P={P_PROTOCOL} x d={D_MAIN} "
+              f"({smi}):")
+        print(json.dumps(protocol_round(dev, P_PROTOCOL, D_MAIN)), flush=True)
+        for host_path_max in (sharing.HOST_PATH_MAX, 0):
+            print(json.dumps(http_round(dev, host_path_max)), flush=True)
 
     # -- 8. the record ------------------------------------------------------
     print(smi)

@@ -8,12 +8,20 @@ dtype flag is set. Public entry points take ``device=None``, meaning
 ``torch.device("cuda")``, and raise ``RuntimeError`` without CUDA unless the
 caller passes ``device="cpu"``.
 
-- ``sda_tpu_torch.protocol`` — scheme parameters (masking and sharing)
+- ``sda_tpu_torch.protocol`` — resources, scheme parameters, service seam
 - ``sda_tpu_torch.fields``   — Z_p math: int64 modular and Solinas lanes,
-  sharing, dimension tiling, and the fused mask-share-combine kernel
+  sharing, dimension tiling, host ChaCha, and the fused
+  mask-share-combine kernel
+- ``sda_tpu_torch.crypto``   — sharing/masking (on the role's device),
+  encryption and signing (libsodium, on the host)
+- ``sda_tpu_torch.client``   — participant/clerk/recipient workflows
+- ``sda_tpu_torch.server``   — server core and its stores (memory, jsonfs,
+  sqlite, mongo)
+- ``sda_tpu_torch.http``     — the REST transport, both directions
+- ``sda_tpu_torch.store``    — client-side key/identity storage
 - ``sda_tpu_torch.mesh``     — the single-device aggregation round
-- ``sda_tpu_torch.convert``  — schemes and matrices carried across from
-  the JAX package
+- ``sda_tpu_torch.convert``  — schemes, resources and matrices carried
+  across from the JAX package
 """
 
 __version__ = "0.1.0"

@@ -1,0 +1,73 @@
+"""The least time an H100 could take for K1's work, counted from the
+algorithm and the bytes: shared by ``chip_smoke.py`` and ``k1_ab``."""
+
+from __future__ import annotations
+
+#: H100 SXM (NVIDIA data sheet, dense, 700 W): device memory rate; 132 SMs
+#: whose fp32 peak of 67 TFLOP/s (an FMA counted as 2, 128 lanes an SM)
+#: implies the SM clock. Integer work goes to two pipes of 64 lanes an SM
+#: that issue side by side: multiplies (IMAD*) to the FMA pipe, logic and
+#: adds (LOP3, IADD3) to the ALU pipe; carry-in adds may go to either.
+#: Each SM issues at most 128 thread instructions a clock (4 x 32).
+HBM_BYTES_PER_S = 3.35e12
+SMS = 132
+SM_CLOCK_HZ = 67e12 / (SMS * 128 * 2)
+PIPE_OPS_PER_S = SMS * 64 * SM_CLOCK_HZ
+INSTR_PER_S = SMS * 128 * SM_CLOCK_HZ
+#: The work of one participant and column on the main path (masked
+#: internal draws, k=3, t=4, a column index below 2^32), counted from the
+#: algorithm and not from a compiled loop: 7 drawn rows take 3.5 Philox
+#: blocks of 10 rounds (2 wide multiplies and 2 three-input xors a round),
+#: 80 and 80 in all. The counter (column, participant, row pair) makes 20
+#: multiplies and 12 xors of rounds 1-3 invariant in the participant or
+#: the column (fields/csrc/columns.cuh), and the half-used block's last
+#: multiply and xor are dead: 60 wide multiplies (FMA pipe) and 68 LOP3
+#: (ALU pipe) stay. Each input word (3) and drawn word (14) is one 64-bit
+#: accumulate, an IADD3 (ALU pipe) and a carry-in add (FMA pipe).
+MULS, XORS, ACCUMULATES = 60, 68, 17
+#: the count of K1's first CUDA version: 35 whole Philox rounds, nothing
+#: factored
+WHOLE_ROUND_MULS, WHOLE_ROUND_XORS = 70, 70
+
+
+def philox_ops(rows: int):
+    """Wide multiplies and xors a participant and column needs to draw
+    ``rows`` 64-bit rows: a Philox block (two rows) costs what a block of
+    the main path's count does, 60 / 4 multiplies and 68 / 4 xors."""
+    blocks = -(-rows // 2)
+    return MULS * blocks // 4, XORS * blocks // 4
+
+
+def k1_bound(P, B, k, draws, do_x, out_rows, muls=MULS, xors=XORS,
+             external_bits=False):
+    """Least time (ms) the card could take for the work of a kernel of K1's
+    shape at these shapes, and what bounds it: the larger of its bytes
+    (input words once, int64 outputs once) at the memory rate and its
+    integer operations: a participant and column takes ``muls`` wide
+    multiplies (FMA pipe) and ``xors`` LOP3 (ALU pipe) when it draws, and
+    one 64-bit accumulate (an IADD3 on the ALU pipe and a carry-in add on
+    the FMA pipe) per input word and drawn word. With ``external_bits``
+    the ``draws`` rows are read (two uint32 words each) instead of drawn.
+    The per-column epilogue (one reduction and contraction a column, not a
+    participant) is left out. Returns (bound_ms, bound_by, detail)."""
+    fold_words = (k if do_x else 0) + 2 * draws
+    if not draws or external_bits:
+        muls = xors = 0
+    fma_ops = P * B * (muls + fold_words)
+    alu_ops = P * B * (xors + fold_words)
+    ops_ms = max(max(fma_ops, alu_ops) / PIPE_OPS_PER_S,
+                 (fma_ops + alu_ops) / INSTR_PER_S) * 1e3
+    # the same work if a wide multiply took two FMA-pipe issue slots
+    fma_half = fma_ops + P * B * muls
+    half_ms = max(max(fma_half, alu_ops) / PIPE_OPS_PER_S,
+                  (fma_half + alu_ops) / INSTR_PER_S) * 1e3
+    bytes_moved = ((P * k * B * 4 if do_x else 0) + out_rows * B * 8
+                   + (P * 2 * draws * B * 4 if external_bits else 0))
+    bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+    detail = (f"{bytes_moved} bytes -> {bytes_ms:.4f} ms; {fma_ops:.0f} "
+              f"FMA-pipe + {alu_ops:.0f} ALU-pipe ops ({muls} multiplies, "
+              f"{xors} xors, {fold_words} accumulates a participant and "
+              f"column) -> {ops_ms:.4f} ms ({half_ms:.4f} ms with wide "
+              f"multiplies at half rate)")
+    return (max(bytes_ms, ops_ms),
+            "operations" if ops_ms >= bytes_ms else "bytes", detail)

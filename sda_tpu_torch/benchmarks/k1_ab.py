@@ -25,8 +25,9 @@ Each call of each build must give the plain version's shares and mask
 totals exactly. The calls are timed in turns (parent, this checkout,
 this checkout, parent) by ``utils.benchtime.median_ms``, median of 20
 each. Prints one JSON line a case (the instance this checkout ran, both
-builds' times, the card's name and power limit) and exits non-zero on a
-failed build or a mismatch.
+builds' times, the least time the card could take for the call's work as
+``benchmarks/bounds.py`` counts it, the card's name and power limit) and
+exits non-zero on a failed build or a mismatch.
 """
 
 from __future__ import annotations
@@ -48,6 +49,7 @@ from ..fields.fastfield import SolinasPrime
 from ..fields.sharing import batch_columns
 from ..protocol import BasicShamirSharing, PackedShamirSharing
 from ..utils.benchtime import median_ms
+from .bounds import k1_bound, philox_ops
 
 P_AB, D_AB = 100, 999_999
 SEED = 7
@@ -154,6 +156,10 @@ def main(argv=None) -> int:
                                       "exact": False}), flush=True)
                     return 1
             del want
+            draws = (k if masked else 0) + t
+            bound_ms, bound_by, detail = k1_bound(
+                P, B, k, draws, True, n + (k if masked else 0),
+                *philox_ops(draws), external_bits=bits is not None)
             times = {who: [] for who in calls}
             for who in ("parent", "ours", "ours", "parent"):
                 fn, fargs = calls[who]
@@ -163,7 +169,8 @@ def main(argv=None) -> int:
                 "exact": True,
                 "instance": fused_round.INSTANCES[instance.value],
                 "parent_ms": times["parent"], "ms": times["ours"],
-                "card": smi}), flush=True)
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "bound_detail": detail, "card": smi}), flush=True)
     return 0
 
 

@@ -1,6 +1,6 @@
 """The math core: Z_m/Z_p kernels, scheme matrices, the fused round kernel."""
 
-from . import numtheory, oracle
+from . import chacha, numtheory, oracle
 from .modular import (
     canon,
     modadd,

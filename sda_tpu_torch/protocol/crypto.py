@@ -1,14 +1,51 @@
-"""Scheme parameters for masking and secret sharing — schemes are *data*.
+"""Scheme parameters for the cryptographic primitives — schemes are *data*.
 
-The masking and sharing scheme classes of ``sda_tpu/protocol/crypto.py``
-(reference: protocol/src/crypto.rs:43-155), copied so the port imports
-nothing of the JAX package. ``to_obj``/``from_obj`` keep the same wire
-shape, so a scheme crosses between the two packages as its ``to_obj()``
-dict (``sda_tpu_torch.convert``). Ciphertext/key wrappers and the
-encryption schemes come with the protocol slice.
+Mirrors the reference's scheme algebra (reference: protocol/src/crypto.rs):
+ciphertext/key wrappers (:8-39), masking schemes (:43-75), secret-sharing
+schemes with derived properties (:79-155), and additive encryption schemes
+(:159-188). All scheme configuration travels in-band inside the Aggregation
+resource, so adding a scheme never changes the wire protocol shape.
 """
 
 from __future__ import annotations
+
+from .helpers import B32, B64, Binary, TaggedEnum
+
+
+# ---------------------------------------------------------------------------
+# Ciphertexts, keys, signatures (crypto.rs:8-39)
+
+class Encryption(TaggedEnum):
+    """A ciphertext. ``Sodium`` = Curve25519+XSalsa20+Poly1305 sealed box;
+    ``PackedPaillier`` = length-framed homomorphic ciphertext batch (the
+    reference declares this variant but ships it disabled,
+    crypto.rs:164-174)."""
+    VARIANTS = {"Sodium": Binary, "PackedPaillier": Binary}
+
+    @classmethod
+    def sodium(cls, data: bytes) -> "Encryption":
+        return cls("Sodium", Binary(data))
+
+
+class EncryptionKey(TaggedEnum):
+    """A public encryption key: 32-byte Curve25519, or a big-endian
+    Paillier modulus n."""
+    VARIANTS = {"Sodium": B32, "PackedPaillier": Binary}
+
+
+class Signature(TaggedEnum):
+    """A detached signature (64-byte Ed25519)."""
+    VARIANTS = {"Sodium": B64}
+
+
+class SigningKey(TaggedEnum):
+    """A secret signing key (64-byte Ed25519 expanded key)."""
+    VARIANTS = {"Sodium": B64}
+
+
+class VerificationKey(TaggedEnum):
+    """A public signature-verification key (32-byte Ed25519)."""
+    VARIANTS = {"Sodium": B32}
 
 
 # ---------------------------------------------------------------------------
@@ -22,9 +59,9 @@ from __future__ import annotations
 #: spec is an explicit opt-in extension serialized as an extra "prg" key.
 #: Unknown tags are rejected at parse time: an unrecognized stream must
 #: fail loudly, never silently alias another one (that is the
-#: wrong-aggregate hazard the tag exists to prevent). The reference keeps
-#: the same literals in its fields.chacha (the spec home); the port's
-#: ChaCha slice brings that module.
+#: wrong-aggregate hazard the tag exists to prevent). Literals duplicated
+#: in fields.chacha (the spec home) to keep this wire layer import-light;
+#: tests pin the two sets equal.
 CHACHA_PRG_RAND03 = "rand-0.3/chacharng"
 CHACHA_PRG_V1 = "sda-tpu/chacha20-prg/v1"
 _CHACHA_PRGS = (CHACHA_PRG_RAND03, CHACHA_PRG_V1)
@@ -306,3 +343,105 @@ class PackedShamirSharing(LinearSecretSharingScheme):
                 "omega_shares": self.omega_shares,
             }
         }
+
+
+# ---------------------------------------------------------------------------
+# Additive encryption schemes (crypto.rs:159-188)
+
+class AdditiveEncryptionScheme:
+    """Share-transport encryption scheme."""
+
+    batch_size: int = 1
+
+    def to_obj(self):
+        raise NotImplementedError
+
+    @staticmethod
+    def from_obj(obj) -> "AdditiveEncryptionScheme":
+        if obj == "Sodium":
+            return SodiumEncryption()
+        if isinstance(obj, dict) and set(obj) == {"PackedPaillier"}:
+            p = obj["PackedPaillier"]
+            return PackedPaillierEncryption(
+                component_count=p["component_count"],
+                component_bitsize=p["component_bitsize"],
+                max_value_bitsize=p["max_value_bitsize"],
+                min_modulus_bitsize=p["min_modulus_bitsize"],
+            )
+        raise ValueError(f"unknown encryption scheme {obj!r}")
+
+    def __eq__(self, other):
+        return type(self) is type(other) and self.to_obj() == other.to_obj()
+
+    def __hash__(self):
+        return hash(repr(self.to_obj()))
+
+    def __repr__(self):
+        return f"{type(self).__name__}()"
+
+
+class SodiumEncryption(AdditiveEncryptionScheme):
+    """libsodium sealed box (Curve25519+XSalsa20+Poly1305), anonymous sender."""
+
+    batch_size = 1
+
+    def to_obj(self):
+        return "Sodium"
+
+
+class PackedPaillierEncryption(AdditiveEncryptionScheme):
+    """Packed Paillier: additively homomorphic ciphertexts.
+
+    Parameter semantics follow the reference's (disabled) declaration,
+    crypto.rs:164-174: ``component_count`` values are packed per plaintext in
+    ``component_bitsize``-bit windows; fresh values must fit
+    ``max_value_bitsize`` bits, so up to ``2^(component_bitsize -
+    max_value_bitsize)`` ciphertexts can be summed homomorphically before a
+    component overflows its window; ``min_modulus_bitsize`` floors the key
+    size n (and component_count * component_bitsize must fit under it).
+    ``batch_size()`` is ``component_count``, matching crypto.rs:181-186.
+
+    Sizing note: in the *recipient* slot under ChaCha masking the encrypted
+    "mask" vector carries 32-bit seed words (chacha.rs:49-53 convention), so
+    that slot needs ``max_value_bitsize >= 32``; the committee slot only
+    carries field elements ``< modulus``.
+    """
+
+    def __init__(self, component_count: int, component_bitsize: int,
+                 max_value_bitsize: int, min_modulus_bitsize: int):
+        if max_value_bitsize > component_bitsize:
+            raise ValueError("max_value_bitsize exceeds the component window")
+        if component_bitsize > 63:
+            raise ValueError("component window exceeds the int64 share range")
+        if component_count * component_bitsize >= min_modulus_bitsize:
+            raise ValueError("packed plaintext does not fit under the modulus floor")
+        self.component_count = component_count
+        self.component_bitsize = component_bitsize
+        self.max_value_bitsize = max_value_bitsize
+        self.min_modulus_bitsize = min_modulus_bitsize
+
+    @property
+    def batch_size(self) -> int:  # type: ignore[override]
+        return self.component_count
+
+    @property
+    def additive_capacity(self) -> int:
+        """How many fresh ciphertexts may be summed without window overflow."""
+        return 1 << (self.component_bitsize - self.max_value_bitsize)
+
+    def to_obj(self):
+        return {
+            "PackedPaillier": {
+                "component_count": self.component_count,
+                "component_bitsize": self.component_bitsize,
+                "max_value_bitsize": self.max_value_bitsize,
+                "min_modulus_bitsize": self.min_modulus_bitsize,
+            }
+        }
+
+    def __repr__(self):
+        return (
+            f"PackedPaillierEncryption({self.component_count}, "
+            f"{self.component_bitsize}, {self.max_value_bitsize}, "
+            f"{self.min_modulus_bitsize})"
+        )

@@ -1,0 +1,278 @@
+"""Role-level parity of the port's crypto modules with ``sda_tpu.crypto``.
+
+Both packages draw their share and mask randomness from ChaCha seeds
+(``fields.chacha.random_seed``); each test hands both the same seeded
+sequence of seeds, so generators, combiners, reconstructors and maskers
+must agree bit for bit. Every case runs at the sharing module's
+``HOST_PATH_MAX`` default (small vectors take the numpy oracle) and at 0
+(the JAX package's jnp path against the port's torch path on the CPU).
+"""
+
+import numpy as np
+import pytest
+
+from sda_tpu.crypto import masking as ref_masking
+from sda_tpu.crypto import sharing as ref_sharing
+from sda_tpu.fields import chacha as ref_chacha
+from sda_tpu.fields import numtheory as ref_nt
+
+from sda_tpu_torch.crypto import CryptoModule, MemoryKeystore, rand
+from sda_tpu_torch.crypto import masking, sharing
+from sda_tpu_torch.fields import chacha
+from sda_tpu_torch.protocol import (
+    CHACHA_PRG_RAND03,
+    CHACHA_PRG_V1,
+    AdditiveSharing,
+    BasicShamirSharing,
+    ChaChaMasking,
+    FullMasking,
+    NoMasking,
+    PackedShamirSharing,
+)
+from sda_tpu_torch.convert import resource_from_reference
+
+_T, P29, _W2, _W3 = ref_nt.generate_packed_params(3, 8, 28)
+
+SHARING = {
+    "additive": AdditiveSharing(share_count=3, modulus=433),
+    "additive-wide": AdditiveSharing(share_count=5, modulus=(1 << 61) - 1),
+    "packed-433": PackedShamirSharing(3, 8, 4, 433, 354, 150),
+    "packed-flagship": PackedShamirSharing(3, 8, _T, P29, _W2, _W3),
+    "basic-shamir": BasicShamirSharing(5, 2, 433),
+}
+DIMS = [4, 1000, 2999]
+
+
+def _ref(scheme):
+    """The reference package's scheme of the same wire object."""
+    from sda_tpu.protocol import (
+        LinearMaskingScheme as RefMasking,
+        LinearSecretSharingScheme as RefSharing,
+    )
+
+    obj = scheme.to_obj()
+    if isinstance(scheme, (NoMasking, FullMasking, ChaChaMasking)):
+        return RefMasking.from_obj(obj)
+    return RefSharing.from_obj(obj)
+
+
+def _modulus(scheme):
+    return getattr(scheme, "prime_modulus", None) or scheme.modulus
+
+
+def _seeded(seed):
+    """A ``random_seed`` replacement drawing its words from ``seed``."""
+    rng = np.random.default_rng(seed)
+
+    def random_seed(seed_bitsize):
+        return [int(w) for w in rng.integers(0, 1 << 32,
+                                             size=(seed_bitsize + 31) // 32)]
+    return random_seed
+
+
+@pytest.fixture(params=["default", "zero"])
+def host_path_max(request, monkeypatch):
+    if request.param == "zero":
+        monkeypatch.setattr(sharing, "HOST_PATH_MAX", 0)
+        monkeypatch.setattr(ref_sharing, "HOST_PATH_MAX", 0)
+    return request.param
+
+
+@pytest.fixture
+def same_seeds(monkeypatch):
+    """``run(seed, ref_fn, port_fn)``: each side's draws from ``seed``."""
+    def run(seed, ref_fn, port_fn):
+        monkeypatch.setattr(ref_chacha, "random_seed", _seeded(seed))
+        want = ref_fn()
+        monkeypatch.setattr(chacha, "random_seed", _seeded(seed))
+        got = port_fn()
+        return want, got
+    return run
+
+
+def _assert_rows_equal(got, want):
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert np.asarray(g).dtype == np.int64
+        np.testing.assert_array_equal(g, np.asarray(w))
+
+
+@pytest.mark.parametrize("d", DIMS)
+@pytest.mark.parametrize("name", sorted(SHARING))
+def test_share_generator(name, d, host_path_max, same_seeds):
+    scheme = SHARING[name]
+    secrets = np.random.default_rng(d).integers(0, min(_modulus(scheme), 1 << 20),
+                                                size=d)
+    want, got = same_seeds(
+        d,
+        lambda: ref_sharing.new_share_generator(_ref(scheme)).generate(secrets),
+        lambda: sharing.new_share_generator(scheme, "cpu").generate(secrets))
+    _assert_rows_equal(got, want)
+
+
+@pytest.mark.parametrize("d", DIMS)
+@pytest.mark.parametrize("name", sorted(SHARING))
+def test_share_combiner(name, d, host_path_max):
+    scheme = SHARING[name]
+    m = _modulus(scheme)
+    rng = np.random.default_rng(d + 1)
+    vectors = list(rng.integers(0, m, size=(7, d)))
+    # an unreduced vector (a Paillier-premixed clerk batch decrypts so)
+    vectors.append(rng.integers(0, 1 << 62, size=d))
+    want = ref_sharing.new_share_combiner(_ref(scheme)).combine(vectors)
+    got = sharing.new_share_combiner(scheme, "cpu").combine(vectors)
+    _assert_rows_equal([got], [want])
+    _assert_rows_equal([sharing.mod_combine(vectors, m, "cpu")],
+                       [ref_sharing.mod_combine(vectors, m)])
+    assert sharing.mod_combine([], m, "cpu").shape == (0,)
+
+
+SURVIVORS = {
+    "all": lambda n: list(range(n)),
+    "reversed": lambda n: list(range(n))[::-1],
+    "drop-first": lambda n: list(range(1, n)),
+    "drop-middle": lambda n: [i for i in range(n) if i != n // 2],
+}
+
+
+#: additive sharing is n-of-n: only the whole committee reveals
+RECONSTRUCT_CASES = [
+    (name, survivors) for name in sorted(SHARING) for survivors in
+    (("all", "reversed") if name.startswith("additive") else sorted(SURVIVORS))
+]
+
+
+@pytest.mark.parametrize("d", DIMS)
+@pytest.mark.parametrize("name,survivors", RECONSTRUCT_CASES)
+def test_reconstructor(name, survivors, d, host_path_max, same_seeds):
+    scheme = SHARING[name]
+    m = _modulus(scheme)
+    secrets = np.random.default_rng(d + 2).integers(0, min(m, 1 << 20), size=d)
+    shares, _ = same_seeds(
+        d, lambda: ref_sharing.new_share_generator(_ref(scheme)).generate(
+            secrets), lambda: None)
+    picked = SURVIVORS[survivors](scheme.output_size)
+    indexed = [(i, shares[i]) for i in picked]
+    want = ref_sharing.new_secret_reconstructor(_ref(scheme), d).reconstruct(
+        indexed)
+    got = sharing.new_secret_reconstructor(scheme, d, "cpu").reconstruct(
+        indexed)
+    _assert_rows_equal([got], [want])
+    np.testing.assert_array_equal(got, secrets)
+
+
+def test_reconstructor_below_quorum_raises():
+    scheme = SHARING["packed-433"]
+    rec = sharing.new_secret_reconstructor(scheme, 4, "cpu")
+    with pytest.raises(ValueError, match="need at least 7"):
+        rec.reconstruct([(i, np.zeros(2, np.int64)) for i in range(6)])
+    add = sharing.new_secret_reconstructor(SHARING["additive"], 4, "cpu")
+    with pytest.raises(ValueError, match="cannot tolerate"):
+        add.reconstruct([(0, np.zeros(4, np.int64))])
+
+
+def _maskings(d):
+    return {
+        "none": NoMasking(),
+        "full": FullMasking(433),
+        "full-flagship": FullMasking(P29),
+        "chacha-rand03": ChaChaMasking(433, d, 128, prg=CHACHA_PRG_RAND03),
+        "chacha-v1": ChaChaMasking(P29, d, 256, prg=CHACHA_PRG_V1),
+    }
+
+
+@pytest.mark.parametrize("d", DIMS)
+@pytest.mark.parametrize("name", ["none", "full", "full-flagship",
+                                  "chacha-rand03", "chacha-v1"])
+def test_masker_mask_combine_unmask(name, d, host_path_max, same_seeds):
+    scheme = _maskings(d)[name]
+    ref_scheme = _ref(scheme)
+    m = getattr(scheme, "modulus", 433)
+    inputs = np.random.default_rng(d + 3).integers(0, min(m, 1 << 20),
+                                                   size=(3, d))
+    want, got = same_seeds(
+        d,
+        lambda: [ref_masking.new_secret_masker(ref_scheme).mask(x)
+                 for x in inputs],
+        lambda: [masking.new_secret_masker(scheme, "cpu").mask(x)
+                 for x in inputs])
+    for (gm, gx), (wm, wx) in zip(got, want):
+        _assert_rows_equal([gm, gx], [wm, wx])
+    masks = [mk for mk, _ in got]
+    masked_sum = np.sum([x for _, x in got], axis=0) % m
+    want_total = ref_masking.new_mask_combiner(ref_scheme).combine(masks)
+    got_total = masking.new_mask_combiner(scheme, "cpu").combine(masks)
+    _assert_rows_equal([got_total], [want_total])
+    want_out = ref_masking.new_secret_unmasker(ref_scheme).unmask(
+        want_total, masked_sum)
+    got_out = masking.new_secret_unmasker(scheme, "cpu").unmask(
+        got_total, masked_sum)
+    _assert_rows_equal([got_out], [want_out])
+    np.testing.assert_array_equal(got_out, inputs.sum(axis=0) % m)
+
+
+def test_chacha_masker_ignores_the_device():
+    """The ChaCha masker's expansion is host work on every device (the
+    device leg, K3, is not ported): it never touches the role's device."""
+    scheme = ChaChaMasking(433, 8, 128)
+    mk = CryptoModule(MemoryKeystore(), device="cpu").new_secret_masker(scheme)
+    assert not hasattr(mk, "device")
+    seed, masked = mk.mask(np.arange(8))
+    assert seed.shape == (4,) and masked.shape == (8,)
+
+
+@pytest.mark.parametrize("shape", [(7,), (3, 1000)])
+@pytest.mark.parametrize("modulus", [433, P29, (1 << 61) - 1])
+def test_rand_uniform_fast(shape, modulus):
+    a = rand.uniform(shape, modulus, mode="fast", device="cpu")
+    b = rand.uniform(shape, modulus, mode="fast", device="cpu")
+    assert a.shape == shape and a.dtype == np.int64
+    assert a.min() >= 0 and a.max() < modulus
+    assert not np.array_equal(a, b)
+
+
+def test_rand_uniform_fast_resolves_the_device():
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default does not raise")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        rand.uniform((4,), 433, mode="fast")
+
+
+def test_crypto_module_threads_its_device():
+    cm = CryptoModule(MemoryKeystore(), device="cpu")
+    assert cm.device.type == "cpu"
+    for make in (cm.new_share_generator, cm.new_share_combiner):
+        assert make(SHARING["packed-433"]).device == cm.device
+    assert cm.new_secret_reconstructor(SHARING["additive"], 4).device \
+        == cm.device
+    for make in (cm.new_secret_masker, cm.new_mask_combiner,
+                 cm.new_secret_unmasker):
+        assert make(FullMasking(433)).device == cm.device
+
+
+def test_paillier_device_premix_not_ported(monkeypatch):
+    """``SDA_PREMIX_DEVICE=1`` asks for the device premix (K4), which the
+    port does not have: the fold raises instead of folding elsewhere."""
+    from sda_tpu_torch.crypto import encryption
+    from sda_tpu_torch.protocol import PackedPaillierEncryption
+
+    scheme = PackedPaillierEncryption(2, 48, 32, 512)
+    kp = encryption.new_encryption_keypair(scheme)
+    enc = encryption.new_share_encryptor(kp.ek, scheme)
+    batch = enc.encrypt(np.array([1, 2, 3], dtype=np.int64))
+    host = encryption.paillier_combine(kp.ek, scheme, [batch, batch])
+    monkeypatch.setenv("SDA_PREMIX_DEVICE", "1")
+    with pytest.raises(NotImplementedError, match="item 11"):
+        encryption.paillier_combine(kp.ek, scheme, [batch, batch])
+    assert host.variant == "PackedPaillier"
+
+
+def test_scheme_crosses_as_its_wire_object():
+    for scheme in list(SHARING.values()) + list(_maskings(4).values()):
+        cls = ("LinearMaskingScheme"
+               if isinstance(scheme, (NoMasking, FullMasking, ChaChaMasking))
+               else "LinearSecretSharingScheme")
+        back = resource_from_reference(cls, _ref(scheme).to_obj())
+        assert back.to_obj() == scheme.to_obj()

@@ -60,6 +60,9 @@ def test_no_source_imports_jax_or_reference(path):
 
 def _entry_points():
     from sda_tpu_torch.benchmarks import kernel_probe
+    from sda_tpu_torch.client import SdaClient
+    from sda_tpu_torch.crypto import CryptoModule, MemoryKeystore
+    from sda_tpu_torch.server import new_memory_server
     from sda_tpu_torch.convert import matrices_from_numpy
     from sda_tpu_torch.device import resolve_device
     from sda_tpu_torch.fields.fastfield import SolinasPrime
@@ -71,6 +74,7 @@ def _entry_points():
     t, p, w2, w3 = numtheory.generate_packed_params(3, 8, 28)
     s = PackedShamirSharing(3, 8, t, p, w2, w3)
     m = numtheory.share_matrix_for(s)
+    keystore = MemoryKeystore()
     l_ = numtheory.reconstruct_matrix_for(s, tuple(range(8)))
     def probe_call(device=None):
         x = torch.zeros((2, 3, 8), dtype=torch.int32,
@@ -94,6 +98,9 @@ def _entry_points():
             s, FullMasking(p), **kw),
         "matrices_from_numpy": lambda **kw: matrices_from_numpy(
             m, l_, scheme=s, **kw),
+        "CryptoModule": lambda **kw: CryptoModule(MemoryKeystore(), **kw),
+        "SdaClient": lambda **kw: SdaClient(
+            SdaClient.new_agent(keystore), keystore, new_memory_server(), **kw),
     }
 
 
@@ -101,7 +108,9 @@ def _entry_points():
                                   "single_chip_round_pallas",
                                   "matrices_from_numpy",
                                   "kernel_probe.main",
-                                  "kernel_probe.probe_call"])
+                                  "kernel_probe.probe_call",
+                                  "CryptoModule",
+                                  "SdaClient"])
 def test_entry_points_default_to_cuda(name):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default does not raise")
