@@ -24,8 +24,17 @@ without transport; and, where libsodium is present, one round through
 ``SdaClient``s on the card over the in-process memory server (P=20 at
 the same width) and the README walkthrough's round over the HTTP server,
 each revealed exactly, with the port's field ops counted by the device
-they ran on. Prints the card's name and power limit, one JSON line of
-kernel measurements, and as its last line
+they ran on. Then ChaCha seed masks on K3 (``csrc/chacha.cu``): K3 held
+to its plain version and to the host spec (``fields.chacha``) for both
+PRGs, four moduli (one that forces the host replay), several widths and
+stream windows, and timed beside its bound; the role crypto with ChaCha
+masks (P=100 x 1,000,008); ``single_chip_round`` with ChaCha masks; the
+streamed round (``StreamingAggregator(use_pallas=True)``, P=10,000 x
+10,000,008 from the device block provider) on K1 and K3, and the
+device-tile clerk fold, each exact, with K3's windows at the shapes and
+block counters the two ChaCha rounds launched it with held to the plain
+version (their masks cancel, so the rounds' sums cannot show them). Prints the card's name and power
+limit, one JSON line of kernel measurements, and as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Any failed check raises and exits non-zero; without CUDA, or without the
 package beside it, it exits non-zero and prints no result.
@@ -63,6 +72,19 @@ P_PROTOCOL = 20
 #: looked up there at each call), counted by the device of their inputs
 ROLE_OPS = ("combine", "packed_share_from_randomness", "packed_reconstruct",
             "modadd", "modsub", "additive_share_from_randomness")
+#: K3's checks (phase 12): moduli (the flagship p is added at run time;
+#: 3 * 2^60 + 1 rejects 1 draw in 16, so the host replays every seed) and
+#: dimensions of the expansion, seeds of the combine and its timing
+K3_MODULI = (433, (1 << 61) - 1, 3 * (1 << 60) + 1)
+K3_DIMS = (1, 7, 9, 1000, 1_000_008)
+S_COMBINE, S_BIG = 100, 10_000
+#: the ChaCha phases' width (13-14): a whole number of ChaCha blocks
+D_CHACHA = 1_000_008
+#: the streamed round (phase 15): participants, dimension, participant
+#: chunk, from the device block provider (values below 2^20)
+P_STREAM, D_STREAM, STREAM_CHUNK = 10_000, 10_000_008, 250
+#: rows and bundles of the device-tile clerk fold (phase 15)
+FOLD_ROWS, FOLD_BUNDLES = 100, 4
 #: the README walkthrough's round: three participants' 10-dim inputs
 WALKTHROUGH = ([0, 0, 0, 1, 1, 1, 2, 2, 2, 3], [0, 1, 1, 1, 1, 2, 2, 3, 3, 3],
                [0, 1, 1, 2, 2, 3, 2, 3, 3, 4])
@@ -186,25 +208,31 @@ def _phases(utils):
             for name, stat in utils.phase_report().items()}
 
 
-def role_crypto(dev, P, D, seed=0):
-    """Phase 9: the role crypto at the flagship width, no transport. Each
-    of P participants masks and shares, the n clerk combiners and the mask
-    combiner fold, the recipient reconstructs from all shares and from a
-    dropout's survivors and unmasks; both reveals must equal the column
-    sum. Returns the phase's JSON record."""
+def role_crypto(dev, P, D, seed=0, masking=None):
+    """Phases 9 and 13: the role crypto at the flagship width, no
+    transport, with Full masking or the given one. Each of P participants
+    masks and shares, the n clerk combiners and the mask combiner fold, the
+    recipient reconstructs from all shares and from a dropout's survivors
+    and unmasks; both reveals must equal the column sum. ChaCha masks go
+    through K3 on a CUDA device, which must have launched. Returns the
+    phase's JSON record."""
     import numpy as np
 
     from sda_tpu_torch import utils
     from sda_tpu_torch.crypto import CryptoModule, MemoryKeystore, rand
+    from sda_tpu_torch.protocol import ChaChaMasking
     from sda_tpu_torch.utils import timed_phase
 
-    scheme, masking, p = _flagship()
+    scheme, full, p = _flagship()
+    masking = masking or full
+    seeded = isinstance(masking, ChaChaMasking)
     n = scheme.share_count
     cm = CryptoModule(MemoryKeystore(), device=dev)
     inputs = np.random.default_rng(seed).integers(0, 1 << 20, size=(P, D))
     expect = inputs.sum(0) % p
     utils.reset_phase_report()
     per_clerk, masks = [[] for _ in range(n)], []
+    k3 = _k3_reset()
     with DeviceCounts() as counts:
         t0 = time.perf_counter()
         for x in inputs:   # a masker and a generator a call, as a client
@@ -236,10 +264,342 @@ def role_crypto(dev, P, D, seed=0):
                    f"role crypto ({label}): != column sum mod p")
             reveals[label] = len(list(survivors))
         wall = time.perf_counter() - t0
-    calls = counts.check("role crypto", dev.type, ROLE_OPS[:5])
+    # a ChaCha masker adds and subtracts on the host, as the reference's
+    calls = counts.check("role crypto", dev.type,
+                         ROLE_OPS[:3] if seeded else ROLE_OPS[:5])
+    k3_launches = dict(k3.op_launches)
+    if seeded and dev.type == "cuda":
+        _check(k3_launches["expand"] >= P and k3_launches["combine"] >= 1,
+               f"role crypto (ChaCha): K3 launches {k3_launches}")
     return {"stage": "role_crypto", "participants": P, "dim": D,
+            "masking": type(masking).__name__,
             "rand_mode": rand.get_mode(), "survivors": reveals, "exact": True,
-            "wall_s": wall, "phases_s": _phases(utils), "device_calls": calls}
+            "wall_s": wall, "phases_s": _phases(utils), "device_calls": calls,
+            "k3_launches": k3_launches}
+
+
+def _k3_reset():
+    from sda_tpu_torch.fields import chacha_device
+
+    k3 = chacha_device.chacha_kernel
+    k3.launches = 0
+    k3.op_launches.update(dict.fromkeys(chacha_device.OPS, 0))
+    return k3
+
+
+def _host_window(seed, counter0, d, m):
+    """The CHACHA_PRG_V1 draws [8*counter0, 8*counter0 + d) mod m of the
+    host spec's block function (numpy), without rejection."""
+    import numpy as np
+
+    from sda_tpu_torch.fields import chacha
+
+    words = chacha.chacha_block_words(seed, counter0, d // 8).reshape(-1)
+    v = (words[1::2].astype(np.uint64) << np.uint64(32)) | words[0::2]
+    return (v % np.uint64(m)).astype(np.int64)
+
+
+def _k3_window(case, dev, round_seed, p0, rows, counter0, width, modulus,
+               seed_bits=128):
+    """K3's windowed stream at a shape and block counter a round launched
+    it with, on the seed words that round derived (``simpod``'s, from
+    ``round_seed`` and participant ids ``p0 ..``), held to the plain
+    version with ``torch.equal``. ChaCha masks cancel inside a round, so
+    the round's exact sum cannot see a wrong window; this check can.
+    Returns the max |error| (0 when equal)."""
+    import torch
+
+    from sda_tpu_torch.fields import chacha, chacha_device as cd
+    from sda_tpu_torch.mesh import simpod
+
+    ids = p0 + torch.arange(rows, dtype=torch.int64, device=dev)
+    sw = simpod._chacha_seed_words(round_seed, ids, seed_bits)
+    got = cd.stream_residues_at(sw, counter0, dimension=width,
+                                modulus=modulus)
+    want = cd.expand_plain(sw, counter0, width, modulus,
+                           chacha.CHACHA_PRG_V1)[0]
+    _check(got.shape == want.shape,
+           f"{case}: K3 window {tuple(got.shape)} vs {tuple(want.shape)}")
+    equal = torch.equal(got, want)
+    err = 0 if equal else int((got - want).abs().max())
+    _check(equal, f"{case}: K3 window [{rows}, {width}] of participants "
+           f"{p0}.. at counter0={counter0} != plain (max |err| {err})")
+    print(f"  {case}: K3 window [{rows}, {width}] of participants {p0}.. "
+          f"at counter0={counter0}: equal to plain")
+    return err
+
+
+def chacha_kernels(dev, p, lib_path, ptxas_log, cuobjdump, dims=K3_DIMS,
+                   s_combine=S_COMBINE, s_big=S_BIG, d_big=D_CHACHA):
+    """Phase 12: K3 against its plain version (on the same device) and the
+    host spec (numpy ``fields.chacha``, or the native C++ for the combine
+    at full width), exactly, for both PRGs; then K3's times beside its
+    bound. Returns the kernel's record and the max abs error."""
+    import numpy as np
+    import torch
+
+    from sda_tpu_torch import native
+    from sda_tpu_torch.benchmarks.bounds import k3_bound
+    from sda_tpu_torch.fields import chacha, chacha_device as cd
+    from sda_tpu_torch.utils import sass
+    from sda_tpu_torch.utils.benchtime import median_ms
+
+    on_card = dev.type == "cuda"
+    if on_card:
+        info = sass.ptxas_info(ptxas_log)
+        for kernel in ("chacha_blocks_kernel", "chacha_expand_kernelILb0EE",
+                       "chacha_expand_kernelILb1EE",
+                       "chacha_combine_kernelILb0EE",
+                       "chacha_combine_kernelILb1EE"):
+            ptx = next((v for key, v in info.items() if kernel in key), None)
+            _check(ptx is not None, f"{kernel}: no ptxas line")
+            _check(not sass.spills(ptx), f"{kernel} spills: {'; '.join(ptx)}")
+            print(f"  K3 {kernel}: {'; '.join(ptx)}")
+        try:
+            lines = sass.loop_instructions(lib_path, cuobjdump,
+                                           "chacha_combine_kernelILb0EE")
+            mix = collections.Counter(op for op, _ in lines)
+            print(f"  K3 combine seed loop (one block a seed): "
+                  f"{sum(mix.values())} instructions: "
+                  + ", ".join(f"{op} {c}" for op, c in mix.most_common(12)))
+        except (LookupError, ValueError) as exc:
+            print(f"  K3 combine seed loop: not found ({exc})")
+    rng = np.random.default_rng(12)
+    max_err = 0
+    k3 = _k3_reset()
+
+    def equal(case, got, want):
+        nonlocal max_err
+        got = torch.as_tensor(got).cpu().to(torch.int64)
+        want = torch.as_tensor(want).cpu().to(torch.int64)
+        _check(got.shape == want.shape, f"{case}: {tuple(got.shape)} vs "
+               f"{tuple(want.shape)}")
+        if got.numel():
+            max_err = max(max_err, int((got - want).abs().max()))
+        _check(torch.equal(got, want), f"{case}: not equal")
+
+    def seed_words(S):
+        return [list(map(int, r)) for r in rng.integers(0, 1 << 32, (S, 4))]
+
+    moduli = (K3_MODULI[0], p) + K3_MODULI[1:]
+    for prg in (chacha.CHACHA_PRG_V1, chacha.CHACHA_PRG_RAND03):
+        for m in moduli:
+            replayed = 0
+            for d in dims:
+                seed = seed_words(1)[0]
+                sw = cd._seed_matrix([seed], dev)
+                got = cd.chacha_kernel("expand", sw, dimension=d, modulus=m,
+                                       prg=prg)
+                want = cd.expand_plain(sw, 0, d, m, prg)
+                equal(f"expand {prg} m={m} d={d} vs plain", got[0], want[0])
+                equal(f"expand {prg} m={m} d={d} flags", got[1], want[1])
+                replayed += int(got[1][0])
+                equal(f"expand_mask {prg} m={m} d={d} vs host spec",
+                      cd.expand_mask(seed, d, m, prg=prg, device=dev),
+                      chacha.expand_mask_for(prg, seed, d, m))
+            print(f"  expand {prg} m={m}: d in {list(dims)} equal to plain "
+                  f"and host spec; {replayed} of {len(dims)} seeds replayed")
+            # the combine's replay (and the fold at 2^61 - 1's width)
+            seeds = seed_words(9)
+            cd.chacha_kernel.replayed = 0
+            want = np.zeros(1000, dtype=object)
+            for sd in seeds:
+                want = (want + chacha.expand_mask_for(prg, sd, 1000, m)) % m
+            equal(f"combine_masks {prg} m={m} S=9 d=1000 vs host spec",
+                  cd.combine_masks(seeds, 1000, m, prg=prg, device=dev),
+                  want.astype(np.int64))
+            print(f"  combine_masks {prg} m={m} S=9 d=1000: equal to host "
+                  f"spec, {cd.chacha_kernel.replayed} seeds replayed")
+    # windows of the V1 stream at nonzero block counters (one wraps 2^32)
+    seeds = seed_words(5)
+    sw = cd._seed_matrix(seeds, dev)
+    for c0 in (1, 12_345, (1 << 32) - 2):
+        got = cd.stream_residues_at(sw, c0, dimension=d_big, modulus=p)
+        equal(f"window counter0={c0} vs plain", got,
+              cd.expand_plain(sw, c0, d_big, p, chacha.CHACHA_PRG_V1)[0])
+        equal(f"window counter0={c0} vs host spec", got[0],
+              _host_window(seeds[0], c0, d_big, p))
+    print(f"  windows S=5 x d={d_big} at counter0 1, 12345, 2^32 - 2: "
+          "equal to plain and host spec")
+    # the recipient's combine at the flagship width
+    seeds = seed_words(s_combine)
+    sw = cd._seed_matrix(seeds, dev)
+    host_combine = (native.chacha_combine_masks if native.available()
+                    else None)
+    for prg in (chacha.CHACHA_PRG_V1, chacha.CHACHA_PRG_RAND03):
+        got = cd.combine_masks(seeds, d_big, p, prg=prg, device=dev)
+        equal(f"combine {prg} S={s_combine} d={d_big} vs plain", got,
+              cd.combine_plain(sw, d_big, p, prg)[0])
+        if host_combine is not None:
+            equal(f"combine {prg} S={s_combine} d={d_big} vs native host",
+                  got, host_combine(np.asarray(seeds, dtype=np.int64), d_big,
+                                    p, prg=prg))
+    print(f"  combine_masks S={s_combine} x d={d_big}, both PRGs: equal to "
+          f"plain{' and native host' if host_combine else ''}")
+    launches = dict(k3.op_launches)
+    print(f"  K3 launches in phase 12: {launches}")
+
+    prg = chacha.CHACHA_PRG_V1
+    ms = median_ms(lambda: cd.chacha_kernel(
+        "combine", sw, dimension=d_big, modulus=p, prg=prg), dev)
+    plain_ms = median_ms(lambda: cd.combine_plain(sw, d_big, p, prg), dev,
+                         reps=3, warmup=1)
+    big = cd._seed_matrix(seed_words(s_big), dev)
+    big_ms = median_ms(lambda: cd.chacha_kernel(
+        "combine", big, dimension=d_big, modulus=p, prg=prg), dev, reps=5,
+        warmup=1)
+    del big
+    host_ms = None
+    if host_combine is not None:
+        stacked = np.asarray(seeds, dtype=np.int64)
+        t0 = time.perf_counter()
+        host_combine(stacked, d_big, p, prg=prg)
+        host_ms = (time.perf_counter() - t0) * 1e3
+    bound_ms, bound_by, detail = k3_bound(s_combine, d_big, True)
+    big_bound, _, big_detail = k3_bound(s_big, d_big, True)
+    print(f"K3 combine at S={s_combine} x d={d_big}: {ms:.4f} ms median of 20 "
+          f"(CUDA events); plain {plain_ms:.3f} ms; native host "
+          f"{'not available' if host_ms is None else f'{host_ms:.3f} ms'}; "
+          f"bound {bound_ms:.4f} ms ({detail})")
+    print(f"K3 combine at S={s_big} x d={d_big}: {big_ms:.4f} ms median of 5; "
+          f"bound {big_bound:.4f} ms ({big_detail})")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "ms_s_big": big_ms,
+            "bound_ms_s_big": big_bound, "host_ms": host_ms,
+            "max_abs_err": max_err, "check_launches": launches}
+
+
+def chacha_round(dev, P, D, seed=0):
+    """Phase 14: ``single_chip_round`` with ChaCha masking on the flagship
+    scheme, exact against the column sum mod p; K3 must have launched.
+    Returns the phase's JSON record."""
+    import numpy as np
+    import torch
+
+    from sda_tpu_torch.mesh import single_chip_round
+    from sda_tpu_torch.protocol import ChaChaMasking
+
+    scheme, _, p = _flagship()
+    inputs = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, 1 << 20, size=(P, D), dtype=np.uint32)).to(dev)
+    expect = inputs.to(torch.int64).sum(0) % p
+    fn = single_chip_round(scheme, ChaChaMasking(p, D, 128), device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    k3 = _k3_reset()
+    out = fn(inputs, gen)
+    launches = dict(k3.op_launches)
+    _check(out.dtype == torch.int64 and out.shape == (D,),
+           f"ChaCha round: output {out.dtype}{tuple(out.shape)}")
+    _check(torch.equal(out, expect), "ChaCha round: != column sum mod p")
+    on_card = dev.type == "cuda"
+    _check(not on_card or launches["expand"] > 0,
+           f"ChaCha round: K3 launches {launches}")
+    # the window the round expanded: its round seed is the generator's
+    # first draw, its participants 0..P-1, its counter 0
+    from sda_tpu_torch.mesh import simpod
+
+    round_seed = simpod._round_seed(
+        torch.Generator(device=dev).manual_seed(seed))
+    err = _k3_window("ChaCha round", dev, round_seed, 0, P, 0, D, p)
+    ms = _median_ms(lambda: fn(inputs, gen), reps=5, warmup=1) \
+        if on_card else None
+    return {"stage": "chacha_round", "participants": P, "dim": D,
+            "exact": True, "k3_launches": launches,
+            "k3_window_max_abs_err": err, "round_ms": ms,
+            "elements_per_s": None if ms is None else P * D / (ms / 1e3)}
+
+
+def streamed_round(dev, P, D, chunk, fold_rows=FOLD_ROWS,
+                   fold_dim=D_CHACHA, fold_bundles=FOLD_BUNDLES):
+    """Phase 15: ``StreamingAggregator(use_pallas=True)`` with ChaCha
+    masking over the device block provider, exact against the plain column
+    sum recomputed on the device chunk by chunk from the same provider; K1
+    and K3 must have launched on every tile. Then ``DeviceTileCombiner``
+    folds ``fold_rows`` rows in ``fold_bundles`` bundles, exact against
+    ``mod_combine``. Returns the phase's JSON record."""
+    import numpy as np
+    import torch
+
+    from sda_tpu_torch import utils
+    from sda_tpu_torch.crypto.sharing import mod_combine
+    from sda_tpu_torch.fields import fused_round
+    from sda_tpu_torch.mesh import (DeviceTileCombiner, StreamingAggregator,
+                                    synthetic_device_block_provider32)
+    from sda_tpu_torch.protocol import ChaChaMasking
+
+    scheme, _, p = _flagship()
+    round_seed = 15
+    prov = synthetic_device_block_provider32(p, seed=15, max_value=1 << 20,
+                                             device=dev)
+    agg = StreamingAggregator(scheme, ChaChaMasking(p, D, 128),
+                              participants_chunk=chunk, use_pallas=True,
+                              device=dev)
+    K1 = fused_round.fused_mask_share_combine
+    k3 = _k3_reset()
+    K1.launches = 0
+    K1.instance_launches.update(dict.fromkeys(fused_round.INSTANCES, 0))
+    utils.reset_phase_report()
+    t0 = time.perf_counter()
+    out = agg.aggregate_blocks(prov, P, D, seed=round_seed)
+    wall = time.perf_counter() - t0
+    phases = _phases(utils)
+    k1_launches, k3_launches = dict(K1.instance_launches), dict(k3.op_launches)
+    dc = agg.dim_chunk
+    tiles = -(-P // chunk) * -(-D // dc)
+    _check(out.dtype == np.int64 and out.shape == (D,),
+           f"streamed round: output {out.dtype}{out.shape}")
+    for d0 in range(0, D, dc):
+        d1 = min(d0 + dc, D)
+        want = torch.zeros(d1 - d0, dtype=torch.int64, device=dev)
+        for p0 in range(0, P, chunk):
+            want += prov(p0, min(p0 + chunk, P), d0, d1).sum(0)
+        _check(torch.equal(torch.from_numpy(out[d0:d1]).to(dev), want % p),
+               f"streamed round: dims [{d0}, {d1}) != column sum mod p")
+    on_card = dev.type == "cuda"
+    if on_card:
+        unmasked = k1_launches["columns_unmasked"]
+        _check(K1.launches == tiles and unmasked == tiles,
+               f"streamed round: K1 instances {k1_launches}, want {tiles} "
+               "on columns_unmasked")
+        _check(k3_launches["expand"] == tiles,
+               f"streamed round: K3 launches {k3_launches}, want {tiles}")
+    print(f"streamed round: P={P} x d={D}, chunks {chunk} x {dc}, {tiles} "
+          f"tiles: exact, wall {wall:.3f} s, {P * D / wall:.4e} "
+          f"shared-elements/s; K1 {k1_launches}, K3 {k3_launches}")
+    # K3 at the round's own window shapes: the first participant chunk of
+    # dim tile 0, the last chunk of dim tile 1, and the ragged dim tail
+    d_starts = range(0, D, dc)
+    last_p0 = (P - 1) // chunk * chunk
+    err = 0
+    for p0, d0 in sorted({(0, d_starts[0]), (0, d_starts[-1]),
+                          (last_p0, d_starts[min(1, len(d_starts) - 1)])}):
+        width = -(-(min(d0 + dc, D) - d0) // agg._grain) * agg._grain
+        err = max(err, _k3_window("streamed round", dev, round_seed, p0,
+                                  min(chunk, P - p0), d0 // 8, width, p))
+    # the device-tile clerk fold
+    rng = np.random.default_rng(15)
+    rows = rng.integers(0, p, size=(fold_rows, fold_dim))
+    comb = DeviceTileCombiner(p, device=dev)
+    t1 = time.perf_counter()
+    for bundle in np.array_split(rows, fold_bundles):
+        comb.fold(bundle)
+    folded = comb.result()
+    fold_s = time.perf_counter() - t1
+    _check(np.array_equal(folded, mod_combine(list(rows), p,
+                                              torch.device("cpu"))),
+           "DeviceTileCombiner != mod_combine")
+    print(f"DeviceTileCombiner: {fold_rows} rows x d={fold_dim} in "
+          f"{fold_bundles} bundles (tile {comb._dim_tile}) == mod_combine, "
+          f"{fold_s:.3f} s")
+    return {"stage": "streamed_round", "participants": P, "dim": D,
+            "participants_chunk": chunk, "dim_chunk": dc, "tiles": tiles,
+            "exact": True, "wall_s": wall, "elements_per_s": P * D / wall,
+            "phases_s": phases,
+            "k1_launches": k1_launches, "k3_launches": k3_launches,
+            "k3_window_max_abs_err": err,
+            "fold": {"rows": fold_rows, "dim": fold_dim,
+                     "bundles": fold_bundles, "tile": comb._dim_tile,
+                     "exact": True, "wall_s": fold_s}}
 
 
 def _round(service, dev, aggregation, inputs, clerks):
@@ -405,9 +765,9 @@ def main() -> int:
     print(f"device: {kind}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}, Python {sys.version.split()[0]}")
 
-    # -- 2. build K1 and K5, one nvcc each, side by side --------------------
+    # -- 2. build K1, K5 and K3, one nvcc each, side by side ---------------
     t0 = time.perf_counter()
-    names = ("fused_round", "kernel_probe")
+    names = ("fused_round", "kernel_probe", "chacha")
     with ThreadPoolExecutor(len(names)) as pool:
         built = dict(zip(names, pool.map(_build.build, names)))
     print(f"build: {', '.join(built[n][0].name for n in names)} in "
@@ -712,6 +1072,34 @@ def main() -> int:
         for host_path_max in (sharing.HOST_PATH_MAX, 0):
             print(json.dumps(http_round(dev, host_path_max)), flush=True)
 
+    # -- 12. K3 vs its plain version and the host spec, timed --------------
+    print(f"K3 vs plain and host spec (tolerance: exact, torch.equal; {smi}):")
+    k3_rec = chacha_kernels(dev, p, *built["chacha"], cuobjdump)
+
+    # -- 13. the role crypto with ChaCha masks through K3 ------------------
+    from sda_tpu_torch.protocol import ChaChaMasking
+
+    print(f"role crypto: flagship scheme, ChaCha masking, P={P_MAIN} x "
+          f"d={D_CHACHA} ({smi}):")
+    rec13 = role_crypto(dev, P_MAIN, D_CHACHA,
+                        masking=ChaChaMasking(p, D_CHACHA, 128))
+    print(json.dumps(rec13), flush=True)
+
+    # -- 14. single_chip_round with ChaCha masks ---------------------------
+    print(f"ChaCha single_chip_round: P={P_MAIN} x d={D_CHACHA} ({smi}):")
+    rec14 = chacha_round(dev, P_MAIN, D_CHACHA)
+    print(json.dumps(rec14), flush=True)
+
+    # -- 15. the streamed round on K1 and K3, and the device-tile fold -----
+    print(f"streamed round: ChaCha masking, use_pallas=True ({smi}):")
+    t15 = time.perf_counter()
+    rec15 = streamed_round(dev, P_STREAM, D_STREAM, STREAM_CHUNK)
+    rec15["phase_s"] = time.perf_counter() - t15
+    print(json.dumps(rec15), flush=True)
+    k3_launches = {"role_crypto": sum(rec13["k3_launches"].values()),
+                   "chacha_round": sum(rec14["k3_launches"].values()),
+                   "streamed_round": sum(rec15["k3_launches"].values())}
+
     # -- 8. the record ------------------------------------------------------
     print(smi)
     print(json.dumps({"kernels": [{
@@ -720,6 +1108,7 @@ def main() -> int:
         "source": "sda_tpu_torch/fields/csrc/fused_round.cu",
         "replaces": "sda_tpu/fields/pallas_round.py:95",
         "launches": main_launches,
+        "launches_streamed": sum(rec15["k1_launches"].values()),
         "max_abs_err": max_err["K1"],
         "ms": k1_ms,
         "plain_ms": plain_ms,
@@ -741,6 +1130,25 @@ def main() -> int:
         "library_ms": lib_ms,
         "library_of": "fold_only",
         "variants": k5,
+    }, {
+        "name": "combine_masks",
+        "route": "cuda",
+        "source": "sda_tpu_torch/fields/csrc/chacha.cu",
+        "replaces": "sda_tpu/fields/chacha_jax.py:170",
+        "launches": sum(k3_launches.values()),
+        "launches_by_phase": k3_launches,
+        "max_abs_err": max(k3_rec["max_abs_err"],
+                           rec14["k3_window_max_abs_err"],
+                           rec15["k3_window_max_abs_err"]),
+        "ms": k3_rec["ms"],
+        "plain_ms": k3_rec["plain_ms"],
+        "bound_ms": k3_rec["bound_ms"],
+        "bound_by": k3_rec["bound_by"],
+        "library_ms": None,
+        "ms_of": f"combine, S={S_COMBINE} x d={D_CHACHA}",
+        f"ms_s{S_BIG}": k3_rec["ms_s_big"],
+        f"bound_ms_s{S_BIG}": k3_rec["bound_ms_s_big"],
+        "host_ms": k3_rec["host_ms"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

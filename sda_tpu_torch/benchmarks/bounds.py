@@ -1,5 +1,6 @@
-"""The least time an H100 could take for K1's work, counted from the
-algorithm and the bytes: shared by ``chip_smoke.py`` and ``k1_ab``."""
+"""The least time an H100 could take for the work of K1 and K3, counted
+from the algorithm and the bytes: shared by ``chip_smoke.py`` and
+``k1_ab``."""
 
 from __future__ import annotations
 
@@ -69,5 +70,46 @@ def k1_bound(P, B, k, draws, do_x, out_rows, muls=MULS, xors=XORS,
               f"{xors} xors, {fold_words} accumulates a participant and "
               f"column) -> {ops_ms:.4f} ms ({half_ms:.4f} ms with wide "
               f"multiplies at half rate)")
+    return (max(bytes_ms, ops_ms),
+            "operations" if ops_ms >= bytes_ms else "bytes", detail)
+
+
+#: K3 (fields/csrc/chacha.cu), counted from the algorithm. A ChaCha20 block
+#: is 20 rounds of 4 quarter-rounds of 4 adds, 4 xors and 4 rotates (a
+#: rotate is one funnel shift): 320 xors and 320 rotates on the ALU pipe and
+#: 320 adds on either pipe, 960 in all, plus 16 feed-forward adds. Per u64
+#: draw: the exact reduction mod m (Barrett: the 64-bit high product is 4
+#: wide multiplies and 4 carry adds, q*m's low half 3 multiplies, v - q*m 2
+#: subtracts, two conditional subtracts a 64-bit compare and subtract each,
+#: 8), the zone test (a 64-bit compare and an or, 3) and, in the combine,
+#: the accumulate mod m (a 64-bit add, compare and subtract, 6).
+CHACHA_ALU_OPS = 640
+CHACHA_EITHER_OPS = 320 + 16
+DRAW_MULS = 7
+DRAW_EITHER_OPS = 4 + 2 + 8 + 3
+DRAW_ACCUMULATE_OPS = 6
+
+
+def k3_bound(seeds: int, dimension: int, combine: bool):
+    """Least time (ms) the card could take for K3's work on ``seeds``
+    streams of ``dimension`` draws (``combine``: summed into one [d] row;
+    else each written), and what bounds it: the larger of its bytes (8
+    key words a seed read once, int64 residues written once) at the memory
+    rate and its integer operations, ALU-pipe work at one pipe's rate and
+    all work at the issue rate. Returns (bound_ms, bound_by, detail)."""
+    blocks = seeds * -(-dimension // 8)
+    draws = seeds * dimension
+    alu = blocks * CHACHA_ALU_OPS
+    fma = draws * DRAW_MULS
+    total = (alu + fma + blocks * CHACHA_EITHER_OPS
+             + draws * (DRAW_EITHER_OPS
+                        + (DRAW_ACCUMULATE_OPS if combine else 0)))
+    ops_ms = max(alu / PIPE_OPS_PER_S, fma / PIPE_OPS_PER_S,
+                 total / INSTR_PER_S) * 1e3
+    bytes_moved = seeds * 8 * 4 + (dimension if combine else draws) * 8
+    bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+    detail = (f"{bytes_moved} bytes -> {bytes_ms:.4f} ms; {blocks} blocks, "
+              f"{total:.0f} integer ops ({alu:.0f} ALU-pipe only, "
+              f"{total / blocks:.0f} a block) -> {ops_ms:.4f} ms")
     return (max(bytes_ms, ops_ms),
             "operations" if ops_ms >= bytes_ms else "bytes", detail)

@@ -8,9 +8,8 @@ Participating/Clerking/Receiving/Maintenance traits).
 
 Port of ``sda_tpu/client/__init__.py``: a client takes ``device=None``
 (CUDA, raising without it) or ``device="cpu"``, and its crypto module runs
-the scheme algebra there. The JAX package's device-tile clerk fold
-(``SDA_CLERK_DEVICE_TILES=1``) has no counterpart yet and raises
-``NotImplementedError``.
+the scheme algebra there, the device-tile clerk fold
+(``SDA_CLERK_DEVICE_TILES=1``) included.
 """
 
 from __future__ import annotations
@@ -714,14 +713,18 @@ ParticipationJournal`), the fully sealed bundle is persisted BEFORE the
             own_key_id, aggregation.committee_encryption_scheme
         )
         combiner = self.crypto.new_share_combiner(aggregation.committee_sharing_scheme)
-        # SDA_CLERK_DEVICE_TILES=1 asks for the JAX package's
-        # device-resident tiled accumulator (mesh/devscale.py), which the
-        # port does not have yet: refuse rather than fold elsewhere
+        # SDA_CLERK_DEVICE_TILES=1: fold decrypted bundles into a
+        # DEVICE-resident tiled accumulator on the role's device
+        # (mesh/devscale.py) instead of the share combiner — each
+        # [B, tile] tile is copied to the device and folded there, while
+        # the decrypt pipeline below decrypts the next bundles. Bit-exact
+        # with mod_combine; a failure raises, there is no fallback
+        dev_combiner = None
         if os.environ.get("SDA_CLERK_DEVICE_TILES") == "1":
-            raise NotImplementedError(
-                "SDA_CLERK_DEVICE_TILES=1: the device-tile clerk fold is not "
-                "ported to sda_tpu_torch yet (ROADMAP queue 1, item 8); "
-                "unset it to fold with the share combiner")
+            from ..mesh.devscale import DeviceTileCombiner
+
+            dev_combiner = DeviceTileCombiner(combiner.modulus,
+                                              device=self.crypto.device)
 
         # the recipient key is only needed AFTER the last combine: fetch
         # and signature-verify it on the pool while the pipeline decrypts
@@ -757,8 +760,8 @@ ParticipationJournal`), the fully sealed bundle is persisted BEFORE the
                 # see — the server proper never holds plaintext shares —
                 # so it is counted per offending participation, surfaced
                 # in /statusz and the drill report, and the vector is
-                # canonicalized here so every downstream fold sees
-                # residues in [0, m).
+                # canonicalized here so every downstream fold (the
+                # device-tile path included) sees residues in [0, m).
                 bad = 0
                 for ix, v in enumerate(share_vectors):
                     arr = np.asarray(v, dtype=np.int64)
@@ -769,9 +772,20 @@ ParticipationJournal`), the fully sealed bundle is persisted BEFORE the
                 if bad:
                     metrics.count("clerk.share.out_of_range", bad)
                 with timed_phase("clerk.combine"):
-                    partial = combiner.combine(share_vectors)
-                    combined = (partial if combined is None
-                                else combiner.combine([combined, partial]))
+                    if dev_combiner is not None:
+                        dev_combiner.fold(
+                            np.asarray(share_vectors, dtype=np.int64))
+                        metrics.count("clerk.device_tiles.bundle")
+                    else:
+                        partial = combiner.combine(share_vectors)
+                        combined = (partial if combined is None
+                                    else combiner.combine([combined, partial]))
+        if dev_combiner is not None and dev_combiner.folded:
+            # fold() blocks on each tile's copy and queues its sum; the
+            # fetch here waits for the queued sums, so it is timed in the
+            # same phase
+            with timed_phase("clerk.combine"):
+                combined = dev_combiner.result()
         if combined is None:  # empty job: keep the scalar path's shape
             combined = combiner.combine([])
 

@@ -12,7 +12,7 @@ reconstructed combined masked secrets.
   device.
 - ChaCha (chacha.rs): the uploaded "mask" is the PRG *seed* (u32 words,
   serialized as i64s); both sides expand it with the scheme's tagged
-  ChaCha20 PRG (sda_tpu_torch.fields.chacha) — the default CHACHA_PRG_RAND03 is
+  ChaCha20 PRG (sda_tpu_torch.fields.chacha; K3 on a CUDA device) — the default CHACHA_PRG_RAND03 is
   the exact rand-0.3 ChaChaRng stream the reference draws (rand-0.3 wire
   interop), CHACHA_PRG_V1 the TPU-native opt-in spec.
 
@@ -24,9 +24,10 @@ from __future__ import annotations
 from typing import List, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from .. import fields
-from ..fields import chacha
+from ..fields import chacha, chacha_device
 from ..protocol import (
     ChaChaMasking,
     FullMasking,
@@ -96,24 +97,33 @@ class FullMasker(SecretMasker, MaskCombiner, SecretUnmasker):
 
 
 class ChaChaMasker(SecretMasker, MaskCombiner, SecretUnmasker):
-    """Seed masks, expanded on the host on every device: by the native C++
-    kernel when it builds, else by numpy. The JAX package expands on its
-    accelerator (``fields/chacha_jax.py``, TPU kernel K3); that leg is not
-    ported yet, so there is no device leg to choose here, and the role's
-    device is not consulted."""
+    """Seed masks, expanded where the role's device says: on a CUDA device
+    by K3 (``fields.chacha_device``: ``expand_mask`` for a participant's
+    mask, ``combine_masks`` for the recipient's sum), on the CPU by the
+    native C++ kernel when it builds, else by numpy — as the JAX package
+    takes ``fields/chacha_jax.py`` on its accelerator and the host
+    expansion on a CPU backend. Every leg gives the host spec's bits."""
 
     def __init__(self, modulus: int, dimension: int, seed_bitsize: int,
-                 prg: str = chacha.CHACHA_PRG_RAND03):
+                 prg: str = chacha.CHACHA_PRG_RAND03, *, device):
         if prg not in chacha._EXPANDERS:  # defense in depth vs the scheme
             raise ValueError(f"unknown ChaCha PRG {prg!r}")
         self.modulus = modulus
         self.dimension = dimension
         self.seed_bitsize = seed_bitsize
         self.prg = prg
+        self.device = torch.device(device)
+
+    def _on_card(self) -> bool:
+        return self.device.type == "cuda"
 
     def _expand(self, seed):
         from .. import native
 
+        if self._on_card():
+            return chacha_device.expand_mask(
+                seed, self.dimension, self.modulus, prg=self.prg,
+                device=self.device)
         if native.available():
             return native.chacha_expand_mask(
                 seed, self.dimension, self.modulus, prg=self.prg
@@ -131,12 +141,16 @@ class ChaChaMasker(SecretMasker, MaskCombiner, SecretUnmasker):
     def combine(self, seeds):
         """Re-expand every participant's seed — the recipient hot loop
         (receive.rs:102-118 for the ChaCha case, chacha.rs:57-77); served by
-        the native C++ kernel when present."""
+        K3 on a CUDA device, else by the native C++ kernel when present."""
         from .. import native
 
         if len(seeds) == 0:
             return np.zeros(self.dimension, dtype=np.int64)
         stacked = np.stack([np.asarray(s, dtype=np.int64) for s in seeds])
+        if self._on_card():
+            return chacha_device.combine_masks(
+                stacked, self.dimension, self.modulus, prg=self.prg,
+                device=self.device)
         if native.available():
             return native.chacha_combine_masks(
                 stacked, self.dimension, self.modulus, prg=self.prg
@@ -173,6 +187,6 @@ def _dispatch(scheme: LinearMaskingScheme, device):
     if isinstance(scheme, ChaChaMasking):
         return ChaChaMasker(
             scheme.modulus, scheme.dimension, scheme.seed_bitsize,
-            prg=scheme.prg,
+            prg=scheme.prg, device=device,
         )
     raise ValueError(f"unknown masking scheme {scheme!r}")

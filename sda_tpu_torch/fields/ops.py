@@ -10,8 +10,9 @@ Both hold canonical residues in int64 tensors; results are bit-identical
 between lanes. ``FieldOps.create`` picks the Solinas lane when the modulus
 qualifies AND the caller's cross-device sums provably fit 32 bits
 (``cross_terms`` = the maximum residues summed by a collective before the
-next canonicalize). The uint64 stream reduction (``from_u64``) comes with
-the ChaCha-mask slice.
+next canonicalize). Torch has no uint64 arithmetic, so the reference's
+``from_u64`` (the reduction of uint64 stream draws) is fused into K3's
+windowed stream, ``fields.chacha_device.stream_residues_at``.
 """
 
 from __future__ import annotations

@@ -1,0 +1,529 @@
+"""Streamed secure-aggregation rounds for workloads larger than device
+memory — the single-device part of ``sda_tpu/mesh/streaming.py``.
+
+The flagship configs (10k participants x 10M-dim vectors) cannot
+materialize [P, d] on one device, let alone the [P, n, B] share tensor.
+But the whole pipeline is a sum over participants of per-participant
+shares, so it streams: tile the participant axis and the dimension axis,
+push each [P_chunk, d_chunk] block through mask -> share -> local combine
+on the device, and fold it into running [n, B_chunk] share and [d_chunk]
+mask accumulators. Peak memory is one block plus accumulators,
+independent of P. Per dim tile, reconstruction and unmasking run once at
+the end.
+
+``StreamingAggregator`` drives one device: plain torch stages, or K1 (the
+fused kernel, ``use_pallas=True``) through ``simpod._pallas_stage``, with
+ChaCha seed masks expanded by K3 at each tile's offset. The multi-device
+``StreamedPod`` comes with the multi-device slice.
+
+Randomness: a tile's Full masks, share rows and K1 key come from
+``simpod._tile_seed(round seed, participant tile, dim tile)`` and ChaCha
+seeds from ``simpod._chacha_seed_words(round seed, participant id)``, pure
+functions of the round seed and the tile's indices, so a resumed run is
+bit-identical to an uninterrupted one.
+"""
+
+from __future__ import annotations
+
+import secrets
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from ..fields.ops import FieldOps
+from ..protocol import LinearMaskingScheme, NoMasking
+from ..utils import timed_phase
+from .simpod import (
+    _build_matrices,
+    _check_mask_modulus,
+    _check_masking_supported,
+    _dim_grain,
+    _mask_stage,
+    _normalize_survivors,
+    _pallas_stage,
+    _reconstruct_stage,
+    _resolve_pallas,
+    _scheme_modulus,
+    _share_sum_stage,
+    _tile_seed,
+)
+
+#: get_block(p0, p1, d0, d1) -> integer array or tensor [p1-p0, d1-d0]
+BlockProvider = Callable[[int, int, int, int], object]
+
+_MASK32 = 0xFFFFFFFF
+
+
+def array_block_provider(inputs) -> BlockProvider:
+    """Adapt an in-memory (or np.memmap) [P, d] array to a BlockProvider."""
+
+    def get_block(p0, p1, d0, d1):
+        return inputs[p0:p1, d0:d1]
+
+    return get_block
+
+
+def _hash32(rows, cols, seed, xp):
+    """Deterministic uint32 hash of absolute (participant, component)
+    coordinates (numpy); :func:`_hash32_torch` is its int64 torch twin."""
+    u = (lambda v: xp.uint32(v))
+    x = rows * u(0x9E3779B1) ^ cols * u(0x85EBCA77) ^ u(seed)
+    x = x ^ (x >> u(16))
+    x = x * u(0x7FEB352D)
+    x = x ^ (x >> u(15))
+    x = x * u(0x846CA68B)
+    x = x ^ (x >> u(16))
+    return x
+
+
+def _mul32(x, c: int):
+    """x * c mod 2^32 for int64 x in [0, 2^32) and a constant c < 2^32,
+    split into 16-bit halves of c so no product reaches 2^63."""
+    return (x * (c & 0xFFFF) + (((x * (c >> 16)) & 0xFFFF) << 16)) & _MASK32
+
+
+def _hash32_torch(rows, cols, seed: int):
+    """:func:`_hash32` on int64 tensors holding uint32 values."""
+    x = _mul32(rows, 0x9E3779B1) ^ _mul32(cols, 0x85EBCA77) ^ seed
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x7FEB352D)
+    x = x ^ (x >> 15)
+    x = _mul32(x, 0x846CA68B)
+    return x ^ (x >> 16)
+
+
+def synthetic_block_provider32(
+    modulus: int, seed: int = 0, max_value: Optional[int] = None
+) -> BlockProvider:
+    """Host (numpy) uint32 coordinate-hash blocks, bit-identical to the
+    device generator below — streamed runs check device aggregates against
+    host column sums of the same virtual matrix."""
+    bound_i = int(max_value if max_value is not None else modulus)
+    if not 0 < bound_i <= 0xFFFFFFFF:
+        raise ValueError("synthetic32 values must fit uint32")
+    bound = np.uint32(bound_i)
+    sd = np.uint32((seed ^ 0x5851F42D) & 0xFFFFFFFF)
+
+    def get_block(p0, p1, d0, d1):
+        with np.errstate(over="ignore"):
+            rows = np.arange(p0, p1, dtype=np.uint32)[:, None]
+            cols = np.arange(d0, d1, dtype=np.uint32)[None, :]
+            return _hash32(rows, cols, sd, np) % bound
+
+    return get_block
+
+
+def synthetic_device_block_provider32(
+    modulus: int, seed: int = 0, max_value: Optional[int] = None,
+    device=None,
+) -> BlockProvider:
+    """Device (torch) twin of :func:`synthetic_block_provider32`: generates
+    each block on ``device`` (CUDA unless ``device="cpu"``) from its
+    absolute coordinates, as int64 tensors of the same values, so
+    flagship-scale runs are not bound by host hashing or host-to-device
+    copies."""
+    bound = int(max_value if max_value is not None else modulus)
+    if not 0 < bound <= 0xFFFFFFFF:
+        raise ValueError("synthetic32 values must fit uint32")
+    sd = (seed ^ 0x5851F42D) & 0xFFFFFFFF
+    dev = resolve_device(device)
+
+    def get_block(p0, p1, d0, d1):
+        rows = (p0 + torch.arange(p1 - p0, dtype=torch.int64,
+                                  device=dev))[:, None] & _MASK32
+        cols = (d0 + torch.arange(d1 - d0, dtype=torch.int64,
+                                  device=dev))[None, :] & _MASK32
+        return torch.remainder(_hash32_torch(rows, cols, sd), bound)
+
+    return get_block
+
+
+def synthetic_block_provider(
+    modulus: int, seed: int = 0, max_value: Optional[int] = None
+) -> BlockProvider:
+    """Deterministic pseudo-random blocks without materializing [P, d] —
+    benchmark-scale inputs. Each element is a splitmix64-style hash of its
+    absolute (participant, component) coordinates, so every tiling reads
+    the same virtual matrix."""
+    bound = np.uint64(max_value if max_value is not None else modulus)
+    s = np.uint64(seed * 0x9E3779B97F4A7C15 & 0xFFFFFFFFFFFFFFFF)
+
+    def _mix(z):
+        z = (z + np.uint64(0x9E3779B97F4A7C15)) & np.uint64(0xFFFFFFFFFFFFFFFF)
+        z = (z ^ (z >> np.uint64(30))) * np.uint64(0xBF58476D1CE4E5B9)
+        z = (z ^ (z >> np.uint64(27))) * np.uint64(0x94D049BB133111EB)
+        return z ^ (z >> np.uint64(31))
+
+    # uint32 blocks when values fit: half the host->device bytes, and the
+    # device residue pass skips emulated 64-bit ops (_to_residues32)
+    out_dtype = np.uint32 if int(bound) <= (1 << 32) else np.int64
+
+    def get_block(p0, p1, d0, d1):
+        with np.errstate(over="ignore"):
+            rows = _mix(np.arange(p0, p1, dtype=np.uint64)[:, None] + s)
+            cols = _mix(np.arange(d0, d1, dtype=np.uint64)[None, :] ^ s)
+            vals = _mix(rows ^ cols)
+        return (vals % bound).astype(out_dtype)
+
+    return get_block
+
+
+def _atomic_npz(path, **arrays):
+    """Atomic, crash-durable npz write: temp file, fsync, rename, dir
+    fsync — the durability primitive under every streamed snapshot."""
+    import os
+    import tempfile
+
+    fd, tmp = tempfile.mkstemp(dir=os.path.dirname(path) or ".",
+                               suffix=".tmp")
+    try:
+        with os.fdopen(fd, "wb") as f:
+            np.savez(f, **arrays)
+            # data must reach stable storage BEFORE the rename lands, or a
+            # power loss leaves a truncated snapshot at the destination
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, path)
+        # ... and the rename itself must reach the journal: fsync the
+        # containing directory, else a crash can roll back to the prior
+        # snapshot (harmless to correctness, but the durability claim
+        # would be false)
+        try:
+            dfd = os.open(os.path.dirname(path) or ".", os.O_RDONLY)
+            try:
+                os.fsync(dfd)
+            finally:
+                os.close(dfd)
+        except OSError:
+            pass  # platform without directory fsync
+    except BaseException:
+        try:
+            os.unlink(tmp)
+        except OSError:
+            pass
+        raise
+
+
+def _snapshot_header(fingerprint, out, done_dims, di, pi):
+    """The cursor/prefix fields every streamed snapshot carries."""
+    return {
+        "fingerprint": np.frombuffer(fingerprint.encode(), dtype=np.uint8),
+        "out": out[:done_dims],
+        "done_dims": np.int64(done_dims),
+        "di": np.int64(di),
+        "pi": np.int64(pi),
+    }
+
+
+def _read_snapshot(path, fingerprint, keys=None):
+    """Fingerprint-guarded snapshot read; ``keys=None`` loads every entry,
+    a key list loads only those (npz members load lazily, so a cursor-only
+    probe does not materialize accumulator payloads). Returns None for a
+    missing/foreign/corrupt snapshot — never trusts one."""
+    import os
+    import zipfile
+
+    if not os.path.exists(path):
+        return None
+    try:
+        with np.load(path) as z:
+            if bytes(z["fingerprint"]).decode() != fingerprint:
+                return None  # different round/config: start fresh
+            return {k: z[k] for k in (keys if keys is not None else z.files)}
+    except (OSError, ValueError, KeyError, EOFError, zipfile.BadZipFile):
+        return None  # unreadable/truncated snapshot: start fresh
+
+
+def _checkpoint_load(path, fingerprint):
+    return _read_snapshot(path, fingerprint,
+                          keys=("out", "done_dims", "di", "pi",
+                                "acc_shares", "acc_mask"))
+
+
+class _FileCheckpointer:
+    """Snapshot/resume: one atomic npz at ``path``, fingerprint-guarded,
+    removed on completion; loaded accumulators go back to ``device``."""
+
+    def __init__(self, path, fingerprint, device):
+        self.path = path
+        self.fingerprint = fingerprint
+        self.device = device
+
+    def load(self):
+        return _checkpoint_load(self.path, self.fingerprint)
+
+    def restore(self, resume):
+        return (torch.from_numpy(resume["acc_shares"]).to(self.device),
+                torch.from_numpy(resume["acc_mask"]).to(self.device))
+
+    def save(self, out, done_dims, di, pi, acc_shares, acc_mask):
+        _atomic_npz(
+            self.path,
+            **_snapshot_header(self.fingerprint, out, done_dims, di, pi),
+            acc_shares=_host(acc_shares),
+            acc_mask=_host(acc_mask),
+        )
+
+    def finish(self):
+        import os
+
+        try:
+            os.unlink(self.path)
+        except OSError:
+            pass
+
+
+def _host(x) -> np.ndarray:
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def _sync(device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _drive_stream(owner, participants, dimension, seed, *, make_block,
+                  make_accs, checkpoint_path=None,
+                  checkpoint_every_chunks=16):
+    """THE streamed tile loop: one definition of the tile/seed derivation
+    and of the checkpoint/resume state machine. d-tiles outer, participant
+    tiles inner, one accumulate step per tile, one finale per d-tile;
+    snapshots every ``checkpoint_every_chunks`` chunks (0 = boundaries
+    only) and at every d-tile boundary, removed on completion. Mask windows
+    and share randomness depend on the tile indexing here — any change
+    breaks resume bit-identity.
+    """
+    if seed is None:
+        seed = secrets.randbits(62)
+    pc, dc = owner.participants_chunk, owner.dim_chunk
+    out = np.empty(dimension, dtype=np.int64)
+    resume = None
+    checkpointer = None
+    if checkpoint_path is not None:
+        checkpointer = _FileCheckpointer(
+            checkpoint_path,
+            owner._checkpoint_fingerprint(participants, dimension, seed),
+            owner.device,
+        )
+        resume = checkpointer.load()
+        if resume is not None:
+            out[: int(resume["done_dims"])] = resume["out"]
+    # ground truth for callers recording resumed runs (e.g. benches)
+    owner.last_resumed = resume is not None
+    resume_di = int(resume["di"]) if resume is not None else -1
+    resume_pi = int(resume["pi"]) if resume is not None else 0
+    empty = np.zeros((0,), np.int64)
+    for di, d0 in enumerate(range(0, dimension, dc)):
+        d1 = min(d0 + dc, dimension)
+        # the dim tail pads to the grain; the participant tail keeps its
+        # ragged row count
+        d_size = -(-(d1 - d0) // owner._grain) * owner._grain
+        if resume is not None and di < resume_di:
+            continue  # completed tile: out prefix already restored
+        if resume is not None and di == resume_di and resume_pi > 0:
+            acc_shares, acc_mask = checkpointer.restore(resume)
+            start_pi = resume_pi
+        else:
+            acc_shares, acc_mask = make_accs(d_size)
+            start_pi = 0
+        for pi, p0 in enumerate(range(0, participants, pc)):
+            if pi < start_pi:
+                continue  # chunk already folded into the snapshot accs
+            p1 = min(p0 + pc, participants)
+            with timed_phase("stream.feed"):
+                block = make_block(p0, p1, d0, d1, d_size)
+            with timed_phase("stream.dispatch"):
+                acc_shares, acc_mask = owner._step(
+                    block, _tile_seed(seed, pi, di), seed, p0, d0 // 8,
+                    acc_shares, acc_mask)
+            if (checkpointer is not None
+                    and checkpoint_every_chunks > 0
+                    and (pi + 1) % checkpoint_every_chunks == 0):
+                with timed_phase("stream.checkpoint"):
+                    checkpointer.save(out, d0, di, pi + 1,
+                                      acc_shares, acc_mask)
+        # sync before the finale so stream.finale times the reconstruct
+        # alone, not the queued accumulate backlog
+        with timed_phase("stream.steps_sync"):
+            _sync(owner.device)
+        with timed_phase("stream.finale"):
+            out[d0:d1] = _host(owner._final(acc_shares, acc_mask))[: d1 - d0]
+        if checkpointer is not None:
+            with timed_phase("stream.checkpoint"):
+                checkpointer.save(out, d1, di + 1, 0, empty, empty)
+    if checkpointer is not None:
+        checkpointer.finish()  # round complete
+    return out
+
+
+def _round_fingerprint(scheme, masking, participants, dimension, pc, dc,
+                       pallas, survivors, seed):
+    """sha256 over everything that determines a streamed round's bytes."""
+    import hashlib
+
+    from ..protocol.helpers import canonical_json
+
+    payload = {
+        "scheme": scheme.to_obj(),
+        "masking": masking.to_obj(),
+        "participants": int(participants),
+        "dimension": int(dimension),
+        "participants_chunk": int(pc),
+        "dim_chunk": int(dc),
+        "pallas": bool(pallas),
+        "survivors": survivors,
+        "seed": int(seed),
+    }
+    return hashlib.sha256(canonical_json(payload)).hexdigest()
+
+
+class StreamingAggregator:
+    """Chunked single-device rounds: fixed device memory for any P and d.
+
+    Full scheme-lattice coverage: Packed-Shamir OR additive sharing x
+    none/full/chacha masking — ChaCha seed masks are expanded by K3 per
+    tile at the tile's (participant, dim) offset, so every tiling of the
+    same round seed sees the same masks. ``use_pallas=True`` runs each
+    tile's mask + share + combine on K1 (packed Shamir over a Solinas
+    prime). ``device``: CUDA unless ``device="cpu"``.
+    """
+
+    def __init__(
+        self,
+        sharing_scheme,
+        masking_scheme: Optional[LinearMaskingScheme] = None,
+        participants_chunk: int = 64,
+        dim_chunk: int = 3 * (1 << 20),
+        use_pallas: bool = False,
+        surviving_clerks=None,
+        device=None,
+    ):
+        self.device = resolve_device(device)
+        self.scheme = s = sharing_scheme
+        self.modulus = _scheme_modulus(s)  # also validates the scheme type
+        self.masking = masking_scheme or NoMasking()
+        _check_masking_supported(self.masking)
+        _check_mask_modulus(self.masking, s)
+        # ChaCha seed masks expand a window of one per-participant stream at
+        # each tile's dim offset, so tiles align to the 8-word block grain
+        self._grain = _dim_grain(s, self.masking)
+        self.participants_chunk = int(participants_chunk)
+        self.dim_chunk = -(-int(dim_chunk) // self._grain) * self._grain
+        self.surviving_clerks = _normalize_survivors(s, surviving_clerks)
+        self._M_host, self._L_host = _build_matrices(
+            s, self.surviving_clerks
+        )  # None for additive
+        self._field = FieldOps.create(self.modulus)
+        self._sp = self._field.sp
+        self.pallas_active = _resolve_pallas(
+            s, self.masking, self._field, use_pallas, "streamed"
+        )
+
+    # -- the device pieces ------------------------------------------------
+    def _step(self, block, tile_seed, round_seed, pid0, dblk0, acc_shares,
+              acc_mask):
+        """Fold one [rows, d_size] block into the accumulators."""
+        s, f = self.scheme, self._field
+        x = f.to_residues(block)
+        if self.pallas_active:
+            # fused mask + share + combine on K1, keyed by the tile's seed
+            shares, mask_sum = _pallas_stage(
+                s, f, self._M_host, self.masking, x, tile_seed,
+                round_seed=round_seed, pid_base=pid0, d_block0=dblk0,
+            )
+        else:
+            generator = torch.Generator(device=self.device)
+            generator.manual_seed(tile_seed)
+            # pid0/dblk0 locate this tile in the global stream so ChaCha
+            # seed masks expand the right window of each participant's
+            # stream regardless of tiling
+            masked, mask_sum = _mask_stage(
+                self.masking, f, x, generator, round_seed=round_seed,
+                pid_base=pid0, d_block0=dblk0,
+            )
+            # share + participant-combine fused via linearity
+            # (simpod._share_sum_stage): no [S, n, B] tensor
+            shares = _share_sum_stage(s, f, self._M_host, masked, generator)
+        acc_shares = f.add(acc_shares, shares)
+        if mask_sum is not None:
+            acc_mask = f.add(acc_mask, mask_sum)
+        return acc_shares, acc_mask
+
+    def _final(self, acc_shares, acc_mask):
+        """[n, B] share and [d_size] mask accumulators -> [d_size] int64."""
+        s, f = self.scheme, self._field
+        d_size = acc_mask.shape[0]
+        if self.surviving_clerks is not None:
+            # clerk dropout: reveal from the quorum's rows only
+            acc_shares = acc_shares[list(self.surviving_clerks), :]
+        total = _reconstruct_stage(s, f, self._L_host, acc_shares, d_size)
+        if not isinstance(self.masking, NoMasking):
+            total = f.sub(total, acc_mask)
+        return f.to_int64(total)
+
+    # -- checkpoint/resume -----------------------------------------------
+    # A flagship streamed round is minutes of accumulate steps, so the
+    # driver can persist (completed output prefix, in-flight accumulators,
+    # tile cursor) and resume mid-round. Tile seeds are a pure function of
+    # (round seed, tile indices), so a resumed run draws identical
+    # masks/shares and the result is bit-identical to an uninterrupted one.
+
+    def _checkpoint_fingerprint(self, participants, dimension, seed):
+        return _round_fingerprint(
+            self.scheme, self.masking, participants, dimension,
+            self.participants_chunk, self.dim_chunk, self.pallas_active,
+            self.surviving_clerks, seed,
+        )
+
+    # -- driver ----------------------------------------------------------
+    def aggregate_blocks(
+        self, get_block: BlockProvider, participants: int, dimension: int,
+        seed: Optional[int] = None, *, checkpoint_path: Optional[str] = None,
+        checkpoint_every_chunks: int = 16,
+    ) -> np.ndarray:
+        """Stream all blocks; returns the [dimension] aggregate (host array).
+
+        ``seed``: the round seed (an int; None draws a fresh one).
+        ``checkpoint_path``: persist an atomic, fsync'd resume snapshot
+        there every ``checkpoint_every_chunks`` participant chunks (0 =
+        only at dim-tile boundaries) and at every dim-tile boundary; an
+        existing snapshot for the identical round (scheme, shape,
+        chunking, seed — sha256 fingerprint) resumes where it left off,
+        bit-identically. A snapshot from a different round, or a damaged
+        one, is ignored, never trusted.
+        """
+        s, dev = self.scheme, self.device
+
+        def make_block(p0, p1, d0, d1, d_size):
+            raw = get_block(p0, p1, d0, d1)
+            if not isinstance(raw, torch.Tensor):
+                raw = torch.from_numpy(np.ascontiguousarray(
+                    np.asarray(raw).astype(np.int64, copy=False)))
+            block = raw.to(dev)
+            # zero columns sum to zero (a DeviceTileSink's tile may come
+            # padded already)
+            if block.shape[1] < d_size:
+                block = torch.cat([block, block.new_zeros(
+                    (block.shape[0], d_size - block.shape[1]))], dim=1)
+            return block
+
+        def make_accs(d_size):
+            B = d_size // s.input_size
+            return (torch.zeros((s.output_size, B), dtype=torch.int64,
+                                device=dev),
+                    torch.zeros((d_size,), dtype=torch.int64, device=dev))
+
+        return _drive_stream(
+            self, participants, dimension, seed,
+            make_block=make_block, make_accs=make_accs,
+            checkpoint_path=checkpoint_path,
+            checkpoint_every_chunks=checkpoint_every_chunks,
+        )
+
+    def aggregate(self, inputs, seed: Optional[int] = None) -> np.ndarray:
+        inputs = np.asarray(inputs)
+        return self.aggregate_blocks(
+            array_block_provider(inputs), inputs.shape[0], inputs.shape[1],
+            seed)

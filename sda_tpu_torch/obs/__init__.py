@@ -4,9 +4,9 @@ observation plane (spans here, counters/gauges/histograms in
 
 See ``docs/observability.md`` for the span model, the ``traceparent``
 propagation header, the Chrome-trace export format, and how to merge the
-span timeline with XProf device traces. The reference's ``devprof`` (the
-XLA compile registry behind ``/statusz``'s ``devprof`` block) has no
-counterpart in the port yet.
+span timeline with XProf device traces. Of the reference's ``devprof``
+the port has ``hbm_watermark`` (``obs.devprof``); its XLA compile registry
+behind ``/statusz``'s ``devprof`` block has no counterpart yet.
 """
 
 from .trace import (

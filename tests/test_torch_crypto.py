@@ -212,13 +212,44 @@ def test_masker_mask_combine_unmask(name, d, host_path_max, same_seeds):
 
 
 def test_chacha_masker_ignores_the_device():
-    """The ChaCha masker's expansion is host work on every device (the
-    device leg, K3, is not ported): it never touches the role's device."""
+    """On the CPU the ChaCha masker takes the host leg (native C++, else
+    numpy) and never calls K3; on a CUDA device it hands every expansion
+    and the recipient's combine to K3 (``fields.chacha_device``), here
+    redirected to K3's plain version."""
+    from sda_tpu_torch.fields import chacha_device
+
     scheme = ChaChaMasking(433, 8, 128)
-    mk = CryptoModule(MemoryKeystore(), device="cpu").new_secret_masker(scheme)
-    assert not hasattr(mk, "device")
-    seed, masked = mk.mask(np.arange(8))
-    assert seed.shape == (4,) and masked.shape == (8,)
+    calls = []
+
+    def spy(name):
+        real = getattr(chacha_device, name)
+
+        def run(*args, device, **kwargs):
+            calls.append((name, str(device)))
+            return real(*args, device="cpu", **kwargs)
+        return run
+
+    mp = pytest.MonkeyPatch()
+    try:
+        for name in ("expand_mask", "combine_masks"):
+            mp.setattr(chacha_device, name, spy(name))
+        mk = CryptoModule(MemoryKeystore(), device="cpu").new_secret_masker(
+            scheme)
+        assert mk.device.type == "cpu"
+        seed, masked = mk.mask(np.arange(8))
+        assert seed.shape == (4,) and masked.shape == (8,)
+        mk.combine([seed])
+        assert calls == []
+        card = masking.new_secret_masker(scheme, "cuda")
+        seed2, masked2 = card.mask(np.arange(8))
+        total = card.combine([seed, seed2])
+    finally:
+        mp.undo()
+    assert calls == [("expand_mask", "cuda"), ("combine_masks", "cuda")]
+    np.testing.assert_array_equal(
+        total, mk.combine([seed, seed2]))
+    np.testing.assert_array_equal(
+        card.unmask(total, (masked + masked2) % 433), 2 * np.arange(8) % 433)
 
 
 @pytest.mark.parametrize("shape", [(7,), (3, 1000)])

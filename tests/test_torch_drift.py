@@ -3,8 +3,10 @@ each equals its reference after the rewrite ``sda_tpu`` -> ``sda_tpu_torch``
 of the package's name (dotted names, logger names, paths in docstrings),
 and after the comment edits listed in ``EDITS``. A module that needs any
 other change is a rewrite, not a copy, and is held to the reference by its
-own parity test instead."""
+own parity test instead; the functions a rewrite copies whole are pinned
+one by one (``FUNCTION_COPIES``)."""
 
+import ast
 import re
 from pathlib import Path
 
@@ -59,6 +61,16 @@ COPIES = [
     "utils/metrics.py",
 ]
 
+#: functions that a rewritten module copies verbatim from its reference
+FUNCTION_COPIES = [
+    ("mesh/simpod.py", "_dim_grain"),
+    ("mesh/streaming.py", "array_block_provider"),
+    ("mesh/streaming.py", "synthetic_block_provider"),
+    ("mesh/streaming.py", "_atomic_npz"),
+    ("mesh/streaming.py", "_read_snapshot"),
+    ("mesh/streaming.py", "_checkpoint_load"),
+]
+
 #: docstring lines a copy words otherwise, by line number (1-based): the
 #: reference's line there names a step of its own history
 EDITS = {
@@ -87,3 +99,18 @@ def test_every_copy_is_listed_once():
     assert len(set(COPIES)) == len(COPIES)
     for rel in COPIES:
         assert (ROOT / "sda_tpu_torch" / rel).is_file(), rel
+
+
+def _function_source(path: Path, name: str) -> str:
+    text = path.read_text()
+    for node in ast.parse(text).body:
+        if isinstance(node, ast.FunctionDef) and node.name == name:
+            return ast.get_source_segment(text, node)
+    raise LookupError(f"{name} not in {path}")
+
+
+@pytest.mark.parametrize("rel,name", FUNCTION_COPIES)
+def test_function_copy_matches_reference(rel, name):
+    ref = _function_source(ROOT / "sda_tpu" / rel, name)
+    port = _function_source(ROOT / "sda_tpu_torch" / rel, name)
+    assert port == re.sub(r"\bsda_tpu\b", "sda_tpu_torch", ref)

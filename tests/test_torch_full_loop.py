@@ -220,13 +220,13 @@ def test_packedshamir_with_clerk_dropout(service):
 
 
 def test_clerk_device_tiles_not_ported(monkeypatch):
-    """``SDA_CLERK_DEVICE_TILES=1`` asks for a device leg the port does not
-    have: the clerk raises instead of folding elsewhere."""
+    """``SDA_CLERK_DEVICE_TILES=1`` folds every clerk's bundles into a
+    ``DeviceTileCombiner`` on the clerk's device (here the CPU), and the
+    round reveals what the share combiner's fold reveals."""
+    from sda_tpu_torch.utils import metrics
+
     monkeypatch.setenv("SDA_CLERK_DEVICE_TILES", "1")
-    service = new_memory_server()
-    aggregation, recipient, clerks = _prepare(agg_default(), service)
-    _participate(aggregation, service)
-    recipient.end_aggregation(aggregation.id)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        for worker in [recipient] + clerks:
-            worker.run_chores(-1)
+    metrics.reset_counters()
+    check_full_aggregation(agg_default(), new_memory_server())
+    assert metrics.counter_report("clerk.device_tiles.").get(
+        "clerk.device_tiles.bundle") == 3

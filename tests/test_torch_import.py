@@ -89,7 +89,27 @@ def _entry_points():
             argv += ["--device", kw["device"]]
         return kernel_probe.main(argv, emit=lambda *a, **k: None)
 
+    from sda_tpu_torch.fields import chacha_device
+    from sda_tpu_torch.mesh import (DeviceTileCombiner, DeviceTileSink,
+                                    StreamingAggregator,
+                                    synthetic_device_block_provider32)
+    from sda_tpu_torch.obs import devprof
+
+    v1 = "sda-tpu/chacha20-prg/v1"
     return {
+        "chacha_device.expand_mask": lambda **kw: chacha_device.expand_mask(
+            [1, 2], 16, p, prg=v1, **kw),
+        "chacha_device.combine_masks":
+            lambda **kw: chacha_device.combine_masks(
+                [[1, 2]], 16, p, prg=v1, **kw),
+        "StreamingAggregator": lambda **kw: StreamingAggregator(
+            s, FullMasking(p), **kw),
+        "synthetic_device_block_provider32":
+            lambda **kw: synthetic_device_block_provider32(p, **kw),
+        "DeviceTileCombiner": lambda **kw: DeviceTileCombiner(p, **kw),
+        "DeviceTileSink": lambda **kw: DeviceTileSink(
+            lambda *c: np.zeros((2, 3)), 2, 3, 2, 3, **kw),
+        "hbm_watermark": lambda **kw: devprof.hbm_watermark(**kw),
         "kernel_probe.main": probe_main,
         "kernel_probe.probe_call": probe_call,
         "single_chip_round": lambda **kw: single_chip_round(
@@ -106,6 +126,13 @@ def _entry_points():
 
 @pytest.mark.parametrize("name", ["single_chip_round",
                                   "single_chip_round_pallas",
+                                  "chacha_device.expand_mask",
+                                  "chacha_device.combine_masks",
+                                  "StreamingAggregator",
+                                  "synthetic_device_block_provider32",
+                                  "DeviceTileCombiner",
+                                  "DeviceTileSink",
+                                  "hbm_watermark",
                                   "matrices_from_numpy",
                                   "kernel_probe.main",
                                   "kernel_probe.probe_call",

@@ -132,10 +132,14 @@ def test_fused_round_draws_one_host_seed_per_tile(monkeypatch):
 
 
 def test_rounds_reject_unsupported_configs():
+    """What each round refuses. ChaCha masking runs in the plain round
+    (with K3's windows) but not in the fused one, which the JAX package's
+    refuses too."""
     s = _port("flagship")
     chacha = proto.ChaChaMasking(P29, 10, 128)
-    with pytest.raises(ValueError, match="ChaCha"):
-        single_chip_round(s, chacha, device="cpu")
+    assert single_chip_round(s, chacha, device="cpu") is not None
+    with pytest.raises(ValueError, match="unsupported masking"):
+        single_chip_round(s, object(), device="cpu")
     with pytest.raises(ValueError, match="None or Full"):
         single_chip_round_pallas(s, chacha, device="cpu")
     with pytest.raises(ValueError, match="masks would not cancel"):
@@ -144,3 +148,81 @@ def test_rounds_reject_unsupported_configs():
         single_chip_round_pallas(_port("packed433"), device="cpu")
     assert simpod._scheme_modulus(_port("additive433")) == 433
     assert simpod._build_matrices(_port("additive433")) == (None, None)
+
+
+def _chacha(pkg, s, d, prg=None):
+    kw = {} if prg is None else {"prg": prg}
+    return pkg.ChaChaMasking(_modulus(s), d, 128, **kw)
+
+
+@functools.lru_cache(maxsize=None)
+def _chacha_reference(name, P, d, dim_tile, seed):
+    s = REF_SCHEMES[name]
+    fn = ref_single_chip_round(s, _chacha(ref_proto, s, d), dim_tile=dim_tile)
+    out = np.asarray(jax.jit(fn)(jnp.asarray(_inputs(P, d, seed)),
+                                 jax.random.PRNGKey(seed)))
+    out.setflags(write=False)
+    return out
+
+
+@pytest.mark.parametrize("dim_tile", [None, 240, 1000])
+@pytest.mark.parametrize("name", ["flagship", "packed433", "additive433",
+                                  "basic"])
+def test_chacha_rounds_match_reference(name, dim_tile):
+    """ChaCha seed masks, expanded by K3's plain version at each tile's
+    block offset: the round equals the JAX package's ChaCha round and the
+    plain sum, tiled and not (d = 2400: 10 tiles of 240 or 3 of 1000 with
+    a ragged tail)."""
+    P, d, seed = 12, 2400, 4
+    x = _inputs(P, d, seed)
+    m = _modulus(REF_SCHEMES[name])
+    want = x.astype(np.int64).sum(0) % m
+    ref = _chacha_reference(name, P, d, dim_tile, seed)
+    np.testing.assert_array_equal(ref, want)
+    s = _port(name)
+    out = single_chip_round(s, _chacha(proto, s, d), dim_tile=dim_tile,
+                            device="cpu")(x, torch.Generator().manual_seed(4))
+    assert out.dtype == torch.int64 and out.shape == (d,)
+    np.testing.assert_array_equal(out.numpy(), ref)
+
+
+@pytest.mark.parametrize("prg", ["rand-0.3/chacharng",
+                                 "sda-tpu/chacha20-prg/v1"])
+def test_chacha_round_ignores_the_wire_prg(prg):
+    """Round-internal masks never leave the round: either prg tag gives
+    the exact sum (the windows are the V1 stream)."""
+    s = _port("flagship")
+    x = _inputs(9, 96, 2)
+    out = single_chip_round(s, _chacha(proto, s, 96, prg), device="cpu")(
+        x, torch.Generator().manual_seed(0))
+    np.testing.assert_array_equal(out.numpy(), x.astype(np.int64).sum(0) % P29)
+
+
+def test_chacha_round_masks_depend_on_the_round_seed(monkeypatch):
+    """One round seed a round, drawn from the generator; every tile sees
+    the same seed words at its own block offset."""
+    s = _port("flagship")
+    seen = []
+    real = simpod._chacha_masks
+
+    def spy(f, seeds, d_block0, d_loc):
+        seen.append((seeds.clone(), d_block0, d_loc))
+        return real(f, seeds, d_block0, d_loc)
+
+    monkeypatch.setattr(simpod, "_chacha_masks", spy)
+    x = _inputs(5, 480, 1)
+    fn = single_chip_round(s, _chacha(proto, s, 480), dim_tile=240,
+                           device="cpu")
+    out = fn(x, torch.Generator().manual_seed(3))
+    np.testing.assert_array_equal(out.numpy(), x.astype(np.int64).sum(0) % P29)
+    assert [(b, w) for _, b, w in seen] == [(0, 240), (30, 240)]
+    assert torch.equal(seen[0][0], seen[1][0])
+    fn(x, torch.Generator().manual_seed(4))
+    assert not torch.equal(seen[0][0], seen[2][0])
+
+
+def test_chacha_round_needs_whole_blocks():
+    s = _port("flagship")
+    with pytest.raises(ValueError, match="multiple of 8"):
+        single_chip_round(s, _chacha(proto, s, 99), device="cpu")(
+            _inputs(3, 99, 0), torch.Generator().manual_seed(0))
