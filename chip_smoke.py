@@ -33,7 +33,14 @@ streamed round (``StreamingAggregator(use_pallas=True)``, P=10,000 x
 10,000,008 from the device block provider) on K1 and K3, and the
 device-tile clerk fold, each exact, with K3's windows at the shapes and
 block counters the two ChaCha rounds launched it with held to the plain
-version (their masks cancel, so the rounds' sums cannot show them). Prints the card's name and power
+version (their masks cancel, so the rounds' sums cannot show them). Then
+the Paillier premix on K4 (``csrc/montgomery.cu``): K4 held to its plain
+version and to Python ints at 512- and 2048-bit keys and several row
+counts, the flagship clerk column (P=100 x 7,408 ciphertexts of a
+2048-bit key) through ``paillier_combine`` with ``SDA_PREMIX_DEVICE=1``
+byte-identical to the host fold, a homomorphic check on real encryptions,
+and K4's time beside its bound, the plain version's and the host fold's.
+Prints the card's name and power
 limit, one JSON line of kernel measurements, and as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Any failed check raises and exits non-zero; without CUDA, or without the
@@ -85,6 +92,18 @@ D_CHACHA = 1_000_008
 P_STREAM, D_STREAM, STREAM_CHUNK = 10_000, 10_000_008, 250
 #: rows and bundles of the device-tile clerk fold (phase 15)
 FOLD_ROWS, FOLD_BUNDLES = 100, 4
+#: K4's checks (phase 16): Paillier key sizes (n^2 of 32 and 128 limbs on
+#: unrolled instances, of 192 on the wide one), premix row counts (odd
+#: counts leave a row over in the tree) and lanes
+K4_KEY_BITS = (512, 2048, 3072)
+K4_ROWS = (1, 2, 3, 16, 33)
+K4_LANES = 256
+#: the flagship clerk column (phase 16): P=100 participants, each sending a
+#: clerk B = ceil(333,333 / 45) ciphertexts of a 2048-bit key (packed
+#: Shamir k=3 of d=999,999 gives a clerk 333,333 shares; the CLI packs 45
+#: windows of 29 + 16 bits a plaintext)
+P_PREMIX, B_PREMIX, PREMIX_KEY_BITS = 100, 7408, 2048
+SHARES_PREMIX, PREMIX_WINDOW, PREMIX_VALUE_BITS = 333_333, 45, 29
 #: the README walkthrough's round: three participants' 10-dim inputs
 WALKTHROUGH = ([0, 0, 0, 1, 1, 1, 2, 2, 2, 3], [0, 1, 1, 1, 1, 2, 2, 3, 3, 3],
                [0, 1, 1, 2, 2, 3, 2, 3, 3, 4])
@@ -602,6 +621,285 @@ def streamed_round(dev, P, D, chunk, fold_rows=FOLD_ROWS,
                      "exact": True, "wall_s": fold_s}}
 
 
+def _k4_reset():
+    from sda_tpu_torch.crypto import paillier_tpu
+
+    k4 = paillier_tpu.montgomery_kernel
+    k4.launches = 0
+    k4.op_launches = dict.fromkeys(paillier_tpu.OPS, 0)
+    k4.level_launches.clear()
+    return k4
+
+
+def premix_phase(dev, ptxas_log, key_bits=K4_KEY_BITS, rows=K4_ROWS,
+                 lanes=K4_LANES, P=P_PREMIX, B=B_PREMIX,
+                 flagship_bits=PREMIX_KEY_BITS, shares=SHARES_PREMIX):
+    """Phase 16: K4 against its plain version (on the same device) and
+    Python ints, for ``mont_mul`` and the premix fold, at each key size and
+    row count, and ``paillier_combine``'s device leg at each key size
+    byte-identical to the host fold; the flagship clerk column (P x B random units mod n^2,
+    framed as participants' encryptions) through ``paillier_combine`` with
+    ``SDA_PREMIX_DEVICE=1``, byte-identical to the host fold; a homomorphic
+    check on real encryptions; K4's time (its launches alone, on rows
+    already limb-major) beside its bound, the wrapper's, the plain
+    version's and the host fold's. Returns the kernel's record."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from sda_tpu_torch.benchmarks.bounds import k4_bound
+    from sda_tpu_torch.crypto import encryption, paillier
+    from sda_tpu_torch.crypto import paillier_tpu as pt
+    from sda_tpu_torch.protocol import (Binary, Encryption, EncryptionKey,
+                                        PackedPaillierEncryption)
+    from sda_tpu_torch.utils import sass
+    from sda_tpu_torch.utils.benchtime import median_ms
+
+    on_card = dev.type == "cuda"
+    if on_card:
+        info = sass.ptxas_info(ptxas_log)
+        for kernel in [f"montmul_kernelILi{limbs}EE"
+                       for limbs in pt.UNROLLED_LIMBS] + ["montmul_wide"]:
+            ptx = next((v for key, v in info.items() if kernel in key), None)
+            _check(ptx is not None, f"{kernel}: no ptxas line")
+            # no instance fails on a spill yet (the wide one keeps its
+            # accumulator in a global workspace by design)
+            print(f"  K4 {kernel}: {'; '.join(ptx)}")
+    rng = np.random.default_rng(16)
+    bad = 0
+
+    def below(m, n):
+        w = (m.bit_length() + 64) // 8
+        raw = rng.bytes(w * n)
+        return [int.from_bytes(raw[i * w:(i + 1) * w], "little") % m
+                for i in range(n)]
+
+    def limbs_on(ctx, vals, shape):
+        return torch.from_numpy(ctx.to_limbs(vals)).reshape(
+            *shape, ctx.L).to(dev)
+
+    def equal(case, got, want):
+        nonlocal bad
+        got, want = got.cpu(), want.cpu()
+        _check(got.shape == want.shape,
+               f"{case}: {tuple(got.shape)} vs {tuple(want.shape)}")
+        bad = max(bad, int((got != want).any(dim=-1).sum()))
+        _check(torch.equal(got, want), f"{case}: kernel != plain version")
+
+    def frames(pk, column, count):
+        """[P][B] ciphertext ints -> P framed encryptions of ``count``
+        shares each, as participants send them"""
+        head = encryption.leb128(count) + encryption.leb128(1)
+        encs = []
+        for row in column:
+            frame = [head]
+            for c in row:
+                raw = c.to_bytes((c.bit_length() + 7) // 8 or 1, "big")
+                frame.append(encryption.leb128(len(raw)) + raw)
+            encs.append(Encryption("PackedPaillier", Binary(b"".join(frame))))
+        return encs
+
+    def combine(ek, scheme, encs, on_device):
+        os.environ["SDA_PREMIX_DEVICE"] = "1" if on_device else "0"
+        try:
+            return encryption.paillier_combine(ek, scheme, encs)
+        finally:
+            if old_env is None:
+                os.environ.pop("SDA_PREMIX_DEVICE")
+            else:
+                os.environ["SDA_PREMIX_DEVICE"] = old_env
+
+    def product(ctx, vals, P_):
+        out = []
+        for b in range(len(vals) // P_):
+            acc = 1
+            for p_ in range(P_):
+                acc = acc * vals[p_ * (len(vals) // P_) + b] % ctx.modulus
+            out.append(acc)
+        return out
+
+    old_env = os.environ.get("SDA_PREMIX_DEVICE")
+    encryption.PREMIX_DEVICE = dev
+    keys = {}
+    for bits in key_bits:
+        keys[bits] = paillier.keygen(bits)
+        ctx = pt.MontgomeryContext(keys[bits][0].n_squared)
+        m = ctx.modulus
+        r_inv = pow(1 << (32 * ctx.L), -1, m)
+        a, b = below(m, lanes), below(m, lanes)
+        a[:2], b[:2] = [m - 1, 1], [m - 1, m - 1]
+        ta, tb = limbs_on(ctx, a, (lanes,)), limbs_on(ctx, b, (lanes,))
+        got = ctx.mont_mul(ta, tb)
+        equal(f"mont_mul {bits}-bit key", got, pt.mont_mul_plain(ctx, ta, tb))
+        _check(ctx.from_limbs(got) == [x * y * r_inv % m
+                                       for x, y in zip(a, b)],
+               f"mont_mul {bits}-bit key != Python ints")
+        for P_ in rows:
+            vals = below(m, P_ * lanes)
+            for p_ in range(P_):  # lane 0 all m - 1, lane 1 all 1
+                vals[p_ * lanes], vals[p_ * lanes + 1] = m - 1, 1
+            x = limbs_on(ctx, vals, (P_, lanes))
+            got = ctx.premix_limbs(x)
+            fix = torch.from_numpy(ctx.fold_fix(P_)).to(dev)
+            equal(f"premix {bits}-bit key P={P_}", got,
+                  pt.premix_plain(ctx, x, fix))
+            _check(ctx.from_limbs(got) == product(ctx, vals, P_),
+                   f"premix {bits}-bit key P={P_} != Python ints")
+        # paillier_combine's device leg at this key: 8 x 16 random units
+        # (128 modmuls, above the floor of 64)
+        pk = keys[bits][0]
+        scheme = PackedPaillierEncryption(1, 32, 16, bits)
+        ek = EncryptionKey("PackedPaillier", Binary(pk.to_bytes()))
+        encs = frames(pk, [below(m, 16) for _ in range(8)], 16)
+        before = pt.montgomery_kernel.launches
+        mixed = combine(ek, scheme, encs, True)
+        if on_card:
+            _check(pt.montgomery_kernel.launches > before,
+                   f"paillier_combine at a {bits}-bit key missed K4")
+        host = combine(ek, scheme, encs, False)
+        bad = max(bad, int(mixed.value.data != host.value.data))
+        _check(mixed.value.data == host.value.data,
+               f"paillier_combine at a {bits}-bit key: device leg frames "
+               f"differ from the host fold")
+        print(f"  {bits}-bit key (m = n^2 of {m.bit_length()} bits, "
+              f"L={ctx.L}, {'unrolled' if ctx.L in pt.UNROLLED_LIMBS else 'wide'}"
+              f" instance): mont_mul at B={lanes} and premix at P in "
+              f"{list(rows)} x B={lanes} equal to plain and Python ints; "
+              f"paillier_combine of 8 x 16 on the device leg byte-identical "
+              f"to the host fold")
+    checks = dict(pt.montgomery_kernel.op_launches)
+
+    # the flagship clerk column, framed as the participants' encryptions
+    pk, sk = keys.get(flagship_bits) or paillier.keygen(flagship_bits)
+    n2 = pk.n_squared
+    components = min(PREMIX_WINDOW, (flagship_bits - 1) // PREMIX_WINDOW)
+    scheme = PackedPaillierEncryption(components, PREMIX_WINDOW,
+                                      PREMIX_VALUE_BITS, flagship_bits)
+    ek = EncryptionKey("PackedPaillier", Binary(pk.to_bytes()))
+    count = min(shares, B * components)
+    t0 = time.perf_counter()
+    # random units mod n^2
+    encs = frames(pk, [below(n2, B) for _ in range(P)], count)
+    make_s = time.perf_counter() - t0
+    k4 = _k4_reset()
+    t0 = time.perf_counter()
+    mixed = combine(ek, scheme, encs, True)
+    combine_s = time.perf_counter() - t0
+    launches = k4.launches
+    by_op = dict(k4.op_launches)
+    by_level = dict(sorted(k4.level_launches.items()))
+    if on_card:
+        _check(launches > 0 and by_op["fold"] > 0 and by_op["fix"] > 0,
+               f"the premix did not launch K4: {by_op}")
+    print(f"  paillier_combine (SDA_PREMIX_DEVICE=1) of P={P} x B={B} at a "
+          f"{flagship_bits}-bit key: {combine_s:.3f} s wall; K4 launches "
+          f"{by_op}, by level {by_level} (inputs made in {make_s:.3f} s)")
+
+    # the same fold split into its host and device parts
+    ctx = encryption._mont_ctx(n2)
+    t0 = time.perf_counter()
+    ints = [encryption._unframe_paillier(e.value.data)[2] for e in encs]
+    unframe_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host_limbs = ctx.to_limbs([c for row in ints for c in row])
+    to_limbs_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    x = torch.from_numpy(host_limbs).reshape(P, B, ctx.L).to(dev)
+    if on_card:
+        torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    fix = torch.from_numpy(ctx.fold_fix(P)).to(dev)
+    # K4's time: its launches alone on rows already limb-major; the
+    # wrapper's adds the transposes to and from that layout (the CPU
+    # rehearsal has no kernel to time alone)
+    wrapper_ms = ms = median_ms(lambda: ctx.premix_limbs(x), dev)
+    if on_card:
+        lib = pt._library()
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rows_lm = x.transpose(1, 2).contiguous()
+        ms = median_ms(lambda: pt._fold_launches(lib, stream, ctx, rows_lm,
+                                                 fix), dev)
+        del rows_lm
+    got = ctx.premix_limbs(x)
+    t0 = time.perf_counter()
+    got_ints = ctx.from_limbs(got)
+    from_limbs_s = time.perf_counter() - t0
+    mixed_ints = encryption._unframe_paillier(mixed.value.data)[2]
+    _check(got_ints == mixed_ints, "premix_limbs != paillier_combine")
+    t0 = time.perf_counter()
+    want = pt.premix_plain(ctx, x, fix)
+    if on_card:
+        torch.cuda.synchronize()
+    plain_flagship_ms = (time.perf_counter() - t0) * 1e3
+    equal(f"premix P={P} x B={B} vs plain", got, want)
+    del want
+    bound_ms, bound_by, detail = k4_bound(P * B, ctx.L, P, B)
+
+    # the host fold over the whole column
+    t0 = time.perf_counter()
+    host = combine(ek, scheme, encs, False)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    host_ints = encryption._unframe_paillier(host.value.data)[2]
+    differ = sum(a != b for a, b in zip(host_ints, mixed_ints))
+    _check(differ == 0 and host.value.data == mixed.value.data,
+           f"device premix frames differ from the host fold ({differ} "
+           f"lanes)")
+    bad = max(bad, differ)
+
+    # plain version at [16 x 256] on the flagship key
+    x16 = x[:16, :256].contiguous()
+    fix16 = torch.from_numpy(ctx.fold_fix(x16.shape[0])).to(dev)
+    plain_ms = median_ms(lambda: pt.premix_plain(ctx, x16, fix16), dev,
+                         reps=3, warmup=1)
+    del x
+
+    # homomorphic check: real encryptions of known packed vectors
+    encryptor = encryption.PackedPaillierEncryptor(ek, scheme)
+    vectors = rng.integers(0, 1 << PREMIX_VALUE_BITS,
+                           size=(8, 4 * components))
+    batches = [encryption._unframe_paillier(
+        encryptor.encrypt(v).value.data)[2] for v in vectors]
+    before = k4.launches
+    sums = []
+    for c in encryption._device_premix_rows(pk, batches):
+        sums.extend(paillier.unpack(paillier.decrypt(sk, c), components,
+                                    PREMIX_WINDOW))
+    if on_card:
+        _check(k4.launches > before, "the homomorphic check missed K4")
+    _check(sums == vectors.sum(axis=0).tolist(),
+           "homomorphic premix does not decrypt to the plaintext sums")
+    print(f"  homomorphic check: 8 participants x 4 real encryptions at a "
+          f"{flagship_bits}-bit key premixed through K4 decrypt to the "
+          f"plaintext sums")
+    print(f"K4 premix at P={P} x B={B} (L={ctx.L}): {ms:.4f} ms median of "
+          f"20 (CUDA events; its launches on limb-major rows), the wrapper "
+          f"with its transposes {wrapper_ms:.4f} ms; bound {bound_ms:.4f} "
+          f"ms ({detail}); plain at the same shape {plain_flagship_ms:.1f} "
+          f"ms (one call), at 16 x 256 {plain_ms:.3f} ms; host fold "
+          f"{host_ms:.1f} ms (whole column, paillier_combine on the host); "
+          f"host parts: unframe {unframe_s:.3f} s, to_limbs "
+          f"{to_limbs_s:.3f} s, upload {upload_s:.3f} s, from_limbs "
+          f"{from_limbs_s:.3f} s; paillier_combine {combine_s:.3f} s")
+    encryption.PREMIX_DEVICE = None
+    return {"launches": launches, "launches_by_op": by_op,
+            "launches_by_level": by_level, "check_launches": checks,
+            "max_abs_err": bad, "ms": ms,
+            "ms_of": f"K4's launches on limb-major rows, P={P} x B={B}, "
+                     f"L={ctx.L}",
+            "wrapper_ms": wrapper_ms,
+            "wrapper_ms_of": "premix_limbs: the launches and the "
+                             "[P,B,L] <-> [P,L,B] transposes",
+            "plain_ms": plain_ms, "plain_ms_of": "16 x 256",
+            "plain_ms_flagship": plain_flagship_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "host_ms": host_ms,
+            "host_of": "whole column, paillier_combine on the host",
+            "combine_wall_s": combine_s, "unframe_s": unframe_s,
+            "to_limbs_s": to_limbs_s, "upload_s": upload_s,
+            "from_limbs_s": from_limbs_s}
+
+
 def _round(service, dev, aggregation, inputs, clerks):
     """``tests/test_full_loop.py``'s flow through ``SdaClient``s on
     ``dev``; returns the revealed values."""
@@ -765,9 +1063,9 @@ def main() -> int:
     print(f"device: {kind}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}, Python {sys.version.split()[0]}")
 
-    # -- 2. build K1, K5 and K3, one nvcc each, side by side ---------------
+    # -- 2. build K1, K5, K3 and K4, one nvcc each, side by side ----------
     t0 = time.perf_counter()
-    names = ("fused_round", "kernel_probe", "chacha")
+    names = ("fused_round", "kernel_probe", "chacha", "montgomery")
     with ThreadPoolExecutor(len(names)) as pool:
         built = dict(zip(names, pool.map(_build.build, names)))
     print(f"build: {', '.join(built[n][0].name for n in names)} in "
@@ -1100,6 +1398,14 @@ def main() -> int:
                    "chacha_round": sum(rec14["k3_launches"].values()),
                    "streamed_round": sum(rec15["k3_launches"].values())}
 
+    # -- 16. K4: the Paillier premix, against plain, Python ints, host -----
+    print(f"K4 vs plain, Python ints and the host fold (tolerance: exact, "
+          f"torch.equal and byte-identical frames; {smi}):")
+    t16 = time.perf_counter()
+    k4_rec = premix_phase(dev, built["montgomery"][1])
+    k4_rec["phase_s"] = time.perf_counter() - t16
+    print(json.dumps(k4_rec), flush=True)
+
     # -- 8. the record ------------------------------------------------------
     print(smi)
     print(json.dumps({"kernels": [{
@@ -1149,6 +1455,16 @@ def main() -> int:
         f"ms_s{S_BIG}": k3_rec["ms_s_big"],
         f"bound_ms_s{S_BIG}": k3_rec["bound_ms_s_big"],
         "host_ms": k3_rec["host_ms"],
+    }, {
+        "name": "premix",
+        "route": "cuda",
+        "source": "sda_tpu_torch/fields/csrc/montgomery.cu",
+        "replaces": "sda_tpu/crypto/paillier_tpu.py:137",
+        **{key: k4_rec[key] for key in (
+            "launches", "launches_by_level", "max_abs_err", "ms", "ms_of",
+            "wrapper_ms", "plain_ms", "plain_ms_of", "plain_ms_flagship", "bound_ms",
+            "bound_by", "host_ms", "host_of")},
+        "library_ms": None,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

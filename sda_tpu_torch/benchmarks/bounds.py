@@ -1,5 +1,5 @@
-"""The least time an H100 could take for the work of K1 and K3, counted
-from the algorithm and the bytes: shared by ``chip_smoke.py`` and
+"""The least time an H100 could take for the work of K1, K3 and K4,
+counted from the algorithm and the bytes: shared by ``chip_smoke.py`` and
 ``k1_ab``."""
 
 from __future__ import annotations
@@ -111,5 +111,25 @@ def k3_bound(seeds: int, dimension: int, combine: bool):
     detail = (f"{bytes_moved} bytes -> {bytes_ms:.4f} ms; {blocks} blocks, "
               f"{total:.0f} integer ops ({alu:.0f} ALU-pipe only, "
               f"{total / blocks:.0f} a block) -> {ops_ms:.4f} ms")
+    return (max(bytes_ms, ops_ms),
+            "operations" if ops_ms >= bytes_ms else "bytes", detail)
+
+
+def k4_bound(montmuls: int, L: int, rows: int, lanes: int):
+    """Least time (ms) the card could take for K4's work: ``montmuls``
+    Montgomery multiplications of L 32-bit limbs, whose inputs are
+    ``rows`` x ``lanes`` operands (read once) and whose output is ``lanes``
+    operands (written once), and what bounds it: the larger of those bytes
+    at the memory rate and the CIOS's 2 L^2 + L 32x32 -> 64-bit multiplies
+    a montmul, each taking two FMA-pipe issue slots (the half rate
+    ``k1_bound`` gives wide multiplies). Returns (bound_ms, bound_by,
+    detail)."""
+    wide = montmuls * (2 * L * L + L)
+    ops_ms = wide / (PIPE_OPS_PER_S / 2) * 1e3
+    bytes_moved = (rows + 1) * lanes * 4 * L
+    bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+    detail = (f"{bytes_moved} bytes -> {bytes_ms:.4f} ms; {montmuls} "
+              f"montmuls x {2 * L * L + L} wide multiplies = {wide:.4g} "
+              f"at half the FMA pipe's rate -> {ops_ms:.4f} ms")
     return (max(bytes_ms, ops_ms),
             "operations" if ops_ms >= bytes_ms else "bytes", detail)

@@ -9,15 +9,16 @@ Also implements the reference's *declared-but-disabled* PackedPaillier
 scheme (crypto.rs:164-174) for real — additively homomorphic ciphertext
 batches that let shares be summed without decryption (``paillier_combine``).
 
-Port of ``sda_tpu/crypto/encryption.py``: the ciphertext fold is the host
-fold. The JAX package's opt-in device premix (``SDA_PREMIX_DEVICE=1``, TPU
-kernel K4 in ``crypto/paillier_tpu.py``) has no counterpart yet, so asking
-for it raises ``NotImplementedError``.
+Port of ``sda_tpu/crypto/encryption.py``. The opt-in device premix
+(``SDA_PREMIX_DEVICE=1``) folds on ``PREMIX_DEVICE`` through K4
+(``crypto/paillier_tpu.py``). Unlike the reference, a device failure
+raises: there is no fallback to the host fold.
 """
 
 from __future__ import annotations
 
 import os
+from collections import OrderedDict
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -165,15 +166,14 @@ def paillier_combine(ek: EncryptionKey, scheme: PackedPaillierEncryption,
             f"{pk.bitsize}-bit key below the scheme's "
             f"{scheme.min_modulus_bitsize}-bit floor"
         )
-    if os.environ.get("SDA_PREMIX_DEVICE") == "1":
-        raise NotImplementedError(
-            "SDA_PREMIX_DEVICE=1: the device premix (TPU kernel K4) is not "
-            "ported to sda_tpu_torch yet (ROADMAP queue 1, item 11); unset "
-            "it to fold on the host")
-    # the host fold is INCREMENTAL (O(B) working set)
+    # default host path folds INCREMENTALLY (O(B) working set); only the
+    # opt-in device path batches rows (its users accept the O(P*B) staging
+    # in exchange for the kernel fold)
+    device = os.environ.get("SDA_PREMIX_DEVICE") == "1"
     count: Optional[int] = None
     batch_len: Optional[int] = None
     total_summands = 0
+    rows: list = []
     acc: list = []
     for e in encryptions:
         if e.variant != "PackedPaillier":
@@ -184,10 +184,14 @@ def paillier_combine(ek: EncryptionKey, scheme: PackedPaillierEncryption,
             count, batch_len = n, len(cs)
         elif n != count or len(cs) != batch_len:
             raise ValueError("mismatched batch shapes in homomorphic combine")
-        if not acc:
+        if device:
+            rows.append(list(cs))
+        elif not acc:
             acc = list(cs)
         else:
             acc = [paillier.add(pk, a, c) for a, c in zip(acc, cs)]
+    if device:
+        acc = _premix_rows(pk, rows)
     # summand counts accumulate through nested combines, so the window-
     # overflow bound holds for the TOTAL number of fresh encryptions folded
     # in, not just this call's operand list
@@ -201,6 +205,79 @@ def paillier_combine(ek: EncryptionKey, scheme: PackedPaillierEncryption,
         raw = c.to_bytes((c.bit_length() + 7) // 8 or 1, "big")
         out.append(_leb128(len(raw)) + raw)
     return Encryption("PackedPaillier", Binary(b"".join(out)))
+
+
+#: device premix engages only when the fold is big enough to amortize the
+#: kernel dispatch (a dispatch rule: smaller folds take the host fold)
+_DEVICE_PREMIX_MIN_MODMULS = 64
+#: rows per device fold chunk: bounds the [P, B, L] upload block (~23 KB
+#: per row at 2048-bit keys) while keeping each dispatch large
+_DEVICE_PREMIX_CHUNK_ROWS = 512
+#: the device of the premix (``None``: CUDA; ``"cpu"`` runs K4's plain
+#: version, as the tests do); ``sdad --device`` sets it
+PREMIX_DEVICE = None
+
+#: MontgomeryContext per n^2, tiny LRU: a long-lived broker rotates
+#: committee keys — keep only the few most recent instead of growing
+#: forever
+_MONT_CTX_CACHE: "OrderedDict" = OrderedDict()
+_MONT_CTX_CACHE_MAX = 4
+
+
+def _premix_rows(pk, rows: list) -> list:
+    """Fold [P][B] ciphertext ints to [B] products mod n^2 (the device
+    leg of paillier_combine: bit-identical to the host paillier.add fold;
+    the server's premix hot loop scales with P, reference
+    server/src/snapshot.rs:4-47). Rows are chunked
+    (_DEVICE_PREMIX_CHUNK_ROWS bounds every upload block) and the chunks'
+    products folded again, as a tree. Chunks are not padded: the
+    reference pads each to a power of two with ciphertext 1 to bound its
+    compiled shapes, and eager torch compiles none (the product is the
+    same integer either way). Folds below the size floor take the host
+    fold; a device failure raises."""
+    if len(rows) <= 1:
+        return list(rows[0]) if rows else []
+    B = len(rows[0])
+    if len(rows) * B >= _DEVICE_PREMIX_MIN_MODMULS:
+        return _device_premix_rows(pk, rows)
+    acc = list(rows[0])
+    for cs in rows[1:]:
+        acc = [paillier.add(pk, a, c) for a, c in zip(acc, cs)]
+    return acc
+
+
+def _mont_ctx(modulus):
+    from .paillier_tpu import MontgomeryContext
+
+    ctx = _MONT_CTX_CACHE.get(modulus)
+    if ctx is None:
+        ctx = _MONT_CTX_CACHE[modulus] = MontgomeryContext(modulus)
+        while len(_MONT_CTX_CACHE) > _MONT_CTX_CACHE_MAX:
+            _MONT_CTX_CACHE.popitem(last=False)
+    else:
+        _MONT_CTX_CACHE.move_to_end(modulus)
+    return ctx
+
+
+def _device_premix_rows(pk, rows: list) -> list:
+    n2 = pk.n_squared
+    ctx = _mont_ctx(n2)
+    # the host fold reduces every product mod n^2, so a wire value at or
+    # above n^2 folds as its residue (K4 takes operands below m)
+    rows = [[c if c < n2 else c % n2 for c in row] for row in rows]
+    # tree reduction: every level folds chunks of at most
+    # _DEVICE_PREMIX_CHUNK_ROWS rows, so no single dispatch (including
+    # the reduction over partial products) exceeds the upload bound
+    while len(rows) > 1:
+        next_rows = []
+        for lo in range(0, len(rows), _DEVICE_PREMIX_CHUNK_ROWS):
+            chunk = rows[lo:lo + _DEVICE_PREMIX_CHUNK_ROWS]
+            if len(chunk) == 1:
+                next_rows.append(chunk[0])
+                continue
+            next_rows.append(ctx.premix(chunk, device=PREMIX_DEVICE))
+        rows = next_rows
+    return rows[0]
 
 
 def _leb128(n: int) -> bytes:

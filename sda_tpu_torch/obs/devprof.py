@@ -1,5 +1,6 @@
-"""The device-memory watermark of model-scale rounds — the
-``hbm_watermark`` part of ``sda_tpu/obs/devprof.py``.
+"""The device-memory watermark of model-scale rounds and the compile
+totals of ``/statusz`` — the ``hbm_watermark`` and ``compile_totals``
+parts of ``sda_tpu/obs/devprof.py``.
 
 The reference's compile/retrace registry and roofline blocks describe
 ``jit``-compiled programs and have no counterpart in an eager torch port
@@ -14,6 +15,7 @@ import os
 import torch
 
 from ..device import resolve_device
+from ..utils import metrics
 
 #: Per-device memory budget (bytes) of a device that reports none: the CPU
 #: row is a deliberately small stand-in, so CPU runs exercise the SAME
@@ -62,3 +64,24 @@ def hbm_watermark(device=None) -> int:
         _, total = torch.cuda.mem_get_info(dev)
         return int(total * frac)
     return int(HBM_WATERMARK_DEFAULTS["cpu"] * frac)
+
+
+def compile_totals() -> dict:
+    """The compile-telemetry summary of ``/statusz``, with the reference's
+    keys. Eager torch compiles nothing and the port registers no function,
+    so ``functions`` is empty and the counts read the same ``xla.compile.*``
+    metrics counters as the reference's, which nothing in the port
+    increments: they are 0 unless a caller counts them."""
+    counters = metrics.counter_report("xla.compile.")
+    hist = metrics.histogram_report("xla.compile.seconds").get(
+        "xla.compile.seconds")
+    return {
+        "functions": {},
+        "backend_compiles": counters.get("xla.compile.backend", 0),
+        "retraces": counters.get("xla.compile.retrace", 0),
+        "compile_seconds": hist,
+        "cache": {
+            "hit": counters.get("xla.compile.cache.hit", 0),
+            "miss": counters.get("xla.compile.cache.miss", 0),
+        },
+    }

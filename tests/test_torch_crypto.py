@@ -283,21 +283,80 @@ def test_crypto_module_threads_its_device():
         assert make(FullMasking(433)).device == cm.device
 
 
-def test_paillier_device_premix_not_ported(monkeypatch):
-    """``SDA_PREMIX_DEVICE=1`` asks for the device premix (K4), which the
-    port does not have: the fold raises instead of folding elsewhere."""
+def _paillier_batches(rows, seed=5):
+    """A 512-bit PackedPaillier key of the port and ``rows`` framed share
+    batches under it (12 ciphertexts each)."""
     from sda_tpu_torch.crypto import encryption
     from sda_tpu_torch.protocol import PackedPaillierEncryption
 
     scheme = PackedPaillierEncryption(2, 48, 32, 512)
     kp = encryption.new_encryption_keypair(scheme)
     enc = encryption.new_share_encryptor(kp.ek, scheme)
-    batch = enc.encrypt(np.array([1, 2, 3], dtype=np.int64))
-    host = encryption.paillier_combine(kp.ek, scheme, [batch, batch])
+    rng = np.random.default_rng(seed)
+    batches = [enc.encrypt(rng.integers(0, 1 << 32, size=24))
+               for _ in range(rows)]
+    return scheme, kp.ek, batches
+
+
+@pytest.mark.parametrize("chunk_rows", [512, 4], ids=["one-chunk", "chunked"])
+def test_paillier_device_premix_matches_host_and_reference(
+        chunk_rows, monkeypatch, caplog):
+    """``SDA_PREMIX_DEVICE=1`` folds through K4 (its plain version on the
+    CPU): the framed product is byte-identical to the port's host fold and
+    to the reference's ``paillier_combine`` with its device premix on jax
+    cpu (which must not have fallen back to its host fold)."""
+    import logging
+
+    from sda_tpu import protocol as ref_protocol
+    from sda_tpu.crypto import encryption as ref_enc
+    from sda_tpu_torch.crypto import encryption
+
+    scheme, ek, batches = _paillier_batches(9)
+    monkeypatch.delenv("SDA_PREMIX_DEVICE", raising=False)
+    host = encryption.paillier_combine(ek, scheme, batches)
     monkeypatch.setenv("SDA_PREMIX_DEVICE", "1")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        encryption.paillier_combine(kp.ek, scheme, [batch, batch])
-    assert host.variant == "PackedPaillier"
+    monkeypatch.setattr(encryption, "PREMIX_DEVICE", "cpu")
+    monkeypatch.setattr(encryption, "_DEVICE_PREMIX_CHUNK_ROWS", chunk_rows)
+    monkeypatch.setattr(ref_enc, "_DEVICE_PREMIX_CHUNK_ROWS", chunk_rows)
+    legs = []
+    device_leg = encryption._device_premix_rows
+    monkeypatch.setattr(encryption, "_device_premix_rows",
+                        lambda pk, rows: legs.append(len(rows))
+                        or device_leg(pk, rows))
+    dev = encryption.paillier_combine(ek, scheme, batches)
+    assert legs == [9]  # 9 rows x 12 ciphertexts: above the floor of 64
+    ref_scheme = ref_protocol.PackedPaillierEncryption(2, 48, 32, 512)
+    ref_ek = ref_protocol.EncryptionKey(
+        "PackedPaillier", ref_protocol.Binary(ek.value.data))
+    ref_batches = [ref_protocol.Encryption(
+        "PackedPaillier", ref_protocol.Binary(b.value.data)) for b in batches]
+    with caplog.at_level(logging.WARNING):
+        ref = ref_enc.paillier_combine(ref_ek, ref_scheme, ref_batches)
+    assert not any("falling back to host fold" in r.message
+                   for r in caplog.records), "the reference's kernel never ran"
+    assert dev.value.data == host.value.data == ref.value.data
+
+
+def test_paillier_device_premix_failure_raises(monkeypatch):
+    """A failing device leg raises: there is no fallback to the host fold
+    (the reference logs a warning and folds on the host instead)."""
+    from sda_tpu_torch.crypto import encryption, paillier_tpu
+
+    scheme, ek, batches = _paillier_batches(9)
+    monkeypatch.setenv("SDA_PREMIX_DEVICE", "1")
+
+    def boom(self, cts, device=None):
+        raise RuntimeError("no device")
+
+    monkeypatch.setattr(encryption, "PREMIX_DEVICE", "cpu")
+    monkeypatch.setattr(paillier_tpu.MontgomeryContext, "premix", boom)
+    with pytest.raises(RuntimeError, match="no device"):
+        encryption.paillier_combine(ek, scheme, batches)
+    # below the floor of 64 modmuls the fold is the host's, by rule
+    small = encryption.paillier_combine(ek, scheme, batches[:2])
+    monkeypatch.delenv("SDA_PREMIX_DEVICE")
+    assert small.value.data == encryption.paillier_combine(
+        ek, scheme, batches[:2]).value.data
 
 
 def test_scheme_crosses_as_its_wire_object():

@@ -17,6 +17,10 @@ ROOT = Path(__file__).resolve().parent.parent
 COPIES = [
     "chaos/__init__.py",
     "chaos/poison.py",
+    "cli/__init__.py",
+    "cli/main.py",
+    "cli/serverd.py",
+    "client/embed.py",
     "client/journal.py",
     "client/relay.py",
     "crypto/batch.py",
@@ -44,9 +48,11 @@ COPIES = [
     "protocol/methods.py",
     "protocol/resources.py",
     "server/__init__.py",
+    "server/breaker.py",
     "server/core.py",
     "server/jsonfs.py",
     "server/lifecycle.py",
+    "server/health.py",
     "server/memory.py",
     "server/mongo.py",
     "server/routing.py",
@@ -54,6 +60,8 @@ COPIES = [
     "server/sqlite.py",
     "server/stores.py",
     "server/wakeup.py",
+    "service/retention.py",
+    "service/scheduler.py",
     "store/__init__.py",
     "store/file.py",
     "utils/env.py",
@@ -69,14 +77,69 @@ FUNCTION_COPIES = [
     ("mesh/streaming.py", "_atomic_npz"),
     ("mesh/streaming.py", "_read_snapshot"),
     ("mesh/streaming.py", "_checkpoint_load"),
+    ("models/encoding.py", "FieldSizingError"),
+    ("models/encoding.py", "field_capacity"),
+    ("models/encoding.py", "field_headroom_check"),
+    ("models/encoding.py", "FixedPointCodec.__init__"),
+    ("models/encoding.py", "FixedPointCodec.q_max"),
+    ("models/encoding.py", "FixedPointCodec.quantize"),
+    ("models/encoding.py", "FixedPointCodec.encode"),
+    ("models/encoding.py", "FixedPointCodec.decode_sum"),
+    ("models/encoding.py", "FixedPointCodec.decode_mean"),
+    ("models/encoding.py", "FixedPointCodec.__repr__"),
 ]
 
-#: docstring lines a copy words otherwise, by line number (1-based): the
-#: reference's line there names a step of its own history
+#: lines a copy words otherwise, by line number (1-based), each replaced
+#: by the text given (which may span lines): docstring lines of
+#: ``lifecycle.py``, ``health.py`` and ``scheduler.py`` name steps of the
+#: reference's own history; the CLI's device lines are the port's
+#: counterpart of ``JAX_PLATFORMS`` (``sda --device``: the agent's field
+#: arithmetic; ``sdad --device``: the Paillier premix)
 EDITS = {
     "server/lifecycle.py": {
         37: "(``transition_round_state`` on all four backends — the fleet's "
             "single-winner",
+    },
+    "server/health.py": {
+        3: "The fleet once recovered held clerking-job leases only through "
+           "GRACEFUL",
+        4: "drain (SIGTERM → ``release_held_leases``), and the round "
+           "supervisor only",
+        27: "  as the round-state ``rounds`` table), so N sweeping workers "
+            "recall a dead",
+    },
+    "service/scheduler.py": {
+        14: "  ingest key is ``(aggregation, participant)``);",
+        338: "        scenario runner uses this for its final round). "
+             "Idempotent and",
+    },
+    "cli/main.py": {
+        6: "directory (``-i``), server selection via ``-s``, the device of "
+           "the\nagent's field arithmetic via ``--device`` (``cuda``, or "
+           "``cpu`` for the host).",
+        46: '    parser.add_argument("-v", "--verbose", action="count", '
+            'default=0)\n'
+            '    parser.add_argument("--device", default="cuda",\n'
+            '                        help="device of this agent\'s field '
+            'arithmetic "\n'
+            '                             "(cuda, or cpu for the host)")',
+        206: "    return SdaClient(agent, store, service, device=args.device)",
+    },
+    "cli/serverd.py": {
+        6: "or in-memory (--memory). ``--device`` (``cuda``, or ``cpu`` for "
+           "the host)\nis the device of the Paillier premix "
+           "(``--premix-paillier`` with\n``SDA_PREMIX_DEVICE=1``).",
+        205: '    parser.add_argument("--device", default="cuda",\n'
+             '                        help="device of the Paillier premix '
+             '(--premix-paillier "\n'
+             '                             "with SDA_PREMIX_DEVICE=1): cuda, '
+             'or cpu for the "\n'
+             '                             "host")\n'
+             '    parser.add_argument("-v", "--verbose", action="count", '
+             'default=0)',
+        244: "        service.server.premix_paillier = True\n"
+             "    from ..crypto import encryption\n\n"
+             "    encryption.PREMIX_DEVICE = args.device",
     },
 }
 
@@ -102,9 +165,17 @@ def test_every_copy_is_listed_once():
 
 
 def _function_source(path: Path, name: str) -> str:
+    """The source of a top-level function or class ``name``, or of a
+    method ``Class.name``."""
     text = path.read_text()
-    for node in ast.parse(text).body:
-        if isinstance(node, ast.FunctionDef) and node.name == name:
+    body = ast.parse(text).body
+    *outer, name = name.split(".")
+    for cls in outer:
+        body = next(node.body for node in body
+                    if isinstance(node, ast.ClassDef) and node.name == cls)
+    for node in body:
+        if (isinstance(node, (ast.FunctionDef, ast.ClassDef))
+                and node.name == name):
             return ast.get_source_segment(text, node)
     raise LookupError(f"{name} not in {path}")
 

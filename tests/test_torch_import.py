@@ -95,8 +95,23 @@ def _entry_points():
                                     synthetic_device_block_provider32)
     from sda_tpu_torch.obs import devprof
 
+    import tempfile
+
+    from sda_tpu_torch.cli.main import main as sda_main
+    from sda_tpu_torch.crypto.paillier_tpu import MontgomeryContext
+    from sda_tpu_torch.models import FixedPointCodec
+
+    def sda_show(**kw):
+        device = ["--device", kw["device"]] if "device" in kw else []
+        return sda_main(["-i", tempfile.mkdtemp(), *device, "agent", "show"])
+
     v1 = "sda-tpu/chacha20-prg/v1"
     return {
+        "MontgomeryContext.premix": lambda **kw: MontgomeryContext(
+            p).premix([[1, 2], [3, 4]], **kw),
+        "FixedPointCodec.encode_device": lambda **kw: FixedPointCodec(
+            433, 2, 4).encode_device([0.5, -1.0], **kw),
+        "sda": sda_show,
         "chacha_device.expand_mask": lambda **kw: chacha_device.expand_mask(
             [1, 2], 16, p, prg=v1, **kw),
         "chacha_device.combine_masks":
@@ -137,7 +152,10 @@ def _entry_points():
                                   "kernel_probe.main",
                                   "kernel_probe.probe_call",
                                   "CryptoModule",
-                                  "SdaClient"])
+                                  "SdaClient",
+                                  "MontgomeryContext.premix",
+                                  "FixedPointCodec.encode_device",
+                                  "sda"])
 def test_entry_points_default_to_cuda(name):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default does not raise")
@@ -148,3 +166,99 @@ def test_entry_points_default_to_cuda(name):
         entry(device="cuda")
     assert entry(device="cpu") is not None
 
+
+
+#: relative imports in the port whose targets it does not have yet, each
+#: with the ROADMAP item that ports the target: (importing module, target
+#: module, name or None) -> item
+PENDING_IMPORTS = {}
+
+
+def _top_level_names(path: Path) -> set:
+    """Names a module binds at its top level (definitions, assignments and
+    imports, also inside top-level if/try blocks)."""
+    names = set()
+    todo = list(ast.parse(path.read_text()).body)
+    while todo:
+        node = todo.pop()
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
+                             ast.ClassDef)):
+            names.add(node.name)
+        elif isinstance(node, (ast.Assign, ast.AnnAssign)):
+            targets = node.targets if isinstance(node, ast.Assign) \
+                else [node.target]
+            for target in targets:
+                names.update(n.id for n in ast.walk(target)
+                             if isinstance(n, ast.Name))
+        elif isinstance(node, (ast.Import, ast.ImportFrom)):
+            names.update((a.asname or a.name).split(".")[0]
+                         for a in node.names)
+        elif isinstance(node, (ast.If, ast.Try)):
+            todo += node.body + node.orelse + getattr(node, "finalbody", [])
+            for handler in getattr(node, "handlers", []):
+                todo += handler.body
+    return names
+
+
+def _module_path(dotted: str):
+    """The file of a port module, or None when the port lacks it."""
+    base = ROOT.joinpath(*dotted.split("."))
+    for path in (base.with_suffix(".py"), base / "__init__.py"):
+        if path.is_file():
+            return path
+    return None
+
+
+def _relative_imports():
+    """(importing module, target module, imported name or None) for every
+    relative import in the port, including those inside functions."""
+    found = []
+    for path in sorted(PORT.rglob("*.py")):
+        parts = path.relative_to(ROOT).with_suffix("").parts
+        package = parts[:-1]  # a module's package; an __init__'s own
+        for node in ast.walk(ast.parse(path.read_text())):
+            if not isinstance(node, ast.ImportFrom) or node.level == 0:
+                continue
+            base = package[:len(package) - (node.level - 1)]
+            target = ".".join(base + ((node.module,) if node.module else ()))
+            for alias in node.names:
+                found.append((".".join(parts), target, alias.name))
+    return found
+
+
+def test_every_relative_import_resolves():
+    """Each relative import names a port module, and each imported name is
+    a submodule or a top-level name of its module, unless it is listed in
+    ``PENDING_IMPORTS`` with the ROADMAP item that will port it."""
+    missing = []
+    for module, target, name in _relative_imports():
+        path = _module_path(target)
+        ok = path is not None and (
+            _module_path(f"{target}.{name}") is not None
+            or name in _top_level_names(path))
+        if not ok and (module, target, name) not in PENDING_IMPORTS:
+            missing.append(f"{module}: from {target} import {name}")
+    assert not missing, "\n".join(missing)
+    for key, item in PENDING_IMPORTS.items():
+        assert item.startswith("item "), key
+
+
+def test_relative_import_scan_sees_function_level_imports():
+    found = set(_relative_imports())
+    assert ("sda_tpu_torch.server.lifecycle", "sda_tpu_torch.server",
+            "health") in found
+    assert ("sda_tpu_torch.cli.main", "sda_tpu_torch.client.embed",
+            "participate_embedded") in found
+
+
+@pytest.mark.parametrize("module", [
+    "sda_tpu_torch.cli.main", "sda_tpu_torch.cli.serverd",
+    "sda_tpu_torch.crypto.paillier_tpu", "sda_tpu_torch.service",
+    "sda_tpu_torch.models"])
+def test_entry_module_leaves_jax_out(module):
+    code = (f"import importlib, sys\nimportlib.import_module({module!r})\n"
+            f"bad = [m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN!r}]\nprint(bad)\nsys.exit(1 if bad else 0)\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
