@@ -34,12 +34,15 @@ streamed round (``StreamingAggregator(use_pallas=True)``, P=10,000 x
 device-tile clerk fold, each exact, with K3's windows at the shapes and
 block counters the two ChaCha rounds launched it with held to the plain
 version (their masks cancel, so the rounds' sums cannot show them). Then
-the Paillier premix on K4 (``csrc/montgomery.cu``): K4 held to its plain
-version and to Python ints at 512- and 2048-bit keys and several row
-counts, the flagship clerk column (P=100 x 7,408 ciphertexts of a
-2048-bit key) through ``paillier_combine`` with ``SDA_PREMIX_DEVICE=1``
-byte-identical to the host fold, a homomorphic check on real encryptions,
-and K4's time beside its bound, the plain version's and the host fold's.
+the Paillier premix on K4 (``csrc/montgomery.cu``): each instance's
+ptxas line and resident warps (a spill fails), K4 held to its plain
+version and to Python ints at 512-, 2048- and 3072-bit keys, several row
+counts and a split small clerk, the flagship clerk column (P=100 x 7,408
+ciphertexts of a 2048-bit key) through ``paillier_combine`` with
+``SDA_PREMIX_DEVICE=1`` in at most two K4 launches, byte-identical to the
+host fold, a homomorphic check on real encryptions, and K4's time beside
+its bound, the wrapper's, the plain version's and the host fold's, and
+on the same column shape at a 3072-bit key.
 Prints the card's name and power
 limit, one JSON line of kernel measurements, and as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -51,6 +54,7 @@ from __future__ import annotations
 
 import collections
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -92,12 +96,20 @@ D_CHACHA = 1_000_008
 P_STREAM, D_STREAM, STREAM_CHUNK = 10_000, 10_000_008, 250
 #: rows and bundles of the device-tile clerk fold (phase 15)
 FOLD_ROWS, FOLD_BUNDLES = 100, 4
-#: K4's checks (phase 16): Paillier key sizes (n^2 of 32 and 128 limbs on
-#: unrolled instances, of 192 on the wide one), premix row counts (odd
-#: counts leave a row over in the tree) and lanes
+#: K4's checks (phase 16): Paillier key sizes (n^2 of 32, 128 and 192
+#: limbs, each filling a group instance), premix row counts (at 256 lanes
+#: the larger ones split a lane's rows) and lanes; the split path of a small
+#: clerk (33 rows of 4 lanes)
 K4_KEY_BITS = (512, 2048, 3072)
 K4_ROWS = (1, 2, 3, 16, 33)
 K4_LANES = 256
+K4_SPLIT_CASE = (33, 4)
+#: the wide instance's check: an odd modulus of 513 limbs (above the
+#: group instances' 512), folds of these row counts at K4_LANES lanes and
+#: the split path
+K4_WIDE_LIMBS, K4_WIDE_ROWS = 513, (3, 33)
+#: the key of K4's second timed column (n^2 of 192 limbs)
+WIDE_KEY_BITS = 3072
 #: the flagship clerk column (phase 16): P=100 participants, each sending a
 #: clerk B = ceil(333,333 / 45) ciphertexts of a 2048-bit key (packed
 #: Shamir k=3 of d=999,999 gives a clerk 333,333 shares; the CLI packs 45
@@ -627,22 +639,26 @@ def _k4_reset():
     k4 = paillier_tpu.montgomery_kernel
     k4.launches = 0
     k4.op_launches = dict.fromkeys(paillier_tpu.OPS, 0)
-    k4.level_launches.clear()
     return k4
 
 
 def premix_phase(dev, ptxas_log, key_bits=K4_KEY_BITS, rows=K4_ROWS,
                  lanes=K4_LANES, P=P_PREMIX, B=B_PREMIX,
-                 flagship_bits=PREMIX_KEY_BITS, shares=SHARES_PREMIX):
+                 flagship_bits=PREMIX_KEY_BITS, shares=SHARES_PREMIX,
+                 split_case=K4_SPLIT_CASE, wide_bits=WIDE_KEY_BITS,
+                 wide_limbs=K4_WIDE_LIMBS, wide_rows=K4_WIDE_ROWS):
     """Phase 16: K4 against its plain version (on the same device) and
     Python ints, for ``mont_mul`` and the premix fold, at each key size and
     row count, and ``paillier_combine``'s device leg at each key size
-    byte-identical to the host fold; the flagship clerk column (P x B random units mod n^2,
+    byte-identical to the host fold; the same checks of the wide instance
+    on a random odd modulus of ``wide_limbs`` limbs; the flagship clerk column (P x B random units mod n^2,
     framed as participants' encryptions) through ``paillier_combine`` with
     ``SDA_PREMIX_DEVICE=1``, byte-identical to the host fold; a homomorphic
-    check on real encryptions; K4's time (its launches alone, on rows
-    already limb-major) beside its bound, the wrapper's, the plain
-    version's and the host fold's. Returns the kernel's record."""
+    check on real encryptions; K4's time (its launches alone, on the rows
+    as ``to_limbs`` lays them out) beside its bound, the wrapper's
+    (``premix_limbs``), the plain version's and the host fold's, and its
+    time on a column of the same shape at a ``wide_bits`` key. Fails on a
+    spill in any group instance. Returns the kernel's record."""
     import os
 
     import numpy as np
@@ -657,17 +673,41 @@ def premix_phase(dev, ptxas_log, key_bits=K4_KEY_BITS, rows=K4_ROWS,
     from sda_tpu_torch.utils.benchtime import median_ms
 
     on_card = dev.type == "cuda"
+    instances = {}
     if on_card:
         info = sass.ptxas_info(ptxas_log)
-        for kernel in [f"montmul_kernelILi{limbs}EE"
-                       for limbs in pt.UNROLLED_LIMBS] + ["montmul_wide"]:
+        lib = pt._library()
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        groups = sorted({(int(g[1]), int(g[2])) for g in (
+            re.search(r"montfoldILi(\d+)ELi(\d+)EE", key) for key in info)
+            if g})
+        for limbs in (32, 64, 128, 192):
+            _check(pt.fold_shape(lib, limbs)[:2] in groups,
+                   f"L={limbs} takes no group instance")
+        for tpi, lpt in groups + [(1, 0)]:
+            kernel = (f"montfoldILi{tpi}ELi{lpt}EE" if lpt
+                      else "montfold_wide")
             ptx = next((v for key, v in info.items() if kernel in key), None)
             _check(ptx is not None, f"{kernel}: no ptxas line")
-            # no instance fails on a spill yet (the wide one keeps its
-            # accumulator in a global workspace by design)
-            print(f"  K4 {kernel}: {'; '.join(ptx)}")
+            # the smallest L of the instance's capacity picks it
+            shape = pt.fold_shape(lib, tpi * lpt if lpt else 513)
+            _check(shape[:2] == (tpi, lpt),
+                   f"{kernel}: the C entry picks {shape[:2]}")
+            warps = shape[3] * 128 // 32
+            # the wide instance keeps its accumulator in device memory
+            if lpt:
+                _check(not sass.spills(ptx),
+                       f"K4 {kernel} spills: {'; '.join(ptx)}")
+            print(f"  K4 {kernel}: {'; '.join(ptx)}; resident warps an SM: "
+                  f"{warps} (128-thread blocks, "
+                  f"cudaOccupancyMaxActiveBlocksPerMultiprocessor)")
+            instances[kernel] = {"ptxas": ptx, "resident_warps": warps}
     rng = np.random.default_rng(16)
     bad = 0
+
+    def shape_of(limbs):
+        """(threads a group, limbs a thread) of L's instance on the card"""
+        return pt.fold_shape(lib, limbs)[:2] if on_card else "plain"
 
     def below(m, n):
         w = (m.bit_length() + 64) // 8
@@ -719,6 +759,46 @@ def premix_phase(dev, ptxas_log, key_bits=K4_KEY_BITS, rows=K4_ROWS,
             out.append(acc)
         return out
 
+    def hold(ctx, label, rows_):
+        """mont_mul at ``lanes`` lanes, the fold at each of ``rows_`` x
+        ``lanes`` and the split path at ``split_case`` on ``ctx``'s
+        modulus: equal to the plain version and to Python ints"""
+        m = ctx.modulus
+        r_inv = pow(1 << (32 * ctx.L), -1, m)
+        a, b = below(m, lanes), below(m, lanes)
+        a[:2], b[:2] = [m - 1, 1], [m - 1, m - 1]
+        ta, tb = limbs_on(ctx, a, (lanes,)), limbs_on(ctx, b, (lanes,))
+        got = ctx.mont_mul(ta, tb)
+        equal(f"mont_mul {label}", got, pt.mont_mul_plain(ctx, ta, tb))
+        _check(ctx.from_limbs(got) == [x * y * r_inv % m
+                                       for x, y in zip(a, b)],
+               f"mont_mul {label} != Python ints")
+        for P_ in rows_:
+            vals = below(m, P_ * lanes)
+            for p_ in range(P_):  # lane 0 all m - 1, lane 1 all 1
+                vals[p_ * lanes], vals[p_ * lanes + 1] = m - 1, 1
+            x = limbs_on(ctx, vals, (P_, lanes))
+            got = ctx.premix_limbs(x)
+            fix = torch.from_numpy(ctx.fold_fix(P_)).to(dev)
+            equal(f"premix {label} P={P_}", got, pt.premix_plain(ctx, x, fix))
+            _check(ctx.from_limbs(got) == product(ctx, vals, P_),
+                   f"premix {label} P={P_} != Python ints")
+        # a small clerk: its lanes cannot fill the card, so the rows of a
+        # lane are split among groups and a second launch folds them
+        P_, B_ = split_case
+        vals = below(m, P_ * B_)
+        x = limbs_on(ctx, vals, (P_, B_))
+        before = pt.montgomery_kernel.op_launches["partials"]
+        got = ctx.premix_limbs(x)
+        if on_card:
+            _check(pt.montgomery_kernel.op_launches["partials"] > before,
+                   f"premix {label} P={P_} x B={B_}: no split")
+        equal(f"premix {label} P={P_} x B={B_} (split)", got,
+              pt.premix_plain(ctx, x, torch.from_numpy(
+                  ctx.fold_fix(P_)).to(dev)))
+        _check(ctx.from_limbs(got) == product(ctx, vals, P_),
+               f"premix {label} P={P_} x B={B_} != Python ints")
+
     old_env = os.environ.get("SDA_PREMIX_DEVICE")
     encryption.PREMIX_DEVICE = dev
     keys = {}
@@ -726,26 +806,7 @@ def premix_phase(dev, ptxas_log, key_bits=K4_KEY_BITS, rows=K4_ROWS,
         keys[bits] = paillier.keygen(bits)
         ctx = pt.MontgomeryContext(keys[bits][0].n_squared)
         m = ctx.modulus
-        r_inv = pow(1 << (32 * ctx.L), -1, m)
-        a, b = below(m, lanes), below(m, lanes)
-        a[:2], b[:2] = [m - 1, 1], [m - 1, m - 1]
-        ta, tb = limbs_on(ctx, a, (lanes,)), limbs_on(ctx, b, (lanes,))
-        got = ctx.mont_mul(ta, tb)
-        equal(f"mont_mul {bits}-bit key", got, pt.mont_mul_plain(ctx, ta, tb))
-        _check(ctx.from_limbs(got) == [x * y * r_inv % m
-                                       for x, y in zip(a, b)],
-               f"mont_mul {bits}-bit key != Python ints")
-        for P_ in rows:
-            vals = below(m, P_ * lanes)
-            for p_ in range(P_):  # lane 0 all m - 1, lane 1 all 1
-                vals[p_ * lanes], vals[p_ * lanes + 1] = m - 1, 1
-            x = limbs_on(ctx, vals, (P_, lanes))
-            got = ctx.premix_limbs(x)
-            fix = torch.from_numpy(ctx.fold_fix(P_)).to(dev)
-            equal(f"premix {bits}-bit key P={P_}", got,
-                  pt.premix_plain(ctx, x, fix))
-            _check(ctx.from_limbs(got) == product(ctx, vals, P_),
-                   f"premix {bits}-bit key P={P_} != Python ints")
+        hold(ctx, f"{bits}-bit key", rows)
         # paillier_combine's device leg at this key: 8 x 16 random units
         # (128 modmuls, above the floor of 64)
         pk = keys[bits][0]
@@ -763,11 +824,31 @@ def premix_phase(dev, ptxas_log, key_bits=K4_KEY_BITS, rows=K4_ROWS,
                f"paillier_combine at a {bits}-bit key: device leg frames "
                f"differ from the host fold")
         print(f"  {bits}-bit key (m = n^2 of {m.bit_length()} bits, "
-              f"L={ctx.L}, {'unrolled' if ctx.L in pt.UNROLLED_LIMBS else 'wide'}"
-              f" instance): mont_mul at B={lanes} and premix at P in "
-              f"{list(rows)} x B={lanes} equal to plain and Python ints; "
+              f"L={ctx.L}, instance {shape_of(ctx.L)}): "
+              f"mont_mul at B={lanes}, premix at P in {list(rows)} x "
+              f"B={lanes} and the split path at P={split_case[0]} x "
+              f"B={split_case[1]} equal to plain and Python ints; "
               f"paillier_combine of 8 x 16 on the device leg byte-identical "
               f"to the host fold")
+    # the wide instance (L above the group instances'): no Paillier key
+    # this size is made, so a random odd modulus of wide_limbs limbs
+    big = (1 << (32 * wide_limbs - 16)) | (
+        int.from_bytes(rng.bytes(4 * wide_limbs - 2), "little") | 1)
+    ctx = pt.MontgomeryContext(big)
+    _check(ctx.L == wide_limbs, f"wide modulus has {ctx.L} limbs")
+    if on_card:
+        _check(pt.fold_shape(lib, ctx.L)[1] == 0,
+               f"L={ctx.L} does not take the wide instance")
+    before = pt.montgomery_kernel.launches
+    hold(ctx, f"{big.bit_length()}-bit modulus", wide_rows)
+    if on_card:
+        _check(pt.montgomery_kernel.launches > before,
+               f"L={ctx.L} checks missed K4")
+    print(f"  {big.bit_length()}-bit odd modulus (L={ctx.L}, instance "
+          f"{shape_of(ctx.L)}): mont_mul at B={lanes}, premix at P in "
+          f"{list(wide_rows)} x B={lanes} and the split path at "
+          f"P={split_case[0]} x B={split_case[1]} equal to plain and Python "
+          f"ints")
     checks = dict(pt.montgomery_kernel.op_launches)
 
     # the flagship clerk column, framed as the participants' encryptions
@@ -788,13 +869,12 @@ def premix_phase(dev, ptxas_log, key_bits=K4_KEY_BITS, rows=K4_ROWS,
     combine_s = time.perf_counter() - t0
     launches = k4.launches
     by_op = dict(k4.op_launches)
-    by_level = dict(sorted(k4.level_launches.items()))
     if on_card:
-        _check(launches > 0 and by_op["fold"] > 0 and by_op["fix"] > 0,
-               f"the premix did not launch K4: {by_op}")
+        _check(0 < launches <= 2 and by_op["fold"] == 1,
+               f"the premix did not fold in one or two K4 launches: {by_op}")
     print(f"  paillier_combine (SDA_PREMIX_DEVICE=1) of P={P} x B={B} at a "
           f"{flagship_bits}-bit key: {combine_s:.3f} s wall; K4 launches "
-          f"{by_op}, by level {by_level} (inputs made in {make_s:.3f} s)")
+          f"{by_op} (inputs made in {make_s:.3f} s)")
 
     # the same fold split into its host and device parts
     ctx = encryption._mont_ctx(n2)
@@ -810,17 +890,13 @@ def premix_phase(dev, ptxas_log, key_bits=K4_KEY_BITS, rows=K4_ROWS,
         torch.cuda.synchronize()
     upload_s = time.perf_counter() - t0
     fix = torch.from_numpy(ctx.fold_fix(P)).to(dev)
-    # K4's time: its launches alone on rows already limb-major; the
-    # wrapper's adds the transposes to and from that layout (the CPU
-    # rehearsal has no kernel to time alone)
+    # K4's time: its launches alone, on the rows as they are; the
+    # wrapper's adds its checks and the output's allocation (the fix-up
+    # constant is cached; the CPU rehearsal has no kernel to time alone)
     wrapper_ms = ms = median_ms(lambda: ctx.premix_limbs(x), dev)
     if on_card:
-        lib = pt._library()
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rows_lm = x.transpose(1, 2).contiguous()
-        ms = median_ms(lambda: pt._fold_launches(lib, stream, ctx, rows_lm,
-                                                 fix), dev)
-        del rows_lm
+        ms = median_ms(lambda: pt._fold_launches(lib, stream, ctx, x, fix),
+                       dev)
     got = ctx.premix_limbs(x)
     t0 = time.perf_counter()
     got_ints = ctx.from_limbs(got)
@@ -854,6 +930,34 @@ def premix_phase(dev, ptxas_log, key_bits=K4_KEY_BITS, rows=K4_ROWS,
                          reps=3, warmup=1)
     del x
 
+    # the same column shape at a wide_bits key: random limbs below m (the
+    # top limb below m's), every lane held to the plain version
+    wctx = pt.MontgomeryContext(
+        (keys.get(wide_bits) or paillier.keygen(wide_bits))[0].n_squared)
+    words = rng.integers(0, 1 << 32, size=(P, B, wctx.L), dtype=np.uint32)
+    words[..., -1] %= np.uint32(wctx.m_words[-1])
+    xw = torch.from_numpy(words.view(np.int32)).to(dev)
+    del words
+    fixw = torch.from_numpy(wctx.fold_fix(P)).to(dev)
+    k4w = _k4_reset()
+    gotw = wctx.premix_limbs(xw)
+    wide_launches = dict(k4w.op_launches)
+    equal(f"premix P={P} x B={B} at a {wide_bits}-bit key", gotw,
+          pt.premix_plain(wctx, xw, fixw))
+    if on_card:
+        ms_wide = median_ms(
+            lambda: pt._fold_launches(lib, stream, wctx, xw, fixw), dev)
+    else:
+        ms_wide = median_ms(lambda: wctx.premix_limbs(xw), dev, reps=1,
+                            warmup=0)
+    bound_wide, _, detail_wide = k4_bound(P * B, wctx.L, P, B)
+    del xw, gotw
+    print(f"K4 premix at P={P} x B={B}, {wide_bits}-bit key (L={wctx.L}, "
+          f"instance {shape_of(wctx.L)}): {ms_wide:.4f} "
+          f"ms median of 20 (CUDA events, its launches {wide_launches}); "
+          f"bound {bound_wide:.4f} ms ({detail_wide}); every lane equal to "
+          f"plain")
+
     # homomorphic check: real encryptions of known packed vectors
     encryptor = encryption.PackedPaillierEncryptor(ek, scheme)
     vectors = rng.integers(0, 1 << PREMIX_VALUE_BITS,
@@ -873,8 +977,9 @@ def premix_phase(dev, ptxas_log, key_bits=K4_KEY_BITS, rows=K4_ROWS,
           f"{flagship_bits}-bit key premixed through K4 decrypt to the "
           f"plaintext sums")
     print(f"K4 premix at P={P} x B={B} (L={ctx.L}): {ms:.4f} ms median of "
-          f"20 (CUDA events; its launches on limb-major rows), the wrapper "
-          f"with its transposes {wrapper_ms:.4f} ms; bound {bound_ms:.4f} "
+          f"20 (CUDA events; its launches on the [P, B, L] rows), the "
+          f"wrapper (premix_limbs) {wrapper_ms:.4f} ms "
+          f"({wrapper_ms / ms - 1:+.1%}); bound {bound_ms:.4f} "
           f"ms ({detail}); plain at the same shape {plain_flagship_ms:.1f} "
           f"ms (one call), at 16 x 256 {plain_ms:.3f} ms; host fold "
           f"{host_ms:.1f} ms (whole column, paillier_combine on the host); "
@@ -883,13 +988,17 @@ def premix_phase(dev, ptxas_log, key_bits=K4_KEY_BITS, rows=K4_ROWS,
           f"{from_limbs_s:.3f} s; paillier_combine {combine_s:.3f} s")
     encryption.PREMIX_DEVICE = None
     return {"launches": launches, "launches_by_op": by_op,
-            "launches_by_level": by_level, "check_launches": checks,
+            "check_launches": checks, "instances": instances,
             "max_abs_err": bad, "ms": ms,
-            "ms_of": f"K4's launches on limb-major rows, P={P} x B={B}, "
+            "ms_of": f"K4's launches on the [P, B, L] rows, P={P} x B={B}, "
                      f"L={ctx.L}",
             "wrapper_ms": wrapper_ms,
-            "wrapper_ms_of": "premix_limbs: the launches and the "
-                             "[P,B,L] <-> [P,L,B] transposes",
+            "wrapper_ms_of": "premix_limbs: the checks, the launches and "
+                             "the output's allocation (fix-up cached)",
+            "ms_wide": ms_wide, "bound_ms_wide": bound_wide,
+            "ms_wide_of": f"P={P} x B={B}, {wide_bits}-bit key, "
+                          f"L={wctx.L}",
+            "launches_wide": wide_launches,
             "plain_ms": plain_ms, "plain_ms_of": "16 x 256",
             "plain_ms_flagship": plain_flagship_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
@@ -1461,8 +1570,9 @@ def main() -> int:
         "source": "sda_tpu_torch/fields/csrc/montgomery.cu",
         "replaces": "sda_tpu/crypto/paillier_tpu.py:137",
         **{key: k4_rec[key] for key in (
-            "launches", "launches_by_level", "max_abs_err", "ms", "ms_of",
-            "wrapper_ms", "plain_ms", "plain_ms_of", "plain_ms_flagship", "bound_ms",
+            "launches", "launches_by_op", "max_abs_err", "ms", "ms_of",
+            "wrapper_ms", "ms_wide", "bound_ms_wide", "ms_wide_of",
+            "plain_ms", "plain_ms_of", "plain_ms_flagship", "bound_ms",
             "bound_by", "host_ms", "host_of")},
         "library_ms": None,
     }]}))

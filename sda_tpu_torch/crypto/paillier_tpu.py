@@ -22,9 +22,9 @@ limbs. This module holds
   it launches K4 on the current stream (a launch error raises
   RuntimeError) and counts the launch in ``montgomery_kernel.launches``
   and by operation in ``montgomery_kernel.op_launches``; for CPU tensors
-  it runs the plain version. Every L runs on the card: 32, 64 and 128
-  limbs (512-, 1024- and 2048-bit keys) on unrolled instances, any other
-  on the wide instance;
+  it runs the plain version. Every L runs on the card: a group of 4 to 32
+  threads a montmul with every limb in registers for L up to 512, the
+  wide instance above (``fold_shape`` says which);
 - the plain versions ``mont_mul_plain`` and ``premix_plain``: the same
   functions in int64 torch, CIOS over 2L limbs of 16 bits (products stay
   below 2^32) with the same R, so they give K4's exact integers. They are
@@ -34,14 +34,16 @@ limbs. This module holds
 Folding P normal-form ciphertexts through montmul leaves
 prod * R^-(P-1) whatever the order; one last montmul by R^P mod m
 (``fold_fix``) restores the exact product, so no ciphertext is converted
-into or out of the Montgomery domain. The kernel folds the rows as a tree,
-one launch a level (P/2 row pairs x B lanes at the first), the odd row of a
-level passing through unchanged.
+into or out of the Montgomery domain. The kernel reads the rows in the
+[P, B, L] layout ``to_limbs`` makes: a group of threads multiplies a
+lane's rows into its accumulator one after another, in one launch; where
+B lanes cannot fill the card (``fold_split``), each lane's rows are split
+among several groups and a second launch folds their partial products
+with the fix-up. Any split does P - 1 montmuls, so the fix-up is R^P.
 """
 
 from __future__ import annotations
 
-import collections
 import ctypes
 import functools
 from typing import List, Sequence
@@ -54,13 +56,9 @@ from ..fields import _build
 
 _MASK32 = 0xFFFFFFFF
 _MASK16 = 0xFFFF
-#: the limb counts with an unrolled instance of K4 (n^2 of 512-, 1024- and
-#: 2048-bit keys); every other L runs the wide instance
-UNROLLED_LIMBS = (32, 64, 128)
-#: the wide instance's threads at most (a grid-stride loop): bounds its
-#: workspace of L + 2 words a thread (50 MB at L = 192)
-WIDE_THREADS = 1 << 16
-OPS = ("mont_mul", "fold", "fix")
+#: the most groups a fold splits a lane's rows among
+MAX_SPLIT = 64
+OPS = ("mont_mul", "fold", "partials")
 
 
 class MontgomeryContext:
@@ -77,6 +75,8 @@ class MontgomeryContext:
         # n' = -m^-1 mod 2^32 (m odd -> invertible)
         self.n_prime = (-pow(modulus, -1, 1 << 32)) % (1 << 32)
         self.R = pow(2, 32 * self.L, modulus)
+        self._device_m = {}  # m's limbs by device, for K4
+        self._device_fix = {}  # fold_fix(P) by (P, device), for K4
 
     # -- host <-> limb conversion ----------------------------------------
     def to_limbs(self, values: Sequence[int]) -> np.ndarray:
@@ -118,8 +118,11 @@ class MontgomeryContext:
     def premix_limbs(self, cts: torch.Tensor) -> torch.Tensor:
         """[P, B, L] int32 limbs of normal-form values below m -> [B, L]
         limbs of their product over P, mod m, on their device."""
-        fix = torch.from_numpy(self.fold_fix(cts.shape[0]))
-        return montgomery_kernel("fold", self, cts, fix.to(cts.device))
+        key = (cts.shape[0], cts.device)
+        if key not in self._device_fix:  # a clerk's columns share P
+            self._device_fix[key] = torch.from_numpy(
+                self.fold_fix(cts.shape[0])).to(cts.device)
+        return montgomery_kernel("fold", self, cts, self._device_fix[key])
 
     def premix(self, cts_ints: Sequence[Sequence[int]], device=None
                ) -> List[int]:
@@ -218,18 +221,59 @@ def premix_plain(ctx: MontgomeryContext, cts: torch.Tensor,
 # ---------------------------------------------------------------------------
 # K4: kernel wrapper
 
+def fold_split(rows: int, lanes: int, block_groups: int,
+               resident_blocks: int) -> int:
+    """Groups among which a fold splits each lane's rows, for a card that
+    holds ``resident_blocks`` blocks of ``block_groups`` groups at once.
+
+    A launch of ``blocks`` blocks whose groups each do ``n`` montmuls takes
+    about (blocks / resident_blocks + 1/2) x n montmul times: its work
+    spread over the card, and on average half a block's work left running
+    alone at the end. Split into ``split`` slices a lane, the fold is one
+    such launch of ceil(rows / split) - 1 montmuls a group and one of the
+    lanes' groups folding ``split`` partials with the fix-up (split = 1:
+    one launch of rows montmuls, the fix-up included). Returns the
+    cheapest split (the smallest among equals), at most ``MAX_SPLIT``."""
+    def launch(groups, n):
+        return (-(-groups // block_groups) / resident_blocks + 0.5) * n
+
+    def cost(g):
+        if g == 1:
+            return launch(lanes, rows)
+        return launch(lanes * g, -(-rows // g) - 1) + launch(lanes, g)
+
+    return min(range(1, min(rows, MAX_SPLIT) + 1), key=cost)
+
+
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     """The built ``csrc/montgomery.cu`` with its C interface declared
     (ctypes would otherwise pass pointers as 32-bit ints)."""
     lib = _build.load("montgomery")
-    ptr, i64 = ctypes.c_void_p, ctypes.c_longlong
-    operands = [ptr, i64, ptr, i64, i64, i64, ptr, i64, i64, i64, ptr,
-                ctypes.c_int, ctypes.c_uint32]
-    lib.sda_montmul.argtypes = operands + [ptr]
-    lib.sda_montmul_wide.argtypes = operands + [ptr, i64, ptr]
-    lib.sda_montmul.restype = lib.sda_montmul_wide.restype = ctypes.c_int
+    ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    lib.sda_montfold.argtypes = [ptr, ptr, i64, i64, i64, ptr, i32,
+                                 ctypes.c_uint32, ptr, i64, ptr, ptr, ptr]
+    lib.sda_montfold_shape.argtypes = [i32] + [ctypes.POINTER(i32)] * 5
+    lib.sda_montfold.restype = lib.sda_montfold_shape.restype = i32
     return lib
+
+
+def fold_shape(lib, L: int):
+    """(threads a group, limbs a thread, groups a block, blocks an SM,
+    SMs) of the instance that takes L limbs, on the current CUDA device
+    (threads 1 and limbs 0: the wide instance). The C entry picks the
+    instance: a group instance for L up to 512, the wide one above."""
+    vals = [ctypes.c_int() for _ in range(5)]
+    err = lib.sda_montfold_shape(L, *(ctypes.byref(v) for v in vals))
+    if err != 0:
+        raise RuntimeError(f"K4 occupancy query failed: CUDA error {err}")
+    return tuple(v.value for v in vals)
+
+
+@functools.lru_cache(maxsize=None)
+def _shape(lib, L: int, device_index):
+    """``fold_shape`` of L on a device, asked once."""
+    return fold_shape(lib, L)
 
 
 def _check_limbs(ctx: MontgomeryContext, x: torch.Tensor, ndim: int,
@@ -239,35 +283,32 @@ def _check_limbs(ctx: MontgomeryContext, x: torch.Tensor, ndim: int,
                          f"{ctx.L} limbs, got {x.dtype}{tuple(x.shape)}")
 
 
-def _wide_args(ctx, dev, n):
-    """The wide instance's modulus and workspace on ``dev`` for launches of
-    at most ``n`` montmuls, or None where L has an unrolled instance."""
-    if ctx.L in UNROLLED_LIMBS:
-        return None
-    m = torch.from_numpy(np.array(ctx.m_words, dtype="<u4").view(np.int32))
-    work = torch.empty((ctx.L + 2, max(1, min(n, WIDE_THREADS))),
-                       dtype=torch.int32, device=dev)
-    return m.to(dev), work
+def _modulus(ctx: MontgomeryContext, dev) -> torch.Tensor:
+    """m's limbs on ``dev``, uploaded once a context and device."""
+    if dev not in ctx._device_m:
+        ctx._device_m[dev] = torch.from_numpy(np.array(
+            ctx.m_words, dtype="<u4").view(np.int32)).to(dev)
+    return ctx._device_m[dev]
 
 
-def _launch(lib, ctx, wide, a, a_pair, b, b_pair, b_limb, b_lane, out,
-            out_pair, lanes, pairs, stream, op, level=None):
-    args = (a.data_ptr(), a_pair, b.data_ptr(), b_pair, b_limb, b_lane,
-            out.data_ptr(), out_pair, lanes, pairs)
-    if wide is None:
-        m = (ctypes.c_uint32 * ctx.L)(*ctx.m_words)
-        err = lib.sda_montmul(*args, ctypes.cast(m, ctypes.c_void_p), ctx.L,
-                              ctx.n_prime, stream)
-    else:
-        m, work = wide
-        err = lib.sda_montmul_wide(*args, m.data_ptr(), ctx.L, ctx.n_prime,
-                                   work.data_ptr(), work.shape[1], stream)
+def _launch(lib, ctx, a, b, row_stride, rows, lanes, fix, split, out,
+            stream, op):
+    """One launch of ``sda_montfold``: a, b and out are tensors (b None
+    when rows == 1, fix None for no fix-up)."""
+    dev = a.device
+    work = None
+    if _shape(lib, ctx.L, dev.index)[1] == 0:  # the wide one's workspace
+        work = torch.empty((2 * ctx.L + 2) * lanes * split,
+                           dtype=torch.int32, device=dev)
+    err = lib.sda_montfold(
+        a.data_ptr(), None if b is None else b.data_ptr(), row_stride, rows,
+        lanes, _modulus(ctx, dev).data_ptr(), ctx.L, ctx.n_prime,
+        None if fix is None else fix.data_ptr(), split, out.data_ptr(),
+        None if work is None else work.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"K4 {op} kernel launch failed: CUDA error {err}")
     montgomery_kernel.launches += 1
     montgomery_kernel.op_launches[op] += 1
-    if level is not None:
-        montgomery_kernel.level_launches[level] += 1
 
 
 def montgomery_kernel(op: str, ctx: MontgomeryContext, x: torch.Tensor,
@@ -277,7 +318,9 @@ def montgomery_kernel(op: str, ctx: MontgomeryContext, x: torch.Tensor,
     - ``mont_mul``: x, y [B, L] int32 limbs -> x * y * R^-1 mod m;
     - ``fold``: x [P, B, L] limbs, y the [L] fix-up constant -> [B, L]
       limbs of the product of x's rows times y times R^-P mod m: one
-      launch a level of the row tree and one (``fix``) for the fix-up.
+      launch (``fold``), or two where the rows are split among groups
+      (``fold`` for the slices, ``partials`` for their product and the
+      fix-up).
 
     A CUDA tensor launches the kernel (a launch error raises); a CPU
     tensor runs the plain version. Inputs must be below m. Malformed
@@ -312,48 +355,44 @@ def montgomery_kernel(op: str, ctx: MontgomeryContext, x: torch.Tensor,
 
 
 def _launches(lib, stream, op, ctx, x, y):
-    """The launches of one K4 call on checked operands: the kernel reads
-    limb-major blocks ([L, B] an operand row), so the [.., B, L] operands
-    are transposed on their device first and the result back."""
+    """The launches of one K4 call on checked operands, in their natural
+    layout ([.., B, L], contiguous): ``mont_mul`` is a fold of the two
+    rows x and y without a fix-up."""
+    x, y = x.contiguous(), y.contiguous()
     if op == "mont_mul":
-        B = x.shape[0]
-        a = x.t().contiguous()
-        b = y.t().contiguous()
-        out = torch.empty((ctx.L, B), dtype=torch.int32, device=x.device)
-        _launch(lib, ctx, _wide_args(ctx, x.device, B), a, 0, b, 0, B, 1,
-                out, 0, B, 1, stream, "mont_mul")
-        return out.t().contiguous()
-    rows = x.transpose(1, 2).contiguous()  # [P, L, B]
-    return _fold_launches(lib, stream, ctx, rows, y).t().contiguous()
+        out = torch.empty_like(x)
+        _launch(lib, ctx, x, y, 0, 2, x.shape[0], None, 1, out, stream,
+                "mont_mul")
+        return out
+    return _fold_launches(lib, stream, ctx, x, y)
 
 
 def _fold_launches(lib, stream, ctx, rows, fix):
-    """The fold's launches on limb-major rows [P, L, B] and the [L] fix-up
-    constant -> [L, B] limbs of the product: one launch a tree level, then
-    the fix-up."""
-    L, dev, B = ctx.L, rows.device, rows.shape[2]
-    wide = _wide_args(ctx, dev, max(1, rows.shape[0] // 2) * B)
-    level = 0
-    while rows.shape[0] > 1:
-        n = rows.shape[0]
-        pairs = n // 2
-        nxt = torch.empty((pairs + n % 2, L, B), dtype=torch.int32,
-                          device=dev)
-        _launch(lib, ctx, wide, rows, 2 * L * B, rows[1], 2 * L * B, B, 1,
-                nxt, L * B, B, pairs, stream, "fold", level)
-        if n % 2:  # the odd row passes through the level unchanged
-            nxt[pairs].copy_(rows[n - 1])
-        rows = nxt
-        level += 1
-    out = torch.empty((L, B), dtype=torch.int32, device=dev)
-    _launch(lib, ctx, wide, rows[0], 0, fix.contiguous(), 0, 1, 0, out, 0, B,
-            1, stream, "fix")
+    """The fold's launches on contiguous rows [P, B, L] and the [L] fix-up
+    constant -> [B, L] limbs of the product: one launch, or (where
+    ``fold_split`` on this device's occupancy slices a lane's rows) a
+    launch for the slices and one for their partials and the fix-up."""
+    P, B, L = rows.shape
+    split = 1
+    if P > 1:
+        _, _, block_groups, blocks_sm, sms = _shape(lib, L, rows.device.index)
+        split = fold_split(P, B, block_groups, blocks_sm * sms)
+    nxt = rows[1] if P > 1 else None
+    out = torch.empty((B, L), dtype=torch.int32, device=rows.device)
+    if split == 1:
+        _launch(lib, ctx, rows[0], nxt, B * L, P, B, fix, 1, out, stream,
+                "fold")
+        return out
+    part = torch.empty((split, B, L), dtype=torch.int32, device=rows.device)
+    _launch(lib, ctx, rows[0], nxt, B * L, P, B, None, split, part, stream,
+            "fold")
+    _launch(lib, ctx, part[0], part[1], B * L, split, B, fix, 1, out,
+            stream, "partials")
     return out
 
 
 montgomery_kernel.launches = 0
-#: launches by operation: ``mont_mul`` calls, ``fold`` (one a tree level)
-#: and ``fix`` (one a fold); they add up to ``launches``
+#: launches by operation: ``mont_mul`` calls, ``fold`` (one a fold) and
+#: ``partials`` (one a fold whose rows were split); they add up to
+#: ``launches``
 montgomery_kernel.op_launches = dict.fromkeys(OPS, 0)
-#: ``fold`` launches by tree level (0: the level that reads the P rows)
-montgomery_kernel.level_launches = collections.Counter()

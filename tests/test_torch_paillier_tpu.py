@@ -5,9 +5,10 @@ The port's R is 2^(32 L) over 32-bit limbs, the reference's 256^L over
 8-bit limbs, so ``mont_mul`` is held to a * b * R^-1 mod m with the port's
 R, and the premix (a product mod m, which no R changes) to the reference's
 integers. On the CPU the wrapper runs the plain version (16-bit CIOS in
-int64); the kernel's launch sequence (limb-major transposes, tree levels,
-odd rows, the fix-up) is held here against a Python model of the C entry,
-and the kernel itself on the card by ``chip_smoke.py``. Every check is
+int64); the kernel's launch sequence (rows read in place, one launch a
+fold or two where a lane's rows are split, the fix-up) is held here
+against a Python model of the C entries, and the kernel itself on the
+card by ``chip_smoke.py``. Every check is
 exact.
 """
 
@@ -140,80 +141,114 @@ def test_limb_round_trip(bits):
     assert ctx.from_limbs(ctx.fold_fix(3)[None]) == [pow(ctx.R, 3, m)]
 
 
-def _words(addr, n):
-    return sum(ctypes.c_uint32.from_address(addr + 4 * j).value << (32 * j)
-               for j in range(n))
+def _words(addr, n, stride=1):
+    return sum(ctypes.c_uint32.from_address(addr + 4 * stride * j).value
+               << (32 * j) for j in range(n))
+
+
+#: csrc/montgomery.cu's group instances (threads a group, limbs a thread),
+#: by capacity; a larger L takes the wide kernel
+INSTANCES = ((4, 8), (8, 8), (16, 8), (16, 12), (16, 16), (32, 16))
+
+
+def _instance(limbs):
+    return next((i for i in INSTANCES if i[0] * i[1] >= limbs), None)
 
 
 class _EntryModel:
     """``csrc/montgomery.cu``'s C entries modelled in Python ints on host
-    memory: the same pointers, strides and layout as the kernels. Records
-    the entry each launch took."""
+    memory: the same pointers, strides and layout as the kernels (rows
+    [P, B, L] row-major, balanced slices of a lane's rows, partials at
+    out + (slice * lanes + lane) * limbs). Records each launch's instance
+    (``(TPI, LPT)`` or ``"wide"``) and split; ``shape`` is what the
+    occupancy query reports (threads a group and limbs a thread follow
+    the instance table)."""
 
-    def __init__(self):
-        self.entries = []
+    def __init__(self, block_groups=None, blocks_sm=1, sms=1):
+        self.entries, self.splits = [], []
+        self.block_groups, self.blocks_sm, self.sms = (block_groups,
+                                                       blocks_sm, sms)
 
-    def sda_montmul(self, *args):
-        *operands, m, limbs, n_prime, stream = args
-        assert limbs in pt.UNROLLED_LIMBS
-        self.entries.append("unrolled")
-        return self._montmul(*operands, _words(m.value, limbs), limbs,
-                             n_prime)
+    def sda_montfold_shape(self, limbs, *refs):
+        inst = _instance(limbs)
+        tpi, lpt = inst if inst else (1, 0)
+        vals = (tpi, lpt, self.block_groups or 128 // tpi, self.blocks_sm,
+                self.sms)
+        for ref, v in zip(refs, vals):
+            ref._obj.value = v
+        return 0
 
-    def sda_montmul_wide(self, *args):
-        *operands, m, limbs, n_prime, work, threads, stream = args
-        assert work and 1 <= threads <= pt.WIDE_THREADS
-        self.entries.append("wide")
-        return self._montmul(*operands, _words(m, limbs), limbs, n_prime)
-
-    @staticmethod
-    def _montmul(a, a_pair, b, b_pair, b_limb, b_lane, out, out_pair, lanes,
-                 pairs, mod, limbs, n_prime):
-        assert (-mod * n_prime) % (1 << 32) == 1
+    def sda_montfold(self, a, b, row_stride, rows, lanes, m, limbs, n_prime,
+                     fix, split, out, work, stream):
+        inst = _instance(limbs)
+        assert 1 <= split <= rows and (rows == 1 or b)
+        assert bool(work) == (inst is None)  # only the wide one has one
+        self.entries.append(inst or "wide")
+        self.splits.append(split)
+        mod = _words(m, limbs)
+        assert mod % 2 and (-mod * n_prime) % (1 << 32) == 1
         r_inv = pow(1 << (32 * limbs), -1, mod)
-        for k in range(pairs):
+
+        def row(p, x):
+            base = a if p == 0 else b + 4 * (p - 1) * row_stride
+            v = _words(base + 4 * x * limbs, limbs)
+            assert v < mod
+            return v
+
+        f = _words(fix, limbs) if fix else None
+        for s in range(split):
+            lo, hi = s * rows // split, (s + 1) * rows // split
             for x in range(lanes):
-                A = sum(ctypes.c_uint32.from_address(
-                    a + 4 * (k * a_pair + j * lanes + x)).value << (32 * j)
-                    for j in range(limbs))
-                B = sum(ctypes.c_uint32.from_address(
-                    b + 4 * (k * b_pair + i * b_limb + x * b_lane)).value
-                    << (32 * i) for i in range(limbs))
-                assert A < mod and B < mod
-                r = A * B * r_inv % mod
+                acc = row(lo, x)
+                for p in range(lo + 1, hi):
+                    acc = acc * row(p, x) * r_inv % mod
+                if f is not None:
+                    acc = acc * f * r_inv % mod
+                dst = out + 4 * (s * lanes + x) * limbs
                 for j in range(limbs):
-                    ctypes.c_uint32.from_address(
-                        out + 4 * (k * out_pair + j * lanes + x)).value = (
-                        (r >> (32 * j)) & 0xFFFFFFFF)
+                    ctypes.c_uint32.from_address(dst + 4 * j).value = (
+                        (acc >> (32 * j)) & 0xFFFFFFFF)
         return 0
 
 
 @pytest.fixture
 def k4_counts():
     k4 = pt.montgomery_kernel
-    saved = (k4.launches, dict(k4.op_launches), k4.level_launches.copy())
+    saved = (k4.launches, dict(k4.op_launches))
     k4.launches = 0
     k4.op_launches = dict.fromkeys(pt.OPS, 0)
-    k4.level_launches.clear()
     yield k4
-    k4.launches, k4.op_launches = saved[0], saved[1]
-    k4.level_launches.clear()
-    k4.level_launches.update(saved[2])
+    k4.launches, k4.op_launches = saved
+
+
+def _fold_case(rng, bits, P, B):
+    m = _odd_modulus(rng, bits)
+    ctx = MontgomeryContext(m)
+    vals = _rng_ints(rng, m, P * B)
+    x = _limbs(ctx, vals).reshape(P, B, ctx.L)
+    want = [1] * B
+    for p in range(P):
+        want = [w * v % m for w, v in zip(want, vals[p * B:(p + 1) * B])]
+    return ctx, x, torch.from_numpy(ctx.fold_fix(P)), want
 
 
 @pytest.mark.parametrize("P", [1, 2, 3, 5, 7])
 def test_launch_sequence_against_entry_model(P, k4_counts):
+    """The fold reads the [P, B, L] rows in place (no limb-major copy) in
+    one launch, or two where six lanes leave the card idle and the split
+    pays for its second launch (P >= 5 here), and ``mont_mul`` is one
+    launch of the two rows."""
     rng = np.random.default_rng(P)
-    m = _odd_modulus(rng, 100)
-    ctx = MontgomeryContext(m)
-    x = _limbs(ctx, _rng_ints(rng, m, P * 6)).reshape(P, 6, ctx.L)
-    fix = torch.from_numpy(ctx.fold_fix(P))
-    got = pt._launches(_EntryModel(), 0, "fold", ctx, x, fix)
+    ctx, x, fix, want = _fold_case(rng, 100, P, 6)
+    model = _EntryModel(blocks_sm=4, sms=132)
+    got = pt._launches(model, 0, "fold", ctx, x, fix)
     assert torch.equal(got, pt.premix_plain(ctx, x, fix))
-    levels = (P - 1).bit_length()
-    assert k4_counts.op_launches == {"mont_mul": 0, "fold": levels, "fix": 1}
-    assert k4_counts.launches == levels + 1
-    assert dict(k4_counts.level_launches) == {i: 1 for i in range(levels)}
+    assert ctx.from_limbs(got) == want
+    split = pt.fold_split(P, 6, 32, 4 * 132) if P > 1 else 1
+    assert (split > 1) == (P >= 5) and model.splits[0] == split
+    assert k4_counts.op_launches == {"mont_mul": 0, "fold": 1,
+                                     "partials": int(split > 1)}
+    assert k4_counts.launches == 1 + (split > 1) <= 2
     a, b = x[0], x[-1]
     assert torch.equal(pt._launches(_EntryModel(), 0, "mont_mul", ctx, a, b),
                        pt.mont_mul_plain(ctx, a, b))
@@ -221,22 +256,86 @@ def test_launch_sequence_against_entry_model(P, k4_counts):
 
 
 @pytest.mark.parametrize("bits, entry", [
-    (1023, "unrolled"), (4095, "unrolled"), (4100, "wide"), (6143, "wide")])
+    (1023, (4, 8)), (4095, (16, 8)), (4100, (16, 12)), (6143, (16, 12)),
+    (16_400, "wide")])
 def test_every_limb_count_has_an_entry(bits, entry, k4_counts):
-    """n^2 of a 512- or 2048-bit key (L = 32, 128) takes an unrolled
-    instance, a modulus above 4096 bits (a 3072-bit key's n^2 has L = 192)
-    the wide one: no key size is refused on the card."""
+    """n^2 of a 512- or 2048-bit key (L = 32, 128) and of a 3072-bit key
+    (L = 192) fill a group instance, L = 129 takes the L = 192 one with a
+    masked tail, and only a modulus above 16,384 bits (L > 512) the wide
+    one: no key size is refused on the card."""
     rng = np.random.default_rng(bits)
-    m = _odd_modulus(rng, bits)
-    ctx = MontgomeryContext(m)
-    vals = _rng_ints(rng, m, 3 * 4)
-    x = _limbs(ctx, vals).reshape(3, 4, ctx.L)
-    fix = torch.from_numpy(ctx.fold_fix(3))
+    ctx, x, fix, want = _fold_case(rng, bits, 3, 4)
     model = _EntryModel()
     got = pt._launches(model, 0, "fold", ctx, x, fix)
-    assert model.entries == [entry] * 3  # two tree levels and the fix-up
-    assert ctx.from_limbs(got) == [vals[b] * vals[4 + b] * vals[8 + b] % m
-                                   for b in range(4)]
+    assert model.entries == [entry] * len(model.splits)
+    assert ctx.from_limbs(got) == want
+
+
+def test_split_path_small_clerk(k4_counts):
+    """Four lanes of 33 rows (a small clerk) cannot fill the card, so each
+    lane's rows are split among groups and a second launch folds the
+    partials with the fix-up: exact against Python ints and the plain
+    version."""
+    rng = np.random.default_rng(33)
+    ctx, x, fix, want = _fold_case(rng, 300, 33, 4)
+    model = _EntryModel(blocks_sm=4, sms=132)
+    got = pt._launches(model, 0, "fold", ctx, x, fix)
+    split = pt.fold_split(33, 4, 128 // 4, 4 * 132)
+    assert split > 1 and model.splits == [split, 1]
+    assert k4_counts.op_launches == {"mont_mul": 0, "fold": 1, "partials": 1}
+    assert ctx.from_limbs(got) == want
+    assert torch.equal(got, pt.premix_plain(ctx, x, fix))
+
+
+@pytest.mark.parametrize("L", [4, 129, 192])
+def test_masked_tail_limb_counts(L):
+    """L not a multiple of the instance's threads or capacity (4 limbs on
+    the 4 x 8 instance, 129 on the 16 x 12 one) and L = 192: the fold (its
+    three lanes split on a card of 132 SMs) and ``mont_mul`` exact against
+    Python ints and the plain version, with R = 2^(32 L)."""
+    rng = np.random.default_rng(L)
+    ctx, x, fix, want = _fold_case(rng, 32 * L - 1, 5, 3)
+    assert ctx.L == L and _instance(L) is not None
+    model = _EntryModel(blocks_sm=4, sms=132)
+    got = pt._launches(model, 0, "fold", ctx, x, fix)
+    assert model.splits[0] > 1
+    assert ctx.from_limbs(got) == want
+    assert torch.equal(got, pt.premix_plain(ctx, x, fix))
+    a, b = x[0], x[1]
+    r_inv = pow(1 << (32 * L), -1, ctx.modulus)
+    got = pt._launches(_EntryModel(), 0, "mont_mul", ctx, a, b)
+    assert ctx.from_limbs(got) == [u * v * r_inv % ctx.modulus for u, v in
+                                   zip(ctx.from_limbs(a), ctx.from_limbs(b))]
+
+
+def test_fold_fix_is_the_same_under_every_split(monkeypatch):
+    """Any split of P rows does P - 1 montmuls, so one fix-up by R^P
+    (``fold_fix(P)``) gives the exact product for every split 1..P (the
+    split ``fold_split`` would choose is overridden)."""
+    rng = np.random.default_rng(8)
+    P = 8
+    ctx, x, fix, want = _fold_case(rng, 200, P, 3)
+    for split in range(1, P + 1):
+        monkeypatch.setattr(pt, "fold_split", lambda *_, s=split: s)
+        model = _EntryModel()
+        got = pt._launches(model, 0, "fold", ctx, x, fix)
+        assert model.splits == ([1] if split == 1 else [split, 1])
+        assert ctx.from_limbs(got) == want, split
+
+
+def test_fold_split_fills_the_card():
+    """A split pays only where a lane has rows enough (not at two), grows
+    as the lanes get fewer, never exceeds the rows or MAX_SPLIT, and at the
+    flagship column (P=100 x 7,408, L=128 on 132 SMs) keeps the fold at
+    two launches."""
+    assert pt.fold_split(2, 132 * 64, 16, 4 * 132) == 1
+    assert (pt.fold_split(100, 4, 32, 528) >= pt.fold_split(100, 7408, 32, 528)
+            > 1)
+    assert pt.fold_split(1, 4, 16, 528) == 1
+    assert pt.fold_split(3, 4, 16, 528) <= 3
+    assert 1 < pt.fold_split(33, 256, 32, 528) < 33
+    assert pt.fold_split(10_000, 4, 32, 528) == pt.MAX_SPLIT
+    assert 1 <= pt.fold_split(100, 7408, 16, 4 * 132) <= pt.MAX_SPLIT
 
 
 def test_wrapper_checks_and_cpu_dispatch(k4_counts):
