@@ -42,7 +42,16 @@ ciphertexts of a 2048-bit key) through ``paillier_combine`` with
 ``SDA_PREMIX_DEVICE=1`` in at most two K4 launches, byte-identical to the
 host fold, a homomorphic check on real encryptions, and K4's time beside
 its bound, the wrapper's, the plain version's and the host fold's, and
-on the same column shape at a 3072-bit key.
+on the same column shape at a 3072-bit key. Then the bench plane: the
+port's bench (``sda_tpu_torch.benchmarks.bench``) in-process at the
+flagship width, all three lanes exact, its roofline utilization in
+(0, 1.05], K1's launches matching its lanes' calls, K1's device time in
+the bench's trace beside the CUDA-event time, the regression gate over the
+repo's ``BENCH_r*.json`` with the bench's line as the newest record (a
+torch record with no comparable history), the instrumented round against
+the bare one with cost capture off and on, and the streamed round once
+more with cost capture and the profiler on for its peak device memory and
+busy share.
 Prints the card's name and power
 limit, one JSON line of kernel measurements, and as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -53,6 +62,10 @@ package beside it, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import collections
+import contextlib
+import gc
+import hashlib
+import io
 import json
 import re
 import statistics
@@ -116,6 +129,10 @@ WIDE_KEY_BITS = 3072
 #: windows of 29 + 16 bits a plaintext)
 P_PREMIX, B_PREMIX, PREMIX_KEY_BITS = 100, 7408, 2048
 SHARES_PREMIX, PREMIX_WINDOW, PREMIX_VALUE_BITS = 333_333, 45, 29
+#: target seconds of the bench's marginal chains (phase 17; the chains
+#: stop at 64 rounds), and the turns of its instrumented-round A/B
+BENCH_SECONDS = 2.0
+AB_TURNS = 24
 #: the README walkthrough's round: three participants' 10-dim inputs
 WALKTHROUGH = ([0, 0, 0, 1, 1, 1, 2, 2, 2, 3], [0, 1, 1, 1, 1, 2, 2, 3, 3, 3],
                [0, 1, 1, 2, 2, 3, 2, 3, 3, 4])
@@ -625,12 +642,220 @@ def streamed_round(dev, P, D, chunk, fold_rows=FOLD_ROWS,
     return {"stage": "streamed_round", "participants": P, "dim": D,
             "participants_chunk": chunk, "dim_chunk": dc, "tiles": tiles,
             "exact": True, "wall_s": wall, "elements_per_s": P * D / wall,
+            "out_sha256": hashlib.sha256(out.tobytes()).hexdigest(),
             "phases_s": phases,
             "k1_launches": k1_launches, "k3_launches": k3_launches,
             "k3_window_max_abs_err": err,
             "fold": {"rows": fold_rows, "dim": fold_dim,
                      "bundles": fold_bundles, "tile": comb._dim_tile,
                      "exact": True, "wall_s": fold_s}}
+
+
+def bench_phase(dev, k1_ms, P=P_MAIN, D=D_MAIN, seconds=BENCH_SECONDS,
+                extra=()):
+    """Phase 17: the port's bench in-process at P x D (``extra``: more
+    bench flags). Every lane exact, the roofline utilization in (0, 1.05],
+    and on a card K1's launches equal to its lanes' calls (one a
+    monolithic round, a tile's a tiled round, a step's a streamed one).
+    K1's device time in the bench's trace is printed beside ``k1_ms``
+    (``median_ms``, phase 5). The regression gate runs over the repo's
+    ``BENCH_r*.json`` with the bench's line as the newest record: it must
+    exit 0 and find no comparable history. The instrumented round is
+    timed against the bare one (cost capture off and on, behind a plain
+    Python frame, and bare with the garbage collector off), in turns. Returns
+    the phase's JSON record."""
+    import torch
+
+    from sda_tpu_torch.benchmarks import bench
+    from sda_tpu_torch.cli import bench as sda_bench
+    from sda_tpu_torch.fields import fused_round
+    from sda_tpu_torch.obs import devprof
+
+    K1 = fused_round.fused_mask_share_combine
+    K1.launches = 0
+    t0 = time.perf_counter()
+    argv = ["--participants", str(P), "--dim", str(D), "--seconds",
+            str(seconds), *extra]
+    if dev.type == "cpu":
+        argv += ["--device", "cpu"]
+    line = bench.run(bench.build_parser().parse_args(argv))
+    bench_s = time.perf_counter() - t0
+    launches = K1.launches
+    print(json.dumps(line), flush=True)
+    tiled, streamed = line["dim_tiled"], line["streamed"]
+    _check(line["exact"] and tiled["exact"] and streamed["exact"],
+           "bench: a lane is not exact")
+    util = line["roofline"]["utilization"]
+    _check(0 < util <= 1.05, f"bench: roofline utilization {util} "
+           "outside (0, 1.05]: a counting bug")
+    want = {"monolithic": line["round_calls"],
+            "tiled": tiled["round_calls"] * tiled["tiles"],
+            "streamed": streamed["round_calls"] * streamed["steps"]}
+    if dev.type == "cuda":
+        _check(line["k1_launches"] == want and launches == sum(want.values()),
+               f"bench: K1 launches {line['k1_launches']} (all {launches}),"
+               f" want {want}")
+    prof = line["device_profile"]
+    trace_ms = prof["k1_median_ms"]
+    print(f"bench: {line['value']:.4e} shared-elements/s, round median "
+          f"{line['round_seconds_median'] * 1e3:.4f} ms of "
+          f"{line['rounds']} (min {line['round_seconds_min'] * 1e3:.4f}, "
+          f"max {line['round_seconds_max'] * 1e3:.4f}), marginal "
+          f"{line['round_seconds_marginal'] * 1e3:.4f} ms; tiled "
+          f"{tiled['round_seconds_median'] * 1e3:.4f} ms, streamed "
+          f"{streamed['round_seconds_median'] * 1e3:.4f} ms; busy share "
+          f"{prof['busy_share']}; utilization {util}; K1 launches {launches}"
+          f" ({want}); {bench_s:.1f} s")
+    print(f"K1 in the bench's trace: {trace_ms} ms median of "
+          f"{prof['k1_count']} ({prof['k1_kernel']}); median_ms (phase 5): "
+          f"{k1_ms} ms; ratio "
+          f"{None if not (trace_ms and k1_ms) else trace_ms / k1_ms}")
+
+    # the gate: the bench's line as the newest record of the repo's
+    # trajectory, in the committed records' wrapper shape
+    paths = sorted(str(f) for f in
+                   Path(__file__).resolve().parent.glob("BENCH_r*.json"))
+    newest_n = max(json.loads(Path(f).read_text()).get("n", 0)
+                   for f in paths)
+    with tempfile.TemporaryDirectory() as tmp:
+        rec_path = str(Path(tmp) / "BENCH_torch.json")
+        Path(rec_path).write_text(json.dumps(
+            {"n": newest_n + 1, "rc": 0, "parsed": line}))
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = sda_bench.main(["--check", "--advisory", "--json",
+                                 *paths, rec_path])
+    verdict = json.loads(out.getvalue().strip().splitlines()[-1])
+    _check(rc == 0, f"sda-bench --check exited {rc}")
+    _check(verdict.get("newest") == rec_path and not verdict["checked"],
+           f"sda-bench --check: the torch line gated against {verdict}")
+    print(f"sda-bench --check --advisory --json over {len(paths)} records "
+          f"+ the bench line: exit {rc}, newest is the torch line, "
+          f"{verdict['note']}")
+
+    # the instrumented round against the bare one, cost capture off and on
+    scheme, masking, host = bench.flagship(P, D)
+    x = torch.from_numpy(host).to(dev)
+    bare = fused_round.single_chip_round_pallas(scheme, masking, device=dev)
+    wrapped = devprof.instrument("chip_smoke.round", bare,
+                                 cost=bench._round_ops(scheme))
+    gen = torch.Generator().manual_seed(3)
+    # arms: the round bare, behind a plain Python frame, instrumented with
+    # cost capture off and on, and bare with the garbage collector off
+    calls = {"bare": bare, "passthrough": lambda a, b: bare(a, b),
+             "capture_off": wrapped, "capture_on": wrapped,
+             "bare_gc_off": bare}
+    arms = tuple(calls)
+    ab = {name: [] for name in arms}
+    for i in range(AB_TURNS):               # each arm first in turn
+        for name in arms[i % len(arms):] + arms[:i % len(arms)]:
+            devprof.enable_cost_analysis(name == "capture_on")
+            fn = calls[name]
+            if name == "bare_gc_off":
+                gc.disable()
+            try:
+                ab[name].append(_median_ms(lambda: fn(x, gen), reps=10,
+                                           warmup=1)
+                                if dev.type == "cuda" else None)
+            finally:
+                gc.enable()
+    devprof.enable_cost_analysis(False)
+    if dev.type == "cuda":
+        ab_ms = {name: statistics.median(v) for name, v in ab.items()}
+        faster = {name: sum(b < w for b, w in zip(ab["bare"], ab[name]))
+                  for name in arms[1:]}
+        print(f"round, median of {AB_TURNS} medians of 10, arms in turns: "
+              + ", ".join(f"{name} {ms:.4f} ms (runs {min(ab[name]):.4f}"
+                          f"-{max(ab[name]):.4f})"
+                          for name, ms in ab_ms.items())
+              + f"; bare faster in {faster} of {AB_TURNS} turns")
+    else:
+        ab_ms = dict.fromkeys(arms)
+    # the wrapper's own host cost, a no-op wrapped (capture on: the memory
+    # frame's allocator queries on the round's device)
+    noop = devprof.instrument("chip_smoke.noop", lambda a, b: a,
+                              cost=lambda a, b: 1)
+    host_us = {}
+    for name, fn, on in (("bare", lambda a, b: a, False),
+                         ("capture_off", noop, False),
+                         ("capture_on", noop, True)):
+        devprof.enable_cost_analysis(on)
+        t1 = time.perf_counter()
+        for _ in range(10_000):
+            fn(x, gen)
+        host_us[name] = (time.perf_counter() - t1) / 10_000 * 1e6
+    devprof.enable_cost_analysis(False)
+    print("wrapper host cost a call (10,000 calls of a no-op): "
+          + ", ".join(f"{k} {v:.2f} us" for k, v in host_us.items()))
+    del x
+    return {"stage": "bench", "seconds": bench_s, "k1_launches": launches,
+            "k1_launches_by_lane": line["k1_launches"],
+            "value": line["value"],
+            "round_seconds_median": line["round_seconds_median"],
+            "utilization": util, "k1_trace_ms": trace_ms, "k1_events_ms":
+            k1_ms, "busy_share": prof["busy_share"],
+            "gate": {"rc": rc, "checked": verdict["checked"],
+                     "note": verdict.get("note")},
+            "instrumented_ab_ms": ab, "instrumented_ms": ab_ms,
+            "wrapper_host_us": host_us}
+
+
+def streamed_profile(dev, P, D, chunk, out_sha256):
+    """Phase 17: phase 15's streamed round once more, with cost capture on
+    (each ``stream.step`` / ``stream.finale`` call's device-memory peak)
+    and under ``torch.profiler`` (the device's busy share, through
+    ``utils.traceparse``); its output must be phase 15's, byte for byte.
+    Returns the phase's JSON record."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from sda_tpu_torch.mesh import (StreamingAggregator,
+                                    synthetic_device_block_provider32)
+    from sda_tpu_torch.obs import devprof
+    from sda_tpu_torch.protocol import ChaChaMasking
+    from sda_tpu_torch.utils import traceparse
+
+    scheme, _, p = _flagship()
+    prov = synthetic_device_block_provider32(p, seed=15, max_value=1 << 20,
+                                             device=dev)
+    agg = StreamingAggregator(scheme, ChaChaMasking(p, D, 128),
+                              participants_chunk=chunk, use_pallas=True,
+                              device=dev)
+    devprof.reset()
+    devprof.enable_cost_analysis()
+    activities = [ProfilerActivity.CPU]
+    if dev.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            with profile(activities=activities) as prof:
+                t0 = time.perf_counter()
+                out = agg.aggregate_blocks(prov, P, D, seed=15)
+                wall = time.perf_counter() - t0
+            t1 = time.perf_counter()
+            prof.export_chrome_trace(str(Path(tmp) / "streamed.json"))
+            trace = traceparse.load_latest_trace(tmp)
+            trace_s = time.perf_counter() - t1
+    finally:
+        devprof.enable_cost_analysis(False)
+    _check(hashlib.sha256(out.tobytes()).hexdigest() == out_sha256,
+           "streamed round under the profiler != phase 15's output")
+    names = ("stream.step", "stream.finale")
+    hbm = devprof.watermark_report(device=dev, names=names)
+    busy = traceparse.busy_share(trace)
+    stats = traceparse.device_module_stats(trace)
+    top = sorted(stats.items(), key=lambda kv: -kv[1]["total_us"])[:6]
+    print(f"streamed round under the profiler: wall {wall:.3f} s (trace "
+          f"export and parse {trace_s:.1f} s), busy share {busy}, peak "
+          f"device memory {hbm['hbm_peak_bytes']} bytes of a watermark of "
+          f"{hbm['watermark_bytes']} ({hbm.get('hbm_watermark_ratio')})")
+    for name, st in top:
+        print(f"    {st['total_us'] / 1e3:10.3f} ms {st['count']:6d} calls"
+              f"  {name[:100]}")
+    return {"stage": "streamed_profile", "participants": P, "dim": D,
+            "exact": True, "wall_s": wall, "busy_share": busy, "hbm": hbm,
+            "device_events": sum(st["count"] for st in stats.values()),
+            "functions": devprof.report()}
 
 
 def _k4_reset():
@@ -1515,6 +1740,17 @@ def main() -> int:
     k4_rec["phase_s"] = time.perf_counter() - t16
     print(json.dumps(k4_rec), flush=True)
 
+    # -- 17. the bench plane ------------------------------------------------
+    print(f"bench: the port's bench at P={P_MAIN} x d={D_MAIN} ({smi}):")
+    t17 = time.perf_counter()
+    rec17 = bench_phase(dev, k1_ms)
+    print(json.dumps(rec17), flush=True)
+    print(f"streamed round once more, cost capture and profiler on ({smi}):")
+    rec17s = streamed_profile(dev, P_STREAM, D_STREAM, STREAM_CHUNK,
+                              rec15["out_sha256"])
+    print(json.dumps(rec17s), flush=True)
+    print(f"phase 17: {time.perf_counter() - t17:.1f} s")
+
     # -- 8. the record ------------------------------------------------------
     print(smi)
     print(json.dumps({"kernels": [{
@@ -1524,6 +1760,7 @@ def main() -> int:
         "replaces": "sda_tpu/fields/pallas_round.py:95",
         "launches": main_launches,
         "launches_streamed": sum(rec15["k1_launches"].values()),
+        "launches_bench": rec17["k1_launches"],
         "max_abs_err": max_err["K1"],
         "ms": k1_ms,
         "plain_ms": plain_ms,

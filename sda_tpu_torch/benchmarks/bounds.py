@@ -39,23 +39,40 @@ def philox_ops(rows: int):
     return MULS * blocks // 4, XORS * blocks // 4
 
 
+def k1_ops(P, B, k, draws, do_x, muls=MULS, xors=XORS, external_bits=False):
+    """(FMA-pipe, ALU-pipe) integer operations of the work of a kernel of
+    K1's shape at these shapes: a participant and column takes ``muls``
+    wide multiplies (FMA pipe) and ``xors`` LOP3 (ALU pipe) when it draws,
+    and one 64-bit accumulate (an IADD3 on the ALU pipe and a carry-in add
+    on the FMA pipe) per input word and drawn word. With ``external_bits``
+    the ``draws`` rows are read instead of drawn. The per-column epilogue
+    (one reduction and contraction a column, not a participant) is left
+    out."""
+    fold_words = (k if do_x else 0) + 2 * draws
+    if not draws or external_bits:
+        muls = xors = 0
+    return P * B * (muls + fold_words), P * B * (xors + fold_words)
+
+
+def k1_pipe_ops(P, B, k, draws, do_x, external_bits=False) -> int:
+    """K1's operations on its busier pipe (``k1_ops``): the count its
+    operation bound divides by ``PIPE_OPS_PER_S`` (the issue rate is two
+    pipes' rate, so it never binds first)."""
+    return max(k1_ops(P, B, k, draws, do_x, external_bits=external_bits))
+
+
 def k1_bound(P, B, k, draws, do_x, out_rows, muls=MULS, xors=XORS,
              external_bits=False):
     """Least time (ms) the card could take for the work of a kernel of K1's
     shape at these shapes, and what bounds it: the larger of its bytes
     (input words once, int64 outputs once) at the memory rate and its
-    integer operations: a participant and column takes ``muls`` wide
-    multiplies (FMA pipe) and ``xors`` LOP3 (ALU pipe) when it draws, and
-    one 64-bit accumulate (an IADD3 on the ALU pipe and a carry-in add on
-    the FMA pipe) per input word and drawn word. With ``external_bits``
-    the ``draws`` rows are read (two uint32 words each) instead of drawn.
-    The per-column epilogue (one reduction and contraction a column, not a
-    participant) is left out. Returns (bound_ms, bound_by, detail)."""
+    integer operations (``k1_ops``) at a pipe's rate and at the issue
+    rate. With ``external_bits`` the ``draws`` rows are read (two uint32
+    words each) instead of drawn. Returns (bound_ms, bound_by, detail)."""
     fold_words = (k if do_x else 0) + 2 * draws
     if not draws or external_bits:
         muls = xors = 0
-    fma_ops = P * B * (muls + fold_words)
-    alu_ops = P * B * (xors + fold_words)
+    fma_ops, alu_ops = k1_ops(P, B, k, draws, do_x, muls, xors)
     ops_ms = max(max(fma_ops, alu_ops) / PIPE_OPS_PER_S,
                  (fma_ops + alu_ops) / INSTR_PER_S) * 1e3
     # the same work if a wide multiply took two FMA-pipe issue slots
@@ -90,13 +107,9 @@ DRAW_EITHER_OPS = 4 + 2 + 8 + 3
 DRAW_ACCUMULATE_OPS = 6
 
 
-def k3_bound(seeds: int, dimension: int, combine: bool):
-    """Least time (ms) the card could take for K3's work on ``seeds``
-    streams of ``dimension`` draws (``combine``: summed into one [d] row;
-    else each written), and what bounds it: the larger of its bytes (8
-    key words a seed read once, int64 residues written once) at the memory
-    rate and its integer operations, ALU-pipe work at one pipe's rate and
-    all work at the issue rate. Returns (bound_ms, bound_by, detail)."""
+def _k3_ops(seeds: int, dimension: int, combine: bool):
+    """(blocks, ALU-pipe-only, FMA-pipe-only, all) operations of K3's work
+    on ``seeds`` streams of ``dimension`` draws."""
     blocks = seeds * -(-dimension // 8)
     draws = seeds * dimension
     alu = blocks * CHACHA_ALU_OPS
@@ -104,9 +117,28 @@ def k3_bound(seeds: int, dimension: int, combine: bool):
     total = (alu + fma + blocks * CHACHA_EITHER_OPS
              + draws * (DRAW_EITHER_OPS
                         + (DRAW_ACCUMULATE_OPS if combine else 0)))
-    ops_ms = max(alu / PIPE_OPS_PER_S, fma / PIPE_OPS_PER_S,
-                 total / INSTR_PER_S) * 1e3
-    bytes_moved = seeds * 8 * 4 + (dimension if combine else draws) * 8
+    return blocks, alu, fma, total
+
+
+def k3_pipe_ops(seeds: int, dimension: int, combine: bool) -> int:
+    """K3's operations on its busier pipe: the ALU-only or FMA-only work,
+    or half of all work where the either-pipe operations fill both (the
+    issue rate is two pipes' rate)."""
+    _, alu, fma, total = _k3_ops(seeds, dimension, combine)
+    return max(alu, fma, -(-total // 2))
+
+
+def k3_bound(seeds: int, dimension: int, combine: bool):
+    """Least time (ms) the card could take for K3's work on ``seeds``
+    streams of ``dimension`` draws (``combine``: summed into one [d] row;
+    else each written), and what bounds it: the larger of its bytes (8
+    key words a seed read once, int64 residues written once) at the memory
+    rate and its integer operations, ALU-pipe work at one pipe's rate and
+    all work at the issue rate. Returns (bound_ms, bound_by, detail)."""
+    blocks, alu, _, total = _k3_ops(seeds, dimension, combine)
+    ops_ms = k3_pipe_ops(seeds, dimension, combine) / PIPE_OPS_PER_S * 1e3
+    bytes_moved = seeds * 8 * 4 + (dimension if combine
+                                   else seeds * dimension) * 8
     bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
     detail = (f"{bytes_moved} bytes -> {bytes_ms:.4f} ms; {blocks} blocks, "
               f"{total:.0f} integer ops ({alu:.0f} ALU-pipe only, "

@@ -6,6 +6,13 @@ k secrets; here that layer is a reshape: the batch axis becomes the
 contraction's column axis, so sharing a participant's vector is ONE
 [n, m2] @ [m2, B] modular contraction and reconstruction is ONE
 [k, r+1] @ [r+1, B] contraction. Canonical int64 residues throughout.
+
+The entry points the reference instruments (``combine``,
+``additive_share_from_randomness``, ``packed_share_from_randomness``,
+``packed_reconstruct``) go through ``obs.devprof.instrument`` under the
+reference's names, each with its cost counted from the shapes as modular
+operations (an add, or a multiply-add of a contraction; each is at least
+one integer pipe operation on the card).
 """
 
 from __future__ import annotations
@@ -13,6 +20,7 @@ from __future__ import annotations
 import torch
 
 from . import fastfield
+from ..obs import devprof
 from .modular import modmatmul, modsub, modsum, uniform_mod
 
 
@@ -55,6 +63,11 @@ def additive_share_from_randomness(secrets, draws, *, modulus: int):
     return torch.cat([draws, last[..., None, :]], dim=-2)
 
 
+additive_share_from_randomness = devprof.instrument(
+    "fields.additive_share", additive_share_from_randomness,
+    cost=lambda secrets, draws, **_: draws.numel() + secrets.numel())
+
+
 def additive_share(generator, secrets, *, share_count: int, modulus: int):
     """[..., d] secrets -> [..., n, d] shares with fresh draws."""
     d = secrets.shape[-1]
@@ -67,6 +80,10 @@ def combine(shares, *, modulus: int):
     """Elementwise modular sum across the leading axis — the clerk kernel
     (combiner.rs:15-30) and the additive reconstructor (additive.rs:55-73)."""
     return modsum(shares, modulus, axis=0)
+
+
+combine = devprof.instrument("fields.combine", combine,
+                             cost=lambda shares, **_: shares.numel())
 
 
 # ---------------------------------------------------------------------------
@@ -89,6 +106,19 @@ def packed_share_from_randomness(secrets, randomness, share_matrix, *,
     """
     sk = batch_columns(secrets, secret_count)                    # [..., k, B]
     return modmatmul(share_matrix, _values(sk, randomness), prime)
+
+
+def _contraction_ops(matrix, rows: int, columns: int) -> int:
+    """Multiply-adds of ``rows`` products [n, m] @ [m, columns]."""
+    n, m = matrix.shape
+    return rows * n * m * columns
+
+
+packed_share_from_randomness = devprof.instrument(
+    "fields.packed_share", packed_share_from_randomness,
+    cost=lambda secrets, randomness, share_matrix, *, secret_count, **_:
+    _contraction_ops(share_matrix, secrets.numel() // secrets.shape[-1],
+                     -(-secrets.shape[-1] // secret_count)))
 
 
 def packed_share(generator, secrets, share_matrix, *, prime: int,
@@ -138,3 +168,9 @@ def packed_reconstruct(shares, recon_matrix, *, prime: int, dimension: int):
     """
     secrets = modmatmul(recon_matrix, _with_zero_row(shares), prime)  # [k, B]
     return unbatch_columns(secrets, dimension)
+
+
+packed_reconstruct = devprof.instrument(
+    "fields.packed_reconstruct", packed_reconstruct,
+    cost=lambda shares, recon_matrix, **_: _contraction_ops(
+        recon_matrix, 1, shares.shape[-1]))

@@ -16,6 +16,10 @@ fused kernel, ``use_pallas=True``) through ``simpod._pallas_stage``, with
 ChaCha seed masks expanded by K3 at each tile's offset. The multi-device
 ``StreamedPod`` comes with the multi-device slice.
 
+The accumulate step and the per-tile finale run through
+``obs.devprof.instrument`` as ``stream.step`` and ``stream.finale`` (the
+reference's names), with their costs counted from the block shapes.
+
 Randomness: a tile's Full masks, share rows and K1 key come from
 ``simpod._tile_seed(round seed, participant tile, dim tile)`` and ChaCha
 seeds from ``simpod._chacha_seed_words(round seed, participant id)``, pure
@@ -31,9 +35,11 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from ..benchmarks import bounds
 from ..device import resolve_device
 from ..fields.ops import FieldOps
-from ..protocol import LinearMaskingScheme, NoMasking
+from ..obs import devprof
+from ..protocol import ChaChaMasking, FullMasking, LinearMaskingScheme, NoMasking
 from ..utils import timed_phase
 from .simpod import (
     _build_matrices,
@@ -312,6 +318,10 @@ def _drive_stream(owner, participants, dimension, seed, *, make_block,
             out[: int(resume["done_dims"])] = resume["out"]
     # ground truth for callers recording resumed runs (e.g. benches)
     owner.last_resumed = resume is not None
+    step = devprof.instrument("stream.step", owner._step,
+                              cost=owner._step_ops)
+    final = devprof.instrument("stream.finale", owner._final,
+                               cost=owner._final_ops)
     resume_di = int(resume["di"]) if resume is not None else -1
     resume_pi = int(resume["pi"]) if resume is not None else 0
     empty = np.zeros((0,), np.int64)
@@ -335,7 +345,7 @@ def _drive_stream(owner, participants, dimension, seed, *, make_block,
             with timed_phase("stream.feed"):
                 block = make_block(p0, p1, d0, d1, d_size)
             with timed_phase("stream.dispatch"):
-                acc_shares, acc_mask = owner._step(
+                acc_shares, acc_mask = step(
                     block, _tile_seed(seed, pi, di), seed, p0, d0 // 8,
                     acc_shares, acc_mask)
             if (checkpointer is not None
@@ -349,7 +359,7 @@ def _drive_stream(owner, participants, dimension, seed, *, make_block,
         with timed_phase("stream.steps_sync"):
             _sync(owner.device)
         with timed_phase("stream.finale"):
-            out[d0:d1] = _host(owner._final(acc_shares, acc_mask))[: d1 - d0]
+            out[d0:d1] = _host(final(acc_shares, acc_mask))[: d1 - d0]
         if checkpointer is not None:
             with timed_phase("stream.checkpoint"):
                 checkpointer.save(out, d1, di + 1, 0, empty, empty)
@@ -462,6 +472,43 @@ class StreamingAggregator:
         if not isinstance(self.masking, NoMasking):
             total = f.sub(total, acc_mask)
         return f.to_int64(total)
+
+    # -- counted costs (obs.devprof) ---------------------------------------
+    def _step_ops(self, block, *_args) -> int:
+        """Integer operations of one accumulate step, counted from the
+        algorithm: K1's (``bounds.k1_pipe_ops``) and K3's
+        (``bounds.k3_pipe_ops``) where they run, and one operation an
+        element for each plain-torch modular pass (residues, Full-mask and
+        share-row draws, sums, the share contraction's multiply-adds, the
+        accumulates)."""
+        s = self.scheme
+        rows, width = block.shape
+        k, n = s.input_size, s.output_size
+        B = width // k
+        ops = rows * width + n * B + width          # residues, accumulates
+        if isinstance(self.masking, ChaChaMasking):
+            ops += bounds.k3_pipe_ops(rows, width, False) + 2 * rows * width
+        elif isinstance(self.masking, FullMasking) and not self.pallas_active:
+            ops += 3 * rows * width                 # draw, add, sum
+        if self.pallas_active:
+            t = s.privacy_threshold
+            draws = t + (k if isinstance(self.masking, FullMasking) else 0)
+            return ops + bounds.k1_pipe_ops(rows, B, k, draws, True)
+        if self._M_host is not None:
+            t = s.privacy_threshold
+            return (ops + 2 * rows * t * B + rows * width
+                    + n * (1 + k + t) * B)
+        return ops + 3 * rows * (n - 1) * width + rows * width
+
+    def _final_ops(self, acc_shares, acc_mask) -> int:
+        """Integer operations of one finale: the reconstruction's
+        multiply-adds (a plain share sum for additive sharing) and the
+        unmask."""
+        width = acc_mask.shape[0]
+        if self._L_host is None:
+            return acc_shares.numel() + width
+        k, r = self._L_host.shape
+        return k * r * acc_shares.shape[-1] + width
 
     # -- checkpoint/resume -----------------------------------------------
     # A flagship streamed round is minutes of accumulate steps, so the

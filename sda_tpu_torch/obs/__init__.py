@@ -4,9 +4,9 @@ observation plane (spans here, counters/gauges/histograms in
 
 See ``docs/observability.md`` for the span model, the ``traceparent``
 propagation header, the Chrome-trace export format, and how to merge the
-span timeline with XProf device traces. Of the reference's ``devprof``
-the port has ``hbm_watermark`` (``obs.devprof``); its XLA compile registry
-behind ``/statusz``'s ``devprof`` block has no counterpart yet.
+span timeline with device traces. ``obs.devprof`` is the device plane:
+the call/shape registry of the instrumented stages, counted costs and the
+roofline, device-memory peaks and the watermark.
 """
 
 from .trace import (
@@ -44,7 +44,7 @@ from .timeline import (
     slowest_spans,
     span_tree,
 )
-from . import recorder
+from . import devprof, recorder
 
 __all__ = [
     "REQUEST_ID_HEADER",
@@ -60,6 +60,7 @@ __all__ = [
     "critical_path",
     "current_context",
     "current_span",
+    "devprof",
     "export_chrome_trace",
     "finished_spans",
     "format_traceparent",
@@ -85,8 +86,9 @@ __all__ = [
 
 def reset_all() -> None:
     """Clear EVERY observability registry together — counters, gauges,
-    histograms, phase stats, the span ring buffer and job-trace links — so a
-    fresh
+    histograms, phase stats, the span ring buffer, job-trace links, and
+    the devprof shape/cost registry (whose ``xla.compile.*`` counters and
+    memory gauges live in the metrics registry) — so a fresh
     measurement window can never start half-reset
     (``utils/metrics.reset_all()`` + ``reset_phase_report()`` used to be
     separate calls and easy to desync in tests)."""
@@ -95,3 +97,4 @@ def reset_all() -> None:
     metrics.reset_all()
     timing.reset_phase_report()
     reset_spans()
+    devprof.reset()

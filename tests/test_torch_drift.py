@@ -87,6 +87,14 @@ FUNCTION_COPIES = [
     ("models/encoding.py", "FixedPointCodec.decode_sum"),
     ("models/encoding.py", "FixedPointCodec.decode_mean"),
     ("models/encoding.py", "FixedPointCodec.__repr__"),
+    # obs/regress.py is a copy but for _comparable (the framework key);
+    # cli/bench.py but for _run_bench and main (--run passes the bench's
+    # own arguments through)
+    *[("obs/regress.py", name) for name in (
+        "MalformedRecord", "repo_root", "_parse_file", "load_records",
+        "chain_rel_uncertainty", "_window_stats", "check", "format_table",
+        "default_paths", "build_parser", "run", "main")],
+    ("cli/bench.py", "build_parser"),
 ]
 
 #: lines a copy words otherwise, by line number (1-based), each replaced

@@ -105,8 +105,18 @@ def _entry_points():
         device = ["--device", kw["device"]] if "device" in kw else []
         return sda_main(["-i", tempfile.mkdtemp(), *device, "agent", "show"])
 
+    from sda_tpu_torch.benchmarks import bench
+
+    def bench_main(**kw):
+        device = ["--device", kw["device"]] if "device" in kw else []
+        return bench.main(["--participants", "4", "--dim", "300",
+                           "--seconds", "0.001", "--lanes", "monolithic",
+                           *device])
+
     v1 = "sda-tpu/chacha20-prg/v1"
     return {
+        "bench": bench_main,
+        "watermark_report": lambda **kw: devprof.watermark_report(**kw),
         "MontgomeryContext.premix": lambda **kw: MontgomeryContext(
             p).premix([[1, 2], [3, 4]], **kw),
         "FixedPointCodec.encode_device": lambda **kw: FixedPointCodec(
@@ -155,7 +165,7 @@ def _entry_points():
                                   "SdaClient",
                                   "MontgomeryContext.premix",
                                   "FixedPointCodec.encode_device",
-                                  "sda"])
+                                  "sda", "bench", "watermark_report"])
 def test_entry_points_default_to_cuda(name):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default does not raise")
@@ -254,7 +264,9 @@ def test_relative_import_scan_sees_function_level_imports():
 @pytest.mark.parametrize("module", [
     "sda_tpu_torch.cli.main", "sda_tpu_torch.cli.serverd",
     "sda_tpu_torch.crypto.paillier_tpu", "sda_tpu_torch.service",
-    "sda_tpu_torch.models"])
+    "sda_tpu_torch.models", "sda_tpu_torch.benchmarks.bench",
+    "sda_tpu_torch.cli.bench", "sda_tpu_torch.obs.regress",
+    "sda_tpu_torch.utils.traceparse"])
 def test_entry_module_leaves_jax_out(module):
     code = (f"import importlib, sys\nimportlib.import_module({module!r})\n"
             f"bad = [m for m in sys.modules if m.split('.')[0] in "

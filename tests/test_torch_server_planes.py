@@ -132,7 +132,12 @@ def _statusz(url):
 def test_statusz_matches_reference(tmp_path):
     """``sdad --statusz`` on the port serves the reference's document: the
     same keys, the same rounds, fleet health and lease table, and
-    ``devprof`` compile totals with the reference's keys."""
+    ``devprof`` compile totals with the reference's keys. The port's
+    registry counts its instrumented stages process-wide, so the test
+    opens a fresh observation window: statusz itself runs none."""
+    from sda_tpu_torch import obs
+
+    obs.reset_all()
     port, _, _ = _stale_lease(tmp_path)
     ref = _with_reference(tmp_path, port)
     docs = []
