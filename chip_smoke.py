@@ -51,7 +51,17 @@ repo's ``BENCH_r*.json`` with the bench's line as the newest record (a
 torch record with no comparable history), the instrumented round against
 the bare one with cost capture off and on, and the streamed round once
 more with cost capture and the profiler on for its peak device memory and
-busy share.
+busy share. Then the multi-device modes: ``SimulatedPod`` at the flagship
+width on the card's 1x1 mesh and on a virtual 4x2 mesh (``[cuda:0] * 8``)
+with Full, ChaCha and no masks, on K1 and on the plain lane, and a quorum
+reveal without clerk 5, each exact with its K1 and K3 launches a round,
+and K1 and K3 held to their plain versions at a shard's shape and
+offsets; ``run_devscale`` at ``BENCH_r15_devscale.json``'s configuration
+(dim 1e8, P=8 on the virtual 4x2 mesh, full masks, K1, seed 20260804)
+with its ``DeviceTileSink``-fed lane, exact against the sampled oracle,
+its peak device memory against the watermark; and ``mesh.multihost`` at
+world size 1 over NCCL, one round and a streamed round stopped and
+resumed from its snapshots, both exact.
 Prints the card's name and power
 limit, one JSON line of kernel measurements, and as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -109,6 +119,13 @@ D_CHACHA = 1_000_008
 P_STREAM, D_STREAM, STREAM_CHUNK = 10_000, 10_000_008, 250
 #: rows and bundles of the device-tile clerk fold (phase 15)
 FOLD_ROWS, FOLD_BUNDLES = 100, 4
+#: timed rounds of the pod phase (18)
+POD_REPS = 5
+#: the model-scale rung of ``BENCH_r15_devscale.json`` (phase 19)
+DEVSCALE_DIM = 100_000_000
+#: the streamed multihost round (phase 20): participant and dim chunks,
+#: and the blocks fed before the provider stops it
+MH_CHUNK, MH_DIM_CHUNK, MH_STOP = 32, 262_144, 7
 #: K4's checks (phase 16): Paillier key sizes (n^2 of 32, 128 and 192
 #: limbs, each filling a group instance), premix row counts (at 256 lanes
 #: the larger ones split a lane's rows) and lanes; the split path of a small
@@ -171,6 +188,8 @@ def _profile(label: str, fn, reps: int = 3) -> None:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from sda_tpu_torch import utils
+
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -180,11 +199,14 @@ def _profile(label: str, fn, reps: int = 3) -> None:
             fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    ranges = set(utils.phase_report())
     rows = []
     for e in prof.key_averages():
         # device-side entries only (kernels, copies): an operator's row
-        # repeats the time of the kernels it launched
-        if e.device_type != DeviceType.CUDA:
+        # repeats the time of the kernels it launched, and a user range
+        # (a ``timed_phase``) on the device's timeline spans them
+        if e.device_type != DeviceType.CUDA or e.key in ranges or getattr(
+                e, "is_user_annotation", False):
             continue
         dev_us = getattr(e, "self_device_time_total", None)
         if dev_us is None:
@@ -856,6 +878,343 @@ def streamed_profile(dev, P, D, chunk, out_sha256):
             "exact": True, "wall_s": wall, "busy_share": busy, "hbm": hbm,
             "device_events": sum(st["count"] for st in stats.values()),
             "functions": devprof.report()}
+
+
+def _k1_reset():
+    from sda_tpu_torch.fields import fused_round
+
+    k1 = fused_round.fused_mask_share_combine
+    k1.launches = 0
+    k1.instance_launches.update(dict.fromkeys(fused_round.INSTANCES, 0))
+    return k1
+
+
+def _k1_shard_hold(case, dev, scheme, masked, x, seed):
+    """K1 at one pod shard's shape (``simpod._pallas_stage``'s call on a
+    shard's residues ``x``), held to the plain version with
+    ``torch.equal``. Returns the max |error| (0 when equal)."""
+    import torch
+
+    from sda_tpu_torch.fields import fused_round, numtheory
+    from sda_tpu_torch.fields.fastfield import SolinasPrime
+    from sda_tpu_torch.fields.sharing import batch_columns
+
+    args = (batch_columns(x.to(torch.int32), scheme.secret_count), seed,
+            SolinasPrime.try_from(scheme.prime_modulus),
+            numtheory.share_matrix_for(scheme), scheme.privacy_threshold,
+            masked)
+    got = fused_round.fused_mask_share_combine(*args)
+    want = fused_round.fused_mask_share_combine_plain(*args)
+    err = 0
+    for g, w in zip(got, want):
+        _check(g.shape == w.shape, f"{case}: K1 {tuple(g.shape)} vs "
+               f"{tuple(w.shape)}")
+        if not torch.equal(g, w):
+            err = max(err, int((g - w).abs().max()))
+    _check(err == 0, f"{case}: K1 at shard shape {tuple(x.shape)} != plain "
+           f"(max |err| {err})")
+    print(f"  {case}: K1 at shard shape {tuple(x.shape)} (masked={masked}) "
+          "equal to plain")
+    return err
+
+
+def pod_phase(dev, P=P_MAIN, D=D_MAIN, reps=POD_REPS):
+    """Phase 18: ``SimulatedPod`` at the flagship width on the 1x1 mesh of
+    ``dev`` and on a virtual 4x2 mesh (``[dev] * 8``), Full, ChaCha and no
+    masks, on K1 and on the plain lane, and a quorum reveal with clerk 5
+    dropped; each round exact against the int64 column sum mod p, with its
+    K1 and K3 launches (checked on a card: one K1 launch a shard, one K3
+    window a shard on K1's lane, one a shard and participant chunk on the
+    plain lane). K1 and K3 are then held to their plain versions at a 4x2
+    shard's shape and offsets. Returns the phase's JSON record."""
+    import numpy as np
+    import torch
+
+    from sda_tpu_torch.mesh import SimulatedPod, make_mesh
+    from sda_tpu_torch.mesh import simpod
+    from sda_tpu_torch.protocol import ChaChaMasking, NoMasking
+
+    scheme, full, p = _flagship()
+    on_card = dev.type == "cuda"
+    inputs = torch.from_numpy(np.random.default_rng(18).integers(
+        0, 1 << 20, size=(P, D), dtype=np.uint32)).to(dev)
+    expect = inputs.to(torch.int64).sum(0) % p
+    masks = {"full": full, "chacha": ChaChaMasking(p, D, 128),
+             "none": NoMasking()}
+    meshes = {"1x1": make_mesh(1, 1, devices=[dev]),
+              "4x2": make_mesh(4, 2, devices=[dev] * 8)}
+    cases = [("1x1", "full", True, None, True),
+             ("4x2", "full", True, None, True),
+             ("4x2", "chacha", True, None, False),
+             ("4x2", "none", True, None, False),
+             ("4x2", "full", False, None, True),
+             ("4x2", "chacha", False, None, False),
+             ("4x2", "none", False, None, False),
+             ("4x2", "full", True, (0, 1, 2, 3, 4, 6, 7), False)]
+    k1, k3 = _k1_reset(), _k3_reset()
+    rounds = []
+    k1_total = 0  # every launch of the phase, timed repeats included
+    for shape, mask, pallas, survivors, timed in cases:
+        pod = SimulatedPod(scheme, masks[mask], mesh=meshes[shape],
+                           use_pallas=pallas, surviving_clerks=survivors)
+        label = (f"{shape} {mask} {'K1' if pallas else 'plain'}"
+                 + ("" if survivors is None else " quorum without clerk 5"))
+        k1, k3 = _k1_reset(), _k3_reset()
+        t0 = time.perf_counter()
+        out = pod.aggregate(inputs, seed=18)
+        first_ms = (time.perf_counter() - t0) * 1e3
+        k1_n, k3_n = k1.launches, k3.launches
+        _check(out.dtype == torch.int64 and out.shape == (D,),
+               f"pod {label}: output {out.dtype}{tuple(out.shape)}")
+        _check(torch.equal(out, expect), f"pod {label}: != column sum mod p")
+        shards = pod.mesh.devices.size
+        P_loc = P // pod.mesh.devices.shape[0]
+        chunks = -(-P_loc // pod.scan_chunk)
+        want_k1 = shards if pallas else 0
+        want_k3 = 0 if mask != "chacha" else shards * (1 if pallas
+                                                        else chunks)
+        if on_card:
+            _check(k1_n == want_k1, f"pod {label}: K1 launched {k1_n} "
+                   f"times, want {want_k1}")
+            _check(k3_n == want_k3, f"pod {label}: K3 launched {k3_n} "
+                   f"times, want {want_k3}")
+        ms = (_median_ms(lambda: pod.aggregate(inputs, seed=18), reps=reps,
+                         warmup=1) if timed and on_card else None)
+        k1_total += k1.launches
+        rounds.append({"mesh": shape, "mask": mask, "k1": pallas,
+                       "survivors": survivors, "exact": True,
+                       "k1_launches": k1_n, "k3_launches": k3_n,
+                       "first_round_ms": first_ms, "round_ms": ms})
+        print(f"  pod {label}: exact, K1 {k1_n}, K3 {k3_n} launches, first "
+              f"round {first_ms:.1f} ms"
+              + ("" if ms is None else f", median of {reps} {ms:.3f} ms"))
+    # the kernels at a 4x2 shard's shape and offsets: the last shard
+    pod = SimulatedPod(scheme, masks["chacha"], mesh=meshes["4x2"],
+                       use_pallas=True)
+    P_pad, d_pad = pod.padded_shape(P, D)
+    P_loc, d_loc = P_pad // 4, d_pad // 2
+    pi, di = 3, 1
+    rows = inputs[pi * P_loc:(pi + 1) * P_loc, di * d_loc:D]
+    x = torch.zeros((P_loc, d_loc), dtype=torch.int64, device=dev)
+    x[:, :rows.shape[1]] = pod._field.to_residues(rows)
+    k1_err = max(_k1_shard_hold("pod shard (3, 1)", dev, scheme, masked, x,
+                                simpod._tile_seed(18, pi, di))
+                 for masked in (True, False))
+    k3_err = _k3_window("pod shard (3, 1)", dev, 18, pi * P_loc, P_loc,
+                        di * (d_loc // 8), d_loc, p)
+    return {"stage": "pod_round", "participants": P, "dim": D,
+            "rounds": rounds, "k1_launches_phase": k1_total,
+            "k1_shard_max_abs_err": k1_err,
+            "k3_window_max_abs_err": k3_err,
+            "k1_launches": {f"{r['mesh']} {r['mask']}"
+                            f"{'' if r['survivors'] is None else ' quorum'}":
+                            r["k1_launches"] for r in rounds if r["k1"]},
+            "k3_launches": {f"{r['mesh']} {r['mask']} "
+                            f"{'K1' if r['k1'] else 'plain'}":
+                            r["k3_launches"] for r in rounds
+                            if r["mask"] == "chacha"}}
+
+
+def devscale_phase(dev, dim=DEVSCALE_DIM, rounds=2):
+    """Phase 19: ``run_devscale`` at ``BENCH_r15_devscale.json``'s
+    configuration (dim 1e8, P=8 on a 4x2 mesh, here virtual on ``dev``,
+    full masks, seed 20260804) on K1, with the ``DeviceTileSink``-fed lane:
+    exact against the sampled host oracle, the sink lane byte-identical
+    to the device-generated one, the steps' recorded peak within the
+    watermark, and on a card 8 K1 launches a tile in every round; every
+    column of the warm and the last round against the int64 column sums of
+    the device provider (``run_devscale``'s ``device_oracle``). Then one
+    more round of the same pod, profiled (device time by operation, busy
+    share), and K1 held to its plain version at a shard's shape of the
+    model-scale tile, on the provider's rows with that shard's seed.
+    Returns the phase's JSON record."""
+    from sda_tpu_torch.loadgen import DevScaleProfile, run_devscale
+    from sda_tpu_torch.mesh import (StreamedPod, make_mesh, simpod,
+                                    synthetic_device_block_provider32)
+
+    on_card = dev.type == "cuda"
+    k1, k3 = _k1_reset(), _k3_reset()
+    t0 = time.perf_counter()
+    rec = run_devscale(DevScaleProfile(
+        dim=dim, participants=8, participants_chunk=8, p_shards=4,
+        d_shards=2, mask="full", pallas=True, rounds=rounds,
+        seed=20260804, device=str(dev)))
+    wall = time.perf_counter() - t0
+    # warm + timed rounds + the sink-fed round, 8 shards a tile each
+    want = rec["tiles"] * 8 * (rounds + 1)
+    _check(rec["exact"], f"devscale: not exact {rec['oracle']} "
+           f"{rec['device_oracle']}")
+    _check(rec["device_oracle"] == {"cols": dim, "outputs": 2},
+           f"devscale: device oracle {rec['device_oracle']}")
+    _check(rec["clerk_fed"]["exact"], "devscale: the sink-fed round's "
+           "bytes differ from the device-generated round's")
+    _check(rec["clerk_fed"]["sink_misses"] == 0,
+           f"devscale: sink misses {rec['clerk_fed']}")
+    _check(rec["hbm"]["within_watermark"], f"devscale: {rec['hbm']}")
+    _check(rec["ok"] and rec["pallas"], "devscale: record not ok")
+    if on_card:
+        _check(k1.launches == want,
+               f"devscale: K1 launched {k1.launches} times, want {want}")
+        _check(k3.launches == 0, f"devscale: K3 launched {k3.launches}")
+    keep = ("value", "round_seconds_marginal", "dim", "dim_tile", "tiles",
+            "p_shards", "d_shards", "exact", "oracle", "device_oracle",
+            "clerk_fed",
+            "hbm", "roofline_utilization", "compiled_shapes",
+            "framework", "platform")
+    out = {"stage": "devscale", **{key: rec[key] for key in keep},
+           "k1_launches": k1.launches, "wall_s": wall}
+    print(f"  devscale: dim {rec['dim']}, tile {rec['dim_tile']} x "
+          f"{rec['tiles']}, value {rec['value']} elements/s, marginal "
+          f"{rec['round_seconds_marginal']} s, exact {rec['exact']} (all "
+          f"{rec['device_oracle']['cols']} columns of 2 rounds on the "
+          f"device oracle), steps' peak {rec['hbm']['hbm_peak_bytes']} B "
+          f"of a {rec['hbm']['watermark_bytes']} B watermark, K1 "
+          f"{k1.launches} launches, wall {wall:.1f} s")
+    scheme, full, p = _flagship()
+    pod = StreamedPod(scheme, full, mesh=make_mesh(4, 2, devices=[dev] * 8),
+                      participants_chunk=8, dim_chunk=rec["dim_tile"],
+                      use_pallas=True)
+    prov = synthetic_device_block_provider32(p, seed=20260804, device=dev)
+    if on_card:
+        _profile("devscale round",
+                 lambda: pod.aggregate_blocks(prov, 8, dim, 7), reps=1)
+    out["k1_launches_phase"] = k1.launches
+    # K1 at the last shard of the warm round's first tile: its rows, its
+    # columns and its seed (``_drive_stream``'s tile seed, then the
+    # shard's)
+    Pc_loc, d_loc = pod.participants_chunk // 4, pod.dim_chunk // 2
+    pi, di = 3, 1
+    x = pod._field.to_residues(prov(pi * Pc_loc, (pi + 1) * Pc_loc,
+                                    di * d_loc, (di + 1) * d_loc))
+    out["k1_shard_max_abs_err"] = _k1_shard_hold(
+        "devscale shard (3, 1) of tile 0", dev, scheme, True, x,
+        simpod._tile_seed(simpod._tile_seed(20260804, 0, 0), pi, di))
+    return out
+
+
+def multihost_phase(dev, P=P_MAIN, D=D_MAIN, chunk=MH_CHUNK,
+                    dim_chunk=MH_DIM_CHUNK, stop_after=MH_STOP):
+    """Phase 20: ``mesh.multihost`` at world size 1 (NCCL on a card, gloo
+    on the CPU) through a ``file://`` store: ``aggregate_process_local``
+    on a one-slice 4x2 mesh of ``dev`` at P x D, then
+    ``streamed_aggregate_process_local`` with a checkpoint every chunk,
+    stopped by its provider after ``stop_after`` blocks, and resumed to
+    the exact sum with fewer blocks fed; then K1 held to its plain version
+    at a shard's shape of the streamed tile. The process group and the
+    temporary directory are removed at the end. Returns the phase's JSON
+    record."""
+    import glob
+    import os
+    import shutil
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from sda_tpu_torch.mesh import (SimulatedPod, StreamedPod,
+                                    make_multislice_mesh, multihost, simpod,
+                                    synthetic_device_block_provider32)
+
+    scheme, full, p = _flagship()
+    on_card = dev.type == "cuda"
+    tmp = tempfile.mkdtemp(prefix="sda_multihost_")
+    multihost.initialize(num_processes=1, process_id=0,
+                         init_method=f"file://{tmp}/store", device=dev,
+                         timeout_s=120)
+    try:
+        backend = dist.get_backend()
+        mesh = make_multislice_mesh(1, 4, 2, devices=[dev] * 8)
+        pod = SimulatedPod(scheme, full, mesh=mesh, use_pallas=True)
+        inputs = torch.from_numpy(np.random.default_rng(20).integers(
+            0, 1 << 20, size=(P, D), dtype=np.uint32)).to(dev)
+        expect = (inputs.to(torch.int64).sum(0) % p).cpu().numpy()
+        k1 = _k1_reset()
+        t0 = time.perf_counter()
+        out = multihost.aggregate_process_local(pod, inputs, seed=20)
+        first_s = time.perf_counter() - t0
+        k1_round = k1.launches
+        _check(np.array_equal(out, expect),
+               "multihost round: != column sum mod p")
+        _check(not on_card or k1_round == 8,
+               f"multihost round: K1 launched {k1_round} times, want 8")
+        round_ms = _median_ms(
+            lambda: multihost.aggregate_process_local(pod, inputs, seed=20),
+            reps=3, warmup=0) if on_card else None
+        print(f"  multihost ({backend}, world 1): aggregate_process_local "
+              f"P={P} x d={D} exact, K1 {k1_round}, first round "
+              f"{first_s:.3f} s (the communicator's set-up)"
+              + ("" if round_ms is None
+                 else f", then {round_ms:.3f} ms median of 3"))
+
+        spod = StreamedPod(scheme, full, mesh=mesh, participants_chunk=chunk,
+                           dim_chunk=dim_chunk, use_pallas=True)
+        prov = synthetic_device_block_provider32(p, seed=20,
+                                                 max_value=1 << 20,
+                                                 device=dev)
+        calls = {"n": 0, "limit": stop_after}
+
+        def stopping(lp0, lp1, d0, d1):
+            calls["n"] += 1
+            if calls["n"] > calls["limit"]:
+                raise RuntimeError("stopped")
+            return prov(lp0, lp1, d0, d1)
+
+        ck = os.path.join(tmp, "ck")
+        try:
+            multihost.streamed_aggregate_process_local(
+                spod, stopping, P, D, seed=21, checkpoint_path=ck,
+                checkpoint_every_chunks=1)
+            _fail("multihost streamed: the forced stop did not stop it")
+        except RuntimeError as exc:
+            _check(str(exc) == "stopped", f"multihost streamed: {exc}")
+        _check(bool(glob.glob(ck + ".r0of1.*")),
+               "multihost streamed: no snapshot after the stop")
+        calls.update(n=0, limit=float("inf"))
+        k1_before = k1.launches
+        t0 = time.perf_counter()
+        sout = multihost.streamed_aggregate_process_local(
+            spod, stopping, P, D, seed=21, checkpoint_path=ck,
+            checkpoint_every_chunks=1)
+        resume_s = time.perf_counter() - t0
+        k1_resumed = k1.launches - k1_before
+        k1_total = k1.launches  # every launch of the phase
+        tiles = -(-P // spod.participants_chunk) * -(-D // spod.dim_chunk)
+        want = torch.zeros(D, dtype=torch.int64, device=dev)
+        for p0 in range(0, P, chunk):
+            want += prov(p0, min(p0 + chunk, P), 0, D).sum(0)
+        _check(np.array_equal(sout, (want % p).cpu().numpy()),
+               "multihost streamed: resumed round != column sum mod p")
+        _check(spod.last_resumed and calls["n"] < tiles,
+               f"multihost streamed: resumed {spod.last_resumed}, fed "
+               f"{calls['n']} of {tiles} blocks")
+        _check(not glob.glob(ck + ".r0of1.*"),
+               "multihost streamed: snapshots left after completion")
+        _check(not on_card or k1_resumed == 8 * calls["n"],
+               f"multihost streamed: K1 launched {k1_resumed} times for "
+               f"{calls['n']} blocks")
+        print(f"  multihost streamed: {tiles} tiles, stopped after "
+              f"{stop_after}, resumed with {calls['n']} blocks, exact, K1 "
+              f"{k1_resumed}, {resume_s:.3f} s; K1 {k1_total} launches in "
+              "the phase")
+        # K1 at the last shard of the resumed round's first tile
+        Pc_loc, d_loc = spod.participants_chunk // 4, spod.dim_chunk // 2
+        pi, di = 3, 1
+        x = spod._field.to_residues(prov(pi * Pc_loc, (pi + 1) * Pc_loc,
+                                         di * d_loc, (di + 1) * d_loc))
+        k1_err = _k1_shard_hold(
+            "multihost streamed shard (3, 1) of tile 0", dev, scheme, True,
+            x, simpod._tile_seed(simpod._tile_seed(21, 0, 0), pi, di))
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {"stage": "multihost", "backend": backend, "world_size": 1,
+            "participants": P, "dim": D, "exact": True,
+            "first_round_s": first_s, "round_ms": round_ms,
+            "k1_launches_round": k1_round,
+            "streamed_tiles": tiles, "resumed_blocks": calls["n"],
+            "k1_launches_resumed": k1_resumed,
+            "k1_launches_phase": k1_total, "k1_shard_max_abs_err": k1_err,
+            "resume_s": resume_s}
 
 
 def _k4_reset():
@@ -1751,6 +2110,31 @@ def main() -> int:
     print(json.dumps(rec17s), flush=True)
     print(f"phase 17: {time.perf_counter() - t17:.1f} s")
 
+    # -- 18. the pod round at the flagship width ---------------------------
+    print(f"pod round: SimulatedPod, P={P_MAIN} x d={D_MAIN}, 1x1 and "
+          f"virtual 4x2 meshes ({smi}):")
+    t18 = time.perf_counter()
+    rec18 = pod_phase(dev)
+    rec18["phase_s"] = time.perf_counter() - t18
+    print(json.dumps(rec18), flush=True)
+
+    # -- 19. run_devscale at the model-scale rung --------------------------
+    print(f"devscale: dim={DEVSCALE_DIM}, P=8, virtual 4x2 mesh, full "
+          f"masks, K1 ({smi}):")
+    t19 = time.perf_counter()
+    rec19 = devscale_phase(dev)
+    rec19["phase_s"] = time.perf_counter() - t19
+    print(json.dumps(rec19), flush=True)
+
+    # -- 20. multihost at world size 1 over NCCL ---------------------------
+    print(f"multihost: world size 1, P={P_MAIN} x d={D_MAIN} ({smi}):")
+    t20 = time.perf_counter()
+    rec20 = multihost_phase(dev)
+    rec20["phase_s"] = time.perf_counter() - t20
+    print(json.dumps(rec20), flush=True)
+    print(f"phases 18-20: {time.perf_counter() - t18:.1f} s")
+    k3_launches["pod_round"] = sum(rec18["k3_launches"].values())
+
     # -- 8. the record ------------------------------------------------------
     print(smi)
     print(json.dumps({"kernels": [{
@@ -1761,7 +2145,17 @@ def main() -> int:
         "launches": main_launches,
         "launches_streamed": sum(rec15["k1_launches"].values()),
         "launches_bench": rec17["k1_launches"],
-        "max_abs_err": max_err["K1"],
+        "launches_pod": rec18["k1_launches"],
+        "launches_devscale": rec19["k1_launches"],
+        "launches_multihost": rec20["k1_launches_round"]
+        + rec20["k1_launches_resumed"],
+        "launches_by_phase": {
+            "pod_round": rec18["k1_launches_phase"],
+            "devscale": rec19["k1_launches_phase"],
+            "multihost": rec20["k1_launches_phase"]},
+        "max_abs_err": max(max_err["K1"], rec18["k1_shard_max_abs_err"],
+                           rec19["k1_shard_max_abs_err"],
+                           rec20["k1_shard_max_abs_err"]),
         "ms": k1_ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
@@ -1791,7 +2185,8 @@ def main() -> int:
         "launches_by_phase": k3_launches,
         "max_abs_err": max(k3_rec["max_abs_err"],
                            rec14["k3_window_max_abs_err"],
-                           rec15["k3_window_max_abs_err"]),
+                           rec15["k3_window_max_abs_err"],
+                           rec18["k3_window_max_abs_err"]),
         "ms": k3_rec["ms"],
         "plain_ms": k3_rec["plain_ms"],
         "bound_ms": k3_rec["bound_ms"],

@@ -1,15 +1,29 @@
-"""Single-device execution of the aggregation round: the one-shot round
-(``single_chip_round``) and the streamed round for workloads larger than
-device memory (``StreamingAggregator``), with the device-tile landing and
-clerk fold (``mesh.devscale``)."""
+"""Execution of the aggregation round on devices: one device
+(``single_chip_round``, ``StreamingAggregator``), a ``('p', 'd')`` mesh of
+devices in one process (``SimulatedPod``, ``StreamedPod``,
+``ModelScaleRound``), and several processes over ``torch.distributed``
+(``multihost``), with the device-tile landing and clerk fold
+(``mesh.devscale``)."""
 
+from . import multihost
 from .devscale import (
     DeviceTileCombiner,
     DeviceTileSink,
+    ModelScaleRound,
+    bytes_per_dim_column,
     stream_schedule,
+    watermark_dim_tile,
 )
-from .simpod import single_chip_round
+from .simpod import (
+    Mesh,
+    SimulatedPod,
+    default_mesh_shape,
+    make_mesh,
+    make_multislice_mesh,
+    single_chip_round,
+)
 from .streaming import (
+    StreamedPod,
     StreamingAggregator,
     array_block_provider,
     synthetic_block_provider,

@@ -1,39 +1,60 @@
-"""The aggregation round on one device — the single-device part of
+"""The aggregation round on a device mesh: counterpart of
 ``sda_tpu/mesh/simpod.py``.
 
-One round is mask -> share -> clerk combine -> reconstruct -> unmask, with
-the whole clerk committee resident on one device. The stages below are
-plain torch on int64 residues (the Solinas or generic lane of
-``fields.ops.FieldOps``), but for ChaCha seed masks, which K3 expands
-(``fields.chacha_device``) at each tile's offset in every participant's
-stream; ``fields.fused_round.single_chip_round_pallas`` runs the round with
-mask, share and combine fused into one CUDA kernel (K1), and
-``_pallas_stage`` is that kernel as a stage of the streamed driver
-(``mesh.streaming``). The mesh modes (``SimulatedPod`` and friends) come
-with the multi-device slice.
+One round is mask -> share -> clerk combine -> reconstruct -> unmask. The
+stages below are plain torch on int64 residues (the Solinas or generic lane
+of ``fields.ops.FieldOps``), but for ChaCha seed masks, which K3 expands
+(``fields.chacha_device``) at each shard's offset in every participant's
+stream; with ``use_pallas=True`` a shard's mask, share and combine run on
+K1, the fused CUDA kernel (``_pallas_stage``, ``fields.fused_round``).
 
-Randomness: torch has no ``fold_in``. Per-tile randomness is keyed by
-``_tile_seed`` (a hash of the round seed and the tile's indices) and the
+``single_chip_round`` keeps the whole clerk committee on one device.
+``SimulatedPod`` runs the round over a ``('p', 'd')`` mesh of devices in
+ONE process, as the reference's single-controller ``shard_map`` does:
+
+- ``p`` -- participant shards; the clerk committee also lives along this
+  axis (clerk c's combined row lands on shard c // (n / p_shards));
+- ``d`` -- vector-dimension shards.
+
+Each shard ``(pi, di)`` masks, shares and folds its local [P/p, d/d']
+block on its device (``_local_round``), then the reference's collectives
+become explicit tensor moves between the shards' devices
+(``_ShardComm``): ``psum_scatter`` over ``p`` sums one ``d`` column's
+``p`` partials, canonicalizes and places clerk block c on device (c, di);
+``all_gather`` concatenates the blocks; the mask ``psum`` is a sum plus a
+canonicalize. ``mesh.multihost`` swaps in ``torch.distributed``
+collectives across processes. A device may hold several shards (a mesh
+of ``[cuda:0] * 8`` is the port's counterpart of XLA's virtual host
+devices).
+
+Randomness: torch has no ``fold_in``. Per-shard and per-tile randomness is
+keyed by ``_tile_seed`` (a hash of the round seed and the indices) and the
 ChaCha seed words of participant i by Philox4x32-10 under the round seed
 at counter (i, word pair, ``_SEED_TAG``): both are pure functions of the
-round seed and the indices, as the reference's keys are of its round key.
-The bits differ from threefry's; masks cancel within the round, so the
+round seed and the indices, as the reference's keys are of its round key,
+so a participant's ChaCha seed does not depend on the mesh's shape. The
+bits differ from threefry's; masks cancel within the round, so the
 aggregate is exact either way, and parity tests feed both packages the
-same seed words.
+same inputs and hold both to the exact sum.
 """
 
 from __future__ import annotations
 
+import collections
 import hashlib
 import math
+import secrets
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..device import resolve_device
 from ..fields import (chacha_device, fastfield, fused_round, modular,
                       numtheory, sharing)
 from ..fields.ops import FieldOps
+from ..obs import devprof
+from ..utils import timed_phase
 from ..protocol import (
     AdditiveSharing,
     BasicShamirSharing,
@@ -73,6 +94,20 @@ def _check_masking_supported(masking) -> None:
     if not isinstance(masking, (NoMasking, FullMasking, ChaChaMasking)):
         raise ValueError(
             f"unsupported masking scheme {type(masking).__name__}"
+        )
+
+
+def _check_collective_headroom(field: FieldOps, p_shards: int) -> None:
+    """The clerk scatter and the mask sum add ``p_shards`` canonical
+    residues before the next canonicalize; the generic lane cannot chunk
+    inside a collective, so the bound must hold up front (the Solinas
+    lane's bound is enforced by FieldOps.create falling back to the
+    generic lane)."""
+    if field.sp is None and p_shards * (field.m - 1) >= (1 << 63):
+        raise ValueError(
+            f"modulus {field.m} too large for {p_shards}-way participant "
+            f"shards: cross-shard sums would overflow int64 — use fewer "
+            f"p shards or a smaller modulus"
         )
 
 
@@ -263,6 +298,53 @@ def _pallas_stage(scheme, f: FieldOps, M_host, masking, x, seed: int, *,
     return shares, sharing.unbatch_columns(mask_tot, d_loc)
 
 
+def _fold_stage(scheme, f: FieldOps, M_host, masking, pallas: bool, x,
+                seed: int, *, round_seed=None, pid_base: int = 0,
+                d_block0: int = 0):
+    """[S, d_loc] canonical residues -> (participant-summed shares [n, B],
+    mask sum [d_loc] | None), keyed by ``seed``: K1 when ``pallas``, else
+    the plain mask and share stages drawing from a generator on ``x``'s
+    device seeded with ``seed``. ``pid_base`` and ``d_block0`` locate the
+    block in the global ChaCha streams, so every tiling of a round sees
+    the same masks."""
+    if pallas:
+        return _pallas_stage(scheme, f, M_host, masking, x, seed,
+                             round_seed=round_seed, pid_base=pid_base,
+                             d_block0=d_block0)
+    generator = torch.Generator(device=x.device)
+    generator.manual_seed(seed)
+    masked, mask_sum = _mask_stage(masking, f, x, generator,
+                                   round_seed=round_seed, pid_base=pid_base,
+                                   d_block0=d_block0)
+    # share + participant-combine fused via linearity (_share_sum_stage):
+    # no [S, n, B] tensor
+    return _share_sum_stage(scheme, f, M_host, masked, generator), mask_sum
+
+
+def _scan_combine(f: FieldOps, scheme, masking, M_host, x, seed: int,
+                  round_seed, pid0: int, dblk0: int, chunk: int):
+    """[P, d] canonical residues -> (acc_shares [n, B], acc_mask [d] | None).
+
+    Folds participants in blocks of ``chunk`` rows: the live share
+    randomness is [chunk, t, B] instead of [P, t, B]. Block i draws from a
+    generator seeded ``_tile_seed(seed, i)``; its ChaCha masks are those of
+    global participants ``pid0 + i * chunk ..``. The ragged last block
+    keeps its rows (eager torch compiles no shapes, so it needs no zero
+    padding)."""
+    P = x.shape[0]
+    chunk = max(1, min(int(chunk), P))
+    acc_s = acc_m = None
+    for i, r0 in enumerate(range(0, P, chunk)):
+        shares, mask_sum = _fold_stage(
+            scheme, f, M_host, masking, False, x[r0:r0 + chunk],
+            _tile_seed(seed, i), round_seed=round_seed, pid_base=pid0 + r0,
+            d_block0=dblk0)
+        acc_s = shares if acc_s is None else f.add(acc_s, shares)
+        if mask_sum is not None:
+            acc_m = mask_sum if acc_m is None else f.add(acc_m, mask_sum)
+    return acc_s, acc_m
+
+
 def _normalize_survivors(scheme, surviving_clerks) -> Optional[Tuple[int, ...]]:
     """Validate a clerk-dropout quorum for the streamed finale (reference
     semantics crypto.rs:146-153): the finale reconstructs from clerk ROWS,
@@ -367,3 +449,327 @@ def single_chip_round(
             grain, dim_tile)(inputs, generator)
 
     return round_fn
+
+
+# ---------------------------------------------------------------------------
+# The mesh: a [p, d] grid of devices in one process
+
+class Mesh:
+    """A ``[p, d]`` grid of ``torch.device`` under the axis names
+    ``('p', 'd')``: the port's counterpart of ``jax.sharding.Mesh``.
+    ``devices`` is a numpy object array, so ``mesh.devices.shape`` reads as
+    in JAX. A device may hold several shards; each runs its own local
+    round there (the counterpart of XLA's virtual host devices)."""
+
+    axis_names = ("p", "d")
+
+    def __init__(self, devices):
+        grid = np.asarray(devices, dtype=object)
+        if grid.ndim != 2:
+            raise ValueError(f"mesh devices must be a [p, d] grid, got "
+                             f"shape {grid.shape}")
+        self.devices = grid
+
+    @property
+    def shape(self):
+        return dict(zip(self.axis_names, self.devices.shape))
+
+    def distinct_devices(self) -> Tuple[torch.device, ...]:
+        return tuple(dict.fromkeys(self.devices.reshape(-1)))
+
+    def shards_per_device(self) -> int:
+        """The most shards any one device of the mesh holds."""
+        return max(collections.Counter(self.devices.reshape(-1)).values())
+
+
+def _as_device(device) -> torch.device:
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def _device_list(devices=None):
+    """``devices`` (any sequence or grid of devices or their names) as a
+    flat list of ``torch.device``; None means every CUDA device, and raises
+    without CUDA (a CPU mesh is asked for by name: ``["cpu"] * 8``)."""
+    if devices is None:
+        resolve_device(None)
+        return [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+    return [_as_device(d) for d in np.asarray(devices, dtype=object)
+            .reshape(-1)]
+
+
+def _grid(devs, rows: int, cols: int) -> Mesh:
+    grid = np.empty(rows * cols, dtype=object)
+    for i, dev in enumerate(devs[:rows * cols]):
+        grid[i] = dev
+    return Mesh(grid.reshape(rows, cols))
+
+
+def make_mesh(p_shards: int, d_shards: int, devices=None) -> Mesh:
+    devs = _device_list(devices)
+    n = p_shards * d_shards
+    if len(devs) < n:
+        raise ValueError(f"need {n} devices, have {len(devs)}")
+    return _grid(devs, p_shards, d_shards)
+
+
+def default_mesh_shape(n_devices: int, share_count: int) -> Tuple[int, int]:
+    """Largest p axis that divides both the device count and the committee."""
+    p_shards = math.gcd(n_devices, share_count)
+    return p_shards, n_devices // p_shards
+
+
+def make_multislice_mesh(
+    n_slices: int, p_per_slice: int, d_shards: int, devices=None
+) -> Mesh:
+    """A ('p', 'd') mesh whose participant axis spans multiple slices.
+
+    The reference's layout rule: the ``d`` axis stays *inside* a slice, as
+    the minor axis of each slice's contiguous device block, and the
+    participant axis is slice-major, so only the fold over ``p`` crosses a
+    slice boundary. Device order: ``devices`` in blocks of ``p_per_slice *
+    d_shards`` a slice. ``mesh.multihost`` gives each process one slice:
+    the ``p`` rows ``[rank * p_per_slice, (rank + 1) * p_per_slice)``. The
+    returned mesh has plain ('p', 'd') axes, so every pod code path works
+    unchanged on it.
+    """
+    devs = _device_list(devices)
+    n = n_slices * p_per_slice * d_shards
+    if len(devs) < n:
+        raise ValueError(f"need {n} devices, have {len(devs)}")
+    return _grid(devs, n_slices * p_per_slice, d_shards)
+
+
+def _sync(devices) -> None:
+    for dev in devices:
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+
+def _sum_on(device, parts):
+    """The int64 sum of ``parts`` on ``device`` (no canonicalize)."""
+    total = parts[0].to(device)
+    for part in parts[1:]:
+        total = total + part.to(device)
+    return total
+
+
+class _ShardComm:
+    """The pod's collectives among the shards of one process, as explicit
+    tensor moves between the shards' devices (``multihost._ProcessComm``
+    is the cross-process counterpart). ``p_rows``: the ``p`` rows whose
+    shards this process runs (all of them here)."""
+
+    def __init__(self, mesh: Mesh):
+        self.mesh = mesh
+        self.p_rows = range(mesh.devices.shape[0])
+
+    def home(self, di: int) -> torch.device:
+        """Where column ``di``'s gathered rows and reveal live."""
+        return self.mesh.devices[self.p_rows[0], di]
+
+    def combine(self, f: FieldOps, sums, masks):
+        """``sums[j][di]``: shard ``(p_rows[j], di)``'s [n, B_loc]
+        participant-summed shares; ``masks[j][di]`` its [d_loc] mask sum
+        (``masks`` None without masking). -> (per ``d`` column: the
+        gathered [n, B_loc] clerk rows, the [d_loc] mask total or None),
+        both on ``home(di)``."""
+        p_shards, d_shards = self.mesh.devices.shape
+        gathered, totals = [], []
+        for di in range(d_shards):
+            parts = [row[di] for row in sums]
+            blk = parts[0].shape[0] // p_shards
+            # psum_scatter: clerk block c of the p partials' sum, summed
+            # and canonicalized on shard (c, di)
+            blocks = [f.canon(_sum_on(self.mesh.devices[c, di],
+                                      [x[c * blk:(c + 1) * blk]
+                                       for x in parts]))
+                      for c in range(p_shards)]
+            # all_gather: the recipient's view of every clerk row
+            home = self.home(di)
+            gathered.append(torch.cat([b.to(home) for b in blocks]))
+            totals.append(None if masks is None else f.canon(
+                _sum_on(home, [row[di] for row in masks])))
+        return gathered, totals
+
+
+def _reveal(scheme, f: FieldOps, L_host, survivors, gathered, mask_total,
+            d_loc: int):
+    """Gathered [n, B] clerk rows (and the [d_loc] mask total) -> [d_loc]
+    int64 aggregate. A quorum reveal reads the surviving rows of the
+    GATHERED clerk axis."""
+    if survivors is not None:
+        gathered = gathered[list(survivors)]
+    total = _reconstruct_stage(scheme, f, L_host, gathered, d_loc)
+    if mask_total is None:
+        return f.to_int64(total)
+    return f.to_int64(f.sub(total, mask_total))
+
+
+def _as_inputs(inputs) -> torch.Tensor:
+    """[P, d] integers as a tensor (numpy arrays and lists by value)."""
+    if isinstance(inputs, torch.Tensor):
+        return inputs
+    return torch.from_numpy(np.ascontiguousarray(np.asarray(inputs)))
+
+
+def _pod_mesh(mesh, scheme) -> Mesh:
+    """The default mesh over the CUDA devices, and the committee check."""
+    if mesh is None:
+        p_shards, d_shards = default_mesh_shape(
+            len(_device_list(None)), scheme.output_size)
+        mesh = make_mesh(p_shards, d_shards)
+    p_shards = mesh.devices.shape[0]
+    if scheme.output_size % p_shards:
+        raise ValueError(
+            f"committee size {scheme.output_size} must be divisible "
+            f"by the p axis ({p_shards})"
+        )
+    return mesh
+
+
+class SimulatedPod:
+    """One secure-aggregation round over a ``('p', 'd')`` mesh.
+
+    Committee size must be divisible by the ``p`` axis; participant and
+    dimension counts are auto-padded to the mesh/scheme grain (zero rows
+    and components aggregate as zero; padding is stripped from the
+    output). ``mesh=None`` spans every CUDA device. ``use_pallas=True``
+    runs each shard's mask + share + combine on K1 (one launch a shard);
+    otherwise ``_scan_combine`` folds ``scan_chunk`` participants at a
+    time in plain torch. ``surviving_clerks``: reveal from that quorum's
+    rows only (a lost device loses its clerk rows, never the mask sums).
+    """
+
+    def __init__(
+        self,
+        sharing_scheme: LinearSecretSharingScheme,
+        masking_scheme: Optional[LinearMaskingScheme] = None,
+        mesh: Optional[Mesh] = None,
+        scan_chunk: int = 8,
+        use_pallas: bool = False,
+        surviving_clerks=None,
+    ):
+        self.scan_chunk = int(scan_chunk)
+        self.scheme = sharing_scheme
+        self.modulus = _scheme_modulus(sharing_scheme)
+        self.masking = masking_scheme or NoMasking()
+        _check_masking_supported(self.masking)
+        _check_mask_modulus(self.masking, sharing_scheme)
+        self.mesh = _pod_mesh(mesh, sharing_scheme)
+        p_shards = self.mesh.devices.shape[0]
+        self.surviving_clerks = _normalize_survivors(
+            sharing_scheme, surviving_clerks
+        )
+        self._M_host, self._L_host = _build_matrices(
+            sharing_scheme, self.surviving_clerks
+        )
+        # cross-shard share/mask sums ride collectives between canonicalizes
+        self._field = FieldOps.create(self.modulus, cross_terms=p_shards)
+        _check_collective_headroom(self._field, p_shards)
+        self.pallas_active = _resolve_pallas(
+            sharing_scheme, self.masking, self._field, use_pallas, "local"
+        )
+        # one registry entry for every round, whatever its shape
+        self._round = devprof.instrument("mesh.simpod.round", self._run)
+
+    @property
+    def _sp(self):
+        """Solinas parameters when the Solinas lane is active, else None."""
+        return self._field.sp
+
+    # ------------------------------------------------------------------
+    def _local_round(self, x, seed: int, round_seed: int, pid_base: int,
+                     d_block0: int):
+        """One shard's [P_loc, d_loc] residues -> ([n, B_loc] shares,
+        [d_loc] mask sum | None), its randomness keyed by ``seed``."""
+        f = self._field
+        if self.pallas_active:
+            # fused mask + share + combine, one K1 launch
+            return _fold_stage(
+                self.scheme, f, self._M_host, self.masking, True, x, seed,
+                round_seed=round_seed, pid_base=pid_base, d_block0=d_block0)
+        return _scan_combine(
+            f, self.scheme, self.masking, self._M_host, x, seed, round_seed,
+            pid_base, d_block0, self.scan_chunk)
+
+    def _run(self, inputs, round_seed: int, comm):
+        """The padded participant rows of ``comm.p_rows`` ([rows, d_pad])
+        -> the [d_pad] int64 aggregate on ``comm.home(0)``."""
+        f = self._field
+        p_shards, d_shards = self.mesh.devices.shape
+        rows, d_pad = inputs.shape
+        P_loc, d_loc = rows // len(comm.p_rows), d_pad // d_shards
+        sums, masks = [], []
+        for j, pi in enumerate(comm.p_rows):
+            srow, mrow = [], []
+            for di in range(d_shards):
+                block = inputs[j * P_loc:(j + 1) * P_loc,
+                               di * d_loc:(di + 1) * d_loc]
+                x = f.to_residues(block.to(self.mesh.devices[pi, di]))
+                # per-shard randomness; ChaCha seeds key on global ids
+                s, m = self._local_round(
+                    x, _tile_seed(round_seed, pi, di), round_seed,
+                    pi * P_loc, di * (d_loc // 8))
+                srow.append(s)
+                mrow.append(m)
+            sums.append(srow)
+            masks.append(mrow)
+        masked = not isinstance(self.masking, NoMasking)
+        gathered, totals = comm.combine(f, sums, masks if masked else None)
+        home = comm.home(0)
+        return torch.cat([
+            _reveal(self.scheme, f, self._L_host, self.surviving_clerks,
+                    gathered[di], totals[di], d_loc).to(home)
+            for di in range(d_shards)])
+
+    def _check_shape(self, P_total: int, d_total: int) -> None:
+        p_shards, d_shards = self.mesh.devices.shape
+        if P_total % p_shards:
+            raise ValueError(f"participants {P_total} not divisible by p "
+                             f"axis {p_shards}")
+        grain = _dim_grain(self.scheme, self.masking) * d_shards
+        if d_total % grain:
+            raise ValueError(
+                f"dimension {d_total} must be divisible by the scheme/mesh "
+                f"grain {grain}"
+            )
+
+    def padded_shape(self, P_total: int, d_total: int) -> Tuple[int, int]:
+        p_shards, d_shards = self.mesh.devices.shape
+        grain = _dim_grain(self.scheme, self.masking) * d_shards
+        return (
+            -(-P_total // p_shards) * p_shards,
+            -(-d_total // grain) * grain,
+        )
+
+    def aggregate(self, inputs, seed: Optional[int] = None) -> torch.Tensor:
+        """[P, d] participant inputs -> [d] int64 aggregate (one full
+        round) on the mesh's first device. ``seed``: the round seed (an
+        int; None draws a fresh one)."""
+        inputs = _as_inputs(inputs)
+        if seed is None:
+            seed = secrets.randbits(62)
+        P_total, d_total = inputs.shape
+        P_pad, d_pad = self.padded_shape(P_total, d_total)
+        if (P_pad, d_pad) != (P_total, d_total):
+            # zero participants/components aggregate as zero (masks on the
+            # padding cancel like any other mask); stripped below
+            padded = inputs.new_zeros((P_pad, d_pad))
+            padded[:P_total, :d_total] = inputs
+            inputs = padded
+        fn = self.aggregate_fn(P_pad, d_pad)
+        with timed_phase("mesh.round"):
+            out = fn(inputs, seed)
+            _sync(self.mesh.distinct_devices())
+        return out[:d_total]
+
+    def aggregate_fn(self, P_total: int, d_total: int):
+        """The raw round ``fn(inputs, seed)`` for shapes already on the
+        mesh/scheme grain (benchmarks and shape checks)."""
+        self._check_shape(P_total, d_total)
+        comm = _ShardComm(self.mesh)
+        return lambda inputs, seed: self._round(inputs, seed, comm)

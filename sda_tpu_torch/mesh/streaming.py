@@ -1,5 +1,5 @@
 """Streamed secure-aggregation rounds for workloads larger than device
-memory — the single-device part of ``sda_tpu/mesh/streaming.py``.
+memory: counterpart of ``sda_tpu/mesh/streaming.py``.
 
 The flagship configs (10k participants x 10M-dim vectors) cannot
 materialize [P, d] on one device, let alone the [P, n, B] share tensor.
@@ -12,12 +12,16 @@ independent of P. Per dim tile, reconstruction and unmasking run once at
 the end.
 
 ``StreamingAggregator`` drives one device: plain torch stages, or K1 (the
-fused kernel, ``use_pallas=True``) through ``simpod._pallas_stage``, with
-ChaCha seed masks expanded by K3 at each tile's offset. The multi-device
-``StreamedPod`` comes with the multi-device slice.
+fused kernel, ``use_pallas=True``) through ``simpod._fold_stage``, with
+ChaCha seed masks expanded by K3 at each tile's offset. ``StreamedPod``
+drives a ``('p', 'd')`` mesh: every tile step is collective-free (each
+shard folds its piece of the block into its own accumulators) and the
+clerk scatter + gather + reconstruct run once a dim tile; the multihost
+driver (``mesh.multihost``) runs the same tile loop across processes.
 
 The accumulate step and the per-tile finale run through
-``obs.devprof.instrument`` as ``stream.step`` and ``stream.finale`` (the
+``obs.devprof.instrument`` as ``stream.step`` and ``stream.finale``
+(``stream.pod.step`` and ``stream.pod.finale`` for the pod: the
 reference's names), with their costs counted from the block shapes.
 
 Randomness: a tile's Full masks, share rows and K1 key come from
@@ -29,6 +33,7 @@ bit-identical to an uninterrupted one.
 
 from __future__ import annotations
 
+import functools
 import secrets
 from typing import Callable, Optional
 
@@ -42,17 +47,21 @@ from ..obs import devprof
 from ..protocol import ChaChaMasking, FullMasking, LinearMaskingScheme, NoMasking
 from ..utils import timed_phase
 from .simpod import (
+    Mesh,
+    _ShardComm,
     _build_matrices,
+    _check_collective_headroom,
     _check_mask_modulus,
     _check_masking_supported,
     _dim_grain,
-    _mask_stage,
+    _fold_stage,
     _normalize_survivors,
-    _pallas_stage,
+    _pod_mesh,
     _reconstruct_stage,
     _resolve_pallas,
+    _reveal,
     _scheme_modulus,
-    _share_sum_stage,
+    _sync,
     _tile_seed,
 )
 
@@ -249,27 +258,31 @@ def _checkpoint_load(path, fingerprint):
 
 
 class _FileCheckpointer:
-    """Snapshot/resume: one atomic npz at ``path``, fingerprint-guarded,
-    removed on completion; loaded accumulators go back to ``device``."""
+    """Single-process snapshot/resume: one atomic npz at ``path``,
+    fingerprint-guarded, removed on completion. ``host_accs(acc_shares,
+    acc_mask)`` brings the accumulators to host arrays and
+    ``restore_accs`` re-places loaded ones (on the device for a single
+    device; onto the shards' devices for a pod)."""
 
-    def __init__(self, path, fingerprint, device):
+    def __init__(self, path, fingerprint, host_accs, restore_accs):
         self.path = path
         self.fingerprint = fingerprint
-        self.device = device
+        self.host_accs = host_accs
+        self.restore_accs = restore_accs
 
     def load(self):
         return _checkpoint_load(self.path, self.fingerprint)
 
     def restore(self, resume):
-        return (torch.from_numpy(resume["acc_shares"]).to(self.device),
-                torch.from_numpy(resume["acc_mask"]).to(self.device))
+        return self.restore_accs(resume["acc_shares"], resume["acc_mask"])
 
     def save(self, out, done_dims, di, pi, acc_shares, acc_mask):
+        acc_shares, acc_mask = self.host_accs(acc_shares, acc_mask)
         _atomic_npz(
             self.path,
             **_snapshot_header(self.fingerprint, out, done_dims, di, pi),
-            acc_shares=_host(acc_shares),
-            acc_mask=_host(acc_mask),
+            acc_shares=acc_shares,
+            acc_mask=acc_mask,
         )
 
     def finish(self):
@@ -285,50 +298,71 @@ def _host(x) -> np.ndarray:
     return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
-def _sync(device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+def _block_tensor(raw, rows: int, d_size: int, device) -> torch.Tensor:
+    """A provider's block as int64 on ``device``, zero-padded to
+    [rows, d_size] (zero rows and columns aggregate as zero). A host block
+    is copied at its own width (uint32 blocks at half the bytes) and
+    widened on the device."""
+    if not isinstance(raw, torch.Tensor):
+        raw = torch.from_numpy(np.ascontiguousarray(np.asarray(raw)))
+    block = raw.to(device).to(torch.int64)
+    if tuple(block.shape) != (rows, d_size):
+        padded = block.new_zeros((rows, d_size))
+        padded[:block.shape[0], :block.shape[1]] = block
+        block = padded
+    return block
+
+
+def _world_size() -> int:
+    import torch.distributed as dist
+
+    return dist.get_world_size() if dist.is_initialized() else 1
 
 
 def _drive_stream(owner, participants, dimension, seed, *, make_block,
-                  make_accs, checkpoint_path=None,
-                  checkpoint_every_chunks=16):
+                  make_accs, step, final, checkpoint_path=None,
+                  checkpoint_every_chunks=16, checkpointer=None):
     """THE streamed tile loop: one definition of the tile/seed derivation
-    and of the checkpoint/resume state machine. d-tiles outer, participant
-    tiles inner, one accumulate step per tile, one finale per d-tile;
-    snapshots every ``checkpoint_every_chunks`` chunks (0 = boundaries
-    only) and at every d-tile boundary, removed on completion. Mask windows
-    and share randomness depend on the tile indexing here — any change
-    breaks resume bit-identity.
+    and of the checkpoint/resume state machine, shared by
+    StreamingAggregator, StreamedPod and (via StreamedPod.drive_tiles) the
+    multihost driver. d-tiles outer, participant tiles inner, one
+    accumulate ``step`` per tile, one ``final`` per d-tile; snapshots every
+    ``checkpoint_every_chunks`` chunks (0 = boundaries only) and at every
+    d-tile boundary, removed on completion. Mask windows and share
+    randomness depend on the tile indexing here — any change breaks
+    resume bit-identity.
     """
     if seed is None:
         seed = secrets.randbits(62)
     pc, dc = owner.participants_chunk, owner.dim_chunk
     out = np.empty(dimension, dtype=np.int64)
     resume = None
-    checkpointer = None
-    if checkpoint_path is not None:
+    if checkpoint_path is not None and checkpointer is None:
+        if _world_size() > 1:
+            raise ValueError(
+                "checkpoint_path is the single-process snapshot; for "
+                "multihost rounds pass checkpoint_path to "
+                "multihost.streamed_aggregate_process_local, which builds "
+                "the per-process coordinated checkpointer"
+            )
         checkpointer = _FileCheckpointer(
             checkpoint_path,
             owner._checkpoint_fingerprint(participants, dimension, seed),
-            owner.device,
+            owner._host_accs, owner._restore_accs,
         )
+    if checkpointer is not None:
         resume = checkpointer.load()
         if resume is not None:
             out[: int(resume["done_dims"])] = resume["out"]
     # ground truth for callers recording resumed runs (e.g. benches)
     owner.last_resumed = resume is not None
-    step = devprof.instrument("stream.step", owner._step,
-                              cost=owner._step_ops)
-    final = devprof.instrument("stream.finale", owner._final,
-                               cost=owner._final_ops)
     resume_di = int(resume["di"]) if resume is not None else -1
     resume_pi = int(resume["pi"]) if resume is not None else 0
     empty = np.zeros((0,), np.int64)
     for di, d0 in enumerate(range(0, dimension, dc)):
         d1 = min(d0 + dc, dimension)
         # the dim tail pads to the grain; the participant tail keeps its
-        # ragged row count
+        # ragged row count (a pod pads it to the chunk in make_block)
         d_size = -(-(d1 - d0) // owner._grain) * owner._grain
         if resume is not None and di < resume_di:
             continue  # completed tile: out prefix already restored
@@ -355,9 +389,10 @@ def _drive_stream(owner, participants, dimension, seed, *, make_block,
                     checkpointer.save(out, d0, di, pi + 1,
                                       acc_shares, acc_mask)
         # sync before the finale so stream.finale times the reconstruct
-        # alone, not the queued accumulate backlog
+        # (for pods: the clerk scatter, gather and reconstruct) alone, not
+        # the queued accumulate backlog
         with timed_phase("stream.steps_sync"):
-            _sync(owner.device)
+            _sync(owner._devices)
         with timed_phase("stream.finale"):
             out[d0:d1] = _host(final(acc_shares, acc_mask))[: d1 - d0]
         if checkpointer is not None:
@@ -369,7 +404,7 @@ def _drive_stream(owner, participants, dimension, seed, *, make_block,
 
 
 def _round_fingerprint(scheme, masking, participants, dimension, pc, dc,
-                       pallas, survivors, seed):
+                       pallas, survivors, seed, extra=None):
     """sha256 over everything that determines a streamed round's bytes."""
     import hashlib
 
@@ -385,6 +420,7 @@ def _round_fingerprint(scheme, masking, participants, dimension, pc, dc,
         "pallas": bool(pallas),
         "survivors": survivors,
         "seed": int(seed),
+        **(extra or {}),
     }
     return hashlib.sha256(canonical_json(payload)).hexdigest()
 
@@ -411,6 +447,7 @@ class StreamingAggregator:
         device=None,
     ):
         self.device = resolve_device(device)
+        self._devices = (self.device,)
         self.scheme = s = sharing_scheme
         self.modulus = _scheme_modulus(s)  # also validates the scheme type
         self.masking = masking_scheme or NoMasking()
@@ -435,27 +472,13 @@ class StreamingAggregator:
     def _step(self, block, tile_seed, round_seed, pid0, dblk0, acc_shares,
               acc_mask):
         """Fold one [rows, d_size] block into the accumulators."""
-        s, f = self.scheme, self._field
-        x = f.to_residues(block)
-        if self.pallas_active:
-            # fused mask + share + combine on K1, keyed by the tile's seed
-            shares, mask_sum = _pallas_stage(
-                s, f, self._M_host, self.masking, x, tile_seed,
-                round_seed=round_seed, pid_base=pid0, d_block0=dblk0,
-            )
-        else:
-            generator = torch.Generator(device=self.device)
-            generator.manual_seed(tile_seed)
-            # pid0/dblk0 locate this tile in the global stream so ChaCha
-            # seed masks expand the right window of each participant's
-            # stream regardless of tiling
-            masked, mask_sum = _mask_stage(
-                self.masking, f, x, generator, round_seed=round_seed,
-                pid_base=pid0, d_block0=dblk0,
-            )
-            # share + participant-combine fused via linearity
-            # (simpod._share_sum_stage): no [S, n, B] tensor
-            shares = _share_sum_stage(s, f, self._M_host, masked, generator)
+        f = self._field
+        # fused mask + share + combine on K1 when active, keyed by the
+        # tile's seed; pid0/dblk0 locate the tile in the ChaCha streams
+        shares, mask_sum = _fold_stage(
+            self.scheme, f, self._M_host, self.masking, self.pallas_active,
+            f.to_residues(block), tile_seed, round_seed=round_seed,
+            pid_base=pid0, d_block0=dblk0)
         acc_shares = f.add(acc_shares, shares)
         if mask_sum is not None:
             acc_mask = f.add(acc_mask, mask_sum)
@@ -524,6 +547,13 @@ class StreamingAggregator:
             self.surviving_clerks, seed,
         )
 
+    def _host_accs(self, acc_shares, acc_mask):
+        return _host(acc_shares), _host(acc_mask)
+
+    def _restore_accs(self, acc_shares, acc_mask):
+        return (torch.from_numpy(acc_shares).to(self.device),
+                torch.from_numpy(acc_mask).to(self.device))
+
     # -- driver ----------------------------------------------------------
     def aggregate_blocks(
         self, get_block: BlockProvider, participants: int, dimension: int,
@@ -544,17 +574,9 @@ class StreamingAggregator:
         s, dev = self.scheme, self.device
 
         def make_block(p0, p1, d0, d1, d_size):
-            raw = get_block(p0, p1, d0, d1)
-            if not isinstance(raw, torch.Tensor):
-                raw = torch.from_numpy(np.ascontiguousarray(
-                    np.asarray(raw).astype(np.int64, copy=False)))
-            block = raw.to(dev)
-            # zero columns sum to zero (a DeviceTileSink's tile may come
-            # padded already)
-            if block.shape[1] < d_size:
-                block = torch.cat([block, block.new_zeros(
-                    (block.shape[0], d_size - block.shape[1]))], dim=1)
-            return block
+            # zero columns sum to zero; the participant tail keeps its rows
+            return _block_tensor(get_block(p0, p1, d0, d1), p1 - p0, d_size,
+                                 dev)
 
         def make_accs(d_size):
             B = d_size // s.input_size
@@ -565,8 +587,230 @@ class StreamingAggregator:
         return _drive_stream(
             self, participants, dimension, seed,
             make_block=make_block, make_accs=make_accs,
+            step=devprof.instrument("stream.step", self._step,
+                                    cost=self._step_ops),
+            final=devprof.instrument("stream.finale", self._final,
+                                     cost=self._final_ops),
             checkpoint_path=checkpoint_path,
             checkpoint_every_chunks=checkpoint_every_chunks,
+        )
+
+    def aggregate(self, inputs, seed: Optional[int] = None) -> np.ndarray:
+        inputs = np.asarray(inputs)
+        return self.aggregate_blocks(
+            array_block_provider(inputs), inputs.shape[0], inputs.shape[1],
+            seed)
+
+
+class StreamedPod:
+    """Streamed rounds over a SimulatedPod mesh — the flagship-scale mode.
+
+    A host loop tiles (participants x dim); each tile step is
+    collective-free: every shard ``(pi, di)`` folds its [Pc/p, d_size/d']
+    block of the tile into its own [n, B_loc] share and [d_loc] mask
+    accumulators on its device; one clerk scatter + gather + reconstruct
+    (``_ShardComm``, or ``multihost._ProcessComm`` across processes) runs
+    per dim tile at the end, so collective traffic is independent of the
+    participant count. Covers the full scheme lattice (additive/packed x
+    none/full/chacha) via the simpod stages; ``use_pallas=True`` runs each
+    shard's step on K1 (one launch a shard a tile). Every block is padded
+    to ``participants_chunk`` rows. Peak device memory is one block plus
+    accumulators, independent of the participant count.
+    """
+
+    def __init__(
+        self,
+        sharing_scheme,
+        masking_scheme: Optional[LinearMaskingScheme] = None,
+        mesh: Optional[Mesh] = None,
+        participants_chunk: int = 64,
+        dim_chunk: int = 3 * (1 << 20),
+        use_pallas: bool = False,
+        surviving_clerks=None,
+    ):
+        self.scheme = s = sharing_scheme
+        self.modulus = _scheme_modulus(s)
+        self.masking = masking_scheme or NoMasking()
+        _check_masking_supported(self.masking)
+        _check_mask_modulus(self.masking, s)
+        self.mesh = _pod_mesh(mesh, s)
+        self._devices = self.mesh.distinct_devices()
+        p_shards, d_shards = self.mesh.devices.shape
+        grain = _dim_grain(s, self.masking) * d_shards
+        self._grain = grain
+        # round the tile sizes up to the mesh grain
+        self.participants_chunk = -(-int(participants_chunk) // p_shards) * p_shards
+        self.dim_chunk = -(-int(dim_chunk) // grain) * grain
+        self.surviving_clerks = _normalize_survivors(s, surviving_clerks)
+        self._M_host, self._L_host = _build_matrices(s, self.surviving_clerks)
+        self._field = FieldOps.create(self.modulus, cross_terms=p_shards)
+        _check_collective_headroom(self._field, p_shards)
+        self.pallas_active = _resolve_pallas(
+            s, self.masking, self._field, use_pallas, "streamed"
+        )
+
+    # -- the accumulators: [local p row][d column] grids of tensors --------
+    def _new_accs(self, d_size: int, comm):
+        n, d_shards = self.scheme.output_size, self.mesh.devices.shape[1]
+        d_loc = d_size // d_shards
+        B_loc = d_loc // self.scheme.input_size
+        devs = [[self.mesh.devices[pi, di] for di in range(d_shards)]
+                for pi in comm.p_rows]
+        return (
+            [[torch.zeros((n, B_loc), dtype=torch.int64, device=dev)
+              for dev in row] for row in devs],
+            [[torch.zeros(d_loc, dtype=torch.int64, device=dev)
+              for dev in row] for row in devs],
+        )
+
+    def _host_accs(self, acc_shares, acc_mask):
+        """The grids as the reference's global host arrays: shares
+        [p_shards * n, B], masks [p_shards, d_size] (a boundary snapshot's
+        empty arrays pass through)."""
+        if isinstance(acc_shares, np.ndarray):
+            return acc_shares, acc_mask
+        return (
+            torch.cat([torch.cat([t.cpu() for t in row], dim=1)
+                       for row in acc_shares]).numpy(),
+            torch.stack([torch.cat([t.cpu() for t in row])
+                         for row in acc_mask]).numpy(),
+        )
+
+    def _restore_accs(self, acc_shares, acc_mask):
+        """Re-place loaded global host accumulators onto the shards."""
+        n = self.scheme.output_size
+        p_shards, d_shards = self.mesh.devices.shape
+        B_loc = acc_shares.shape[1] // d_shards
+        d_loc = acc_mask.shape[1] // d_shards
+        devs = self.mesh.devices
+        return (
+            [[torch.from_numpy(np.ascontiguousarray(
+                acc_shares[pi * n:(pi + 1) * n,
+                           di * B_loc:(di + 1) * B_loc])).to(devs[pi, di])
+              for di in range(d_shards)] for pi in range(p_shards)],
+            [[torch.from_numpy(np.ascontiguousarray(
+                acc_mask[pi, di * d_loc:(di + 1) * d_loc])).to(devs[pi, di])
+              for di in range(d_shards)] for pi in range(p_shards)],
+        )
+
+    # -- the device pieces ------------------------------------------------
+    def _step(self, block, tile_seed, round_seed, p0, dblk0, acc_shares,
+              acc_mask, *, comm):
+        """Fold one tile into the accumulators: ``block`` holds the tile's
+        rows of ``comm.p_rows``, [rows, d_size]; each shard folds its own
+        [rows / len(p_rows), d_size / d'] piece, collective-free."""
+        f, s, masking = self._field, self.scheme, self.masking
+        d_shards = self.mesh.devices.shape[1]
+        Pc_loc = block.shape[0] // len(comm.p_rows)
+        d_loc = block.shape[1] // d_shards
+        for j, pi in enumerate(comm.p_rows):
+            for di in range(d_shards):
+                dev = self.mesh.devices[pi, di]
+                x = f.to_residues(block[j * Pc_loc:(j + 1) * Pc_loc,
+                                        di * d_loc:(di + 1) * d_loc].to(dev))
+                shares, mask_sum = _fold_stage(
+                    s, f, self._M_host, masking, self.pallas_active, x,
+                    _tile_seed(tile_seed, pi, di), round_seed=round_seed,
+                    pid_base=p0 + pi * Pc_loc,
+                    d_block0=dblk0 + di * (d_loc // 8))
+                acc_shares[j][di] = f.add(acc_shares[j][di], shares)
+                if mask_sum is not None:
+                    acc_mask[j][di] = f.add(acc_mask[j][di], mask_sum)
+        return acc_shares, acc_mask
+
+    def _final(self, acc_shares, acc_mask, *, comm):
+        """Clerk scatter + gather, reconstruct and unmask of one dim tile
+        -> [d_size] int64 on ``comm.home(0)``."""
+        f = self._field
+        masked = not isinstance(self.masking, NoMasking)
+        gathered, totals = comm.combine(f, acc_shares,
+                                        acc_mask if masked else None)
+        home = comm.home(0)
+        return torch.cat([
+            _reveal(self.scheme, f, self._L_host, self.surviving_clerks,
+                    gathered[di], totals[di], row.shape[0]).to(home)
+            for di, row in enumerate(acc_mask[0])])
+
+    # the same counted algorithm as the single-device step, over the tile
+    _step_ops = StreamingAggregator._step_ops
+
+    def _final_ops(self, acc_shares, acc_mask) -> int:
+        """Integer operations of one finale: the collectives' adds, the
+        reconstruction's multiply-adds (a share sum for additive sharing)
+        and the unmask."""
+        p_shards = self.mesh.devices.shape[0]
+        n = self.scheme.output_size
+        width = sum(t.shape[0] for t in acc_mask[0])
+        B = sum(t.shape[-1] for t in acc_shares[0])
+        ops = p_shards * (n * B + width) + width
+        if self._L_host is None:
+            return ops + n * B
+        k, r = self._L_host.shape
+        return ops + k * r * B
+
+    # -- checkpoint/resume -----------------------------------------------
+    def _checkpoint_fingerprint(self, participants, dimension, seed):
+        return _round_fingerprint(
+            self.scheme, self.masking, participants, dimension,
+            self.participants_chunk, self.dim_chunk, self.pallas_active,
+            self.surviving_clerks, seed,
+            extra={"mesh": list(self.mesh.devices.shape)},
+        )
+
+    # -- driver ----------------------------------------------------------
+    def aggregate_blocks(
+        self, get_block: BlockProvider, participants: int, dimension: int,
+        seed: Optional[int] = None, *, checkpoint_path: Optional[str] = None,
+        checkpoint_every_chunks: int = 16,
+    ) -> np.ndarray:
+        """Stream all blocks; returns the [dimension] aggregate (host array).
+
+        ``checkpoint_path``: the same atomic snapshot / bit-identical resume
+        contract as StreamingAggregator (single-process; the fingerprint
+        also pins the mesh shape). Loaded accumulators are re-placed onto
+        the shards' devices. Blocks land on the mesh's first device and
+        each shard's piece moves to its own.
+        """
+        comm = _ShardComm(self.mesh)
+        home = self.mesh.devices[0, 0]
+
+        def make_block(p0, p1, d0, d1, d_size):
+            return _block_tensor(get_block(p0, p1, d0, d1),
+                                 self.participants_chunk, d_size, home)
+
+        return self.drive_tiles(
+            participants, dimension, seed, make_block=make_block,
+            make_accs=lambda d_size: self._new_accs(d_size, comm),
+            comm=comm, checkpoint_path=checkpoint_path,
+            checkpoint_every_chunks=checkpoint_every_chunks,
+        )
+
+    def drive_tiles(
+        self, participants: int, dimension: int, seed, *, make_block,
+        make_accs, comm=None, checkpoint_path: Optional[str] = None,
+        checkpoint_every_chunks: int = 16, checkpointer=None,
+    ) -> np.ndarray:
+        """The tile loop shared by single-process streaming and the
+        multihost driver (mesh/multihost.py): ``make_block(p0, p1, d0, d1,
+        d_size)`` supplies each tile's rows of ``comm.p_rows`` as an int64
+        tensor; ``make_accs(d_size)`` the zeroed accumulator grids; ``comm``
+        the collectives (``_ShardComm`` when None). The tile/seed derivation
+        in ``_drive_stream`` is THE definition — mask windows and share
+        randomness depend on it."""
+        comm = comm if comm is not None else _ShardComm(self.mesh)
+        return _drive_stream(
+            self, participants, dimension, seed,
+            make_block=make_block, make_accs=make_accs,
+            step=devprof.instrument(
+                "stream.pod.step", functools.partial(self._step, comm=comm),
+                cost=self._step_ops),
+            final=devprof.instrument(
+                "stream.pod.finale",
+                functools.partial(self._final, comm=comm),
+                cost=self._final_ops),
+            checkpoint_path=checkpoint_path,
+            checkpoint_every_chunks=checkpoint_every_chunks,
+            checkpointer=checkpointer,
         )
 
     def aggregate(self, inputs, seed: Optional[int] = None) -> np.ndarray:

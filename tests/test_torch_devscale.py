@@ -1,28 +1,40 @@
-"""The single-device part of the port's devscale plane
-(``sda_tpu_torch.mesh.devscale``, ``sda_tpu_torch.obs.devprof``) against
+"""The port's devscale plane (``sda_tpu_torch.mesh.devscale``,
+``sda_tpu_torch.loadgen.devscale``, ``sda_tpu_torch.obs.devprof``) against
 the JAX package's: the stream schedule equals the reference's;
-``DeviceTileCombiner`` equals
-``mod_combine`` and the reference's combiner bit for bit; the watermark's
-overrides; the sink feeding the streamed round; and a protocol round whose
-clerks fold on device tiles (``SDA_CLERK_DEVICE_TILES=1``, on the CPU)
-reveals what the host fold reveals."""
+``DeviceTileCombiner`` equals ``mod_combine`` and the reference's combiner
+bit for bit; the watermark's overrides; the sink feeding the streamed
+round; a protocol round whose clerks fold on device tiles
+(``SDA_CLERK_DEVICE_TILES=1``, on the CPU) reveals what the host fold
+reveals; the watermark tile rule at 8-byte lanes (at budget 2W the
+reference's tile at W) with the per-device share; ``ModelScaleRound`` on
+both lanes, exact and equal to the reference's XLA lane; and
+``run_devscale``'s record at drill dims."""
 
 import numpy as np
 import pytest
 import torch
 
+from sda_tpu import mesh as ref_mesh
 from sda_tpu import protocol as ref_proto
 from sda_tpu.crypto.sharing import mod_combine as ref_mod_combine
+from sda_tpu.loadgen import devscale as ref_loadgen
 from sda_tpu.mesh import devscale as ref_devscale
 
 from sda_tpu_torch.crypto.sharing import mod_combine
-from sda_tpu_torch.fields import numtheory
+from sda_tpu_torch.fields import fused_round, numtheory
+from sda_tpu_torch.loadgen import DevScaleProfile, run_devscale
+from sda_tpu_torch.loadgen import devscale as loadgen
 from sda_tpu_torch.mesh import (
     DeviceTileCombiner,
     DeviceTileSink,
+    ModelScaleRound,
     StreamingAggregator,
+    bytes_per_dim_column,
+    make_mesh,
     stream_schedule,
     synthetic_block_provider32,
+    synthetic_device_block_provider32,
+    watermark_dim_tile,
 )
 from sda_tpu_torch.obs import devprof
 from sda_tpu_torch.protocol import (
@@ -37,6 +49,16 @@ from sda_tpu_torch.protocol import (
 from sda_tpu_torch.utils import metrics
 
 T, P29, W2, W3 = numtheory.generate_packed_params(3, 8, 28)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """These tests run many small tensor ops: with one intra-op thread
+    they do not spin against the suite's other workers for the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def fast_scheme():
@@ -294,3 +316,271 @@ def test_clerk_device_tiles_equal_the_host_fold(monkeypatch, sharing_kind):
     assert len(folds) == scheme.output_size  # one bundle a clerk
     assert metrics.counter_report("clerk.device_tiles.").get(
         "clerk.device_tiles.bundle") == scheme.output_size
+
+
+# -- the watermark tile rule -------------------------------------------------------
+
+#: the reference's test grid of the tile rule (tests/test_devscale.py):
+#: budgets, resident participants, mesh shapes, plus the dim clamp
+BUDGETS = (1, 1 << 20, 1 << 26, 1 << 34)
+CHUNKS = (8, 64)
+SHAPES = ((4, 2), (8, 1), (2, 4))
+
+
+@pytest.mark.parametrize("scheme", sorted(SCHEMES))
+@pytest.mark.parametrize("masking", sorted(MASKINGS))
+def test_bytes_per_dim_column_is_twice_the_reference(scheme, masking):
+    """The port's residues are int64: a column costs exactly twice the
+    reference's 4-byte-lane count."""
+    s = SCHEMES[scheme]
+    mask = MASKINGS[masking](_modulus(s))
+    for rows in (1, 2, 3, 8, 64):
+        assert bytes_per_dim_column(s, mask, rows) == \
+            2 * ref_devscale.bytes_per_dim_column(_ref(s), _ref(mask), rows)
+    assert bytes_per_dim_column(s, FullMasking(_modulus(s)), 8) > \
+        bytes_per_dim_column(s, NoMasking(), 8) > 0
+
+
+@pytest.mark.parametrize("scheme", sorted(SCHEMES))
+@pytest.mark.parametrize("masking", sorted(MASKINGS))
+def test_watermark_tile_at_2w_is_the_reference_tile_at_w(scheme, masking):
+    s = SCHEMES[scheme]
+    mask = MASKINGS[masking](_modulus(s))
+    for budget in BUDGETS:
+        for pc in CHUNKS:
+            for p_shards, d_shards in SHAPES:
+                for dim in (None, 1000, 10_000_008):
+                    kw = dict(participants_chunk=pc, p_shards=p_shards,
+                              d_shards=d_shards, dim=dim)
+                    assert watermark_dim_tile(
+                        s, mask, watermark_bytes=2 * budget, **kw) == \
+                        ref_devscale.watermark_dim_tile(
+                            _ref(s), _ref(mask), watermark_bytes=budget, **kw)
+
+
+def test_watermark_tile_scales_with_budget_and_stays_on_grain():
+    s = fast_scheme()
+    mask = FullMasking(s.prime_modulus)
+    kw = dict(participants_chunk=8, p_shards=4, d_shards=2)
+    small = watermark_dim_tile(s, mask, watermark_bytes=1 << 20, **kw)
+    big = watermark_dim_tile(s, mask, watermark_bytes=1 << 26, **kw)
+    grain = 24 * 2  # lcm(k=3, 8 chacha words) x d_shards
+    assert small % grain == 0 and big % grain == 0 and big > small
+    crowded = watermark_dim_tile(s, mask, participants_chunk=64, p_shards=4,
+                                 d_shards=2, watermark_bytes=1 << 20)
+    assert crowded < small
+    assert watermark_dim_tile(s, mask, watermark_bytes=1, **kw) == grain
+    assert watermark_dim_tile(s, mask, watermark_bytes=1 << 34, dim=1000,
+                              **kw) == -(-1000 // 48) * 48
+
+
+@pytest.mark.parametrize("shards", [1, 2, 8])
+def test_watermark_tile_per_device_share(shards):
+    """Shards placed on one device share its memory: each plans under the
+    watermark divided by the shards on the device."""
+    s = fast_scheme()
+    mask = FullMasking(s.prime_modulus)
+    kw = dict(participants_chunk=8, p_shards=4, d_shards=2)
+    W = 68_000_000_000
+    assert watermark_dim_tile(s, mask, watermark_bytes=W,
+                              shards_per_device=shards, **kw) == \
+        watermark_dim_tile(s, mask, watermark_bytes=W // shards, **kw)
+
+
+def test_model_scale_round_default_tile_takes_the_device_share(monkeypatch):
+    monkeypatch.setenv("SDA_HBM_WATERMARK", str(1 << 24))
+    s = fast_scheme()
+    mask = FullMasking(s.prime_modulus)
+    shared = ModelScaleRound(s, mask, mesh=make_mesh(4, 2,
+                                                     devices=["cpu"] * 8))
+    assert shared.dim_tile == watermark_dim_tile(
+        s, mask, participants_chunk=8, p_shards=4, d_shards=2,
+        watermark_bytes=(1 << 24) // 8)
+    split = ModelScaleRound(s, mask, mesh=make_mesh(
+        4, 2, devices=["cpu"] * 4 + ["meta"] * 4))
+    assert split.dim_tile == watermark_dim_tile(
+        s, mask, participants_chunk=8, p_shards=4, d_shards=2,
+        watermark_bytes=(1 << 24) // 4)
+    assert split.dim_tile > shared.dim_tile
+    assert shared.dim_tile % shared._grain == 0
+
+
+# -- ModelScaleRound ------------------------------------------------------------------
+
+def _msr(scheme, mask, shape, **kw):
+    return ModelScaleRound(scheme, mask, mesh=make_mesh(
+        *shape, devices=["cpu"] * 8), **kw)
+
+
+@pytest.mark.parametrize("mesh_shape", [(4, 2), (8, 1)])
+@pytest.mark.parametrize("masking", sorted(MASKINGS))
+@pytest.mark.parametrize("lane", ["plain", "k1"])
+def test_model_scale_round_exact(mesh_shape, masking, lane):
+    """Ragged: P off the p axis, dim off the tile grain AND the mesh
+    grain; both lanes equal the column sum and (plain lane, no ChaCha:
+    the reference's tier-1 cut) the JAX package's XLA lane."""
+    import jax
+
+    s = fast_scheme()
+    p = s.prime_modulus
+    mask = MASKINGS[masking](p)
+    x = np.random.default_rng(1).integers(0, 1 << 20, size=(13, 250),
+                                          dtype=np.int64)
+    r = _msr(s, mask, mesh_shape, dim_tile=96, use_pallas=lane == "k1")
+    out = r.aggregate(x, 2)
+    assert out.dtype == torch.int64 and out.shape == (250,)
+    np.testing.assert_array_equal(out.numpy(), x.sum(axis=0) % p)
+    if lane == "plain" and masking != "chacha":
+        ref = ref_devscale.ModelScaleRound(
+            _ref(s), _ref(mask), mesh=ref_mesh.make_mesh(*mesh_shape),
+            dim_tile=96)
+        assert ref.dim_tile == r.dim_tile
+        np.testing.assert_array_equal(
+            np.asarray(ref.aggregate(x, jax.random.PRNGKey(2))), out.numpy())
+
+
+def test_model_scale_round_one_k1_call_a_shard_a_tile(monkeypatch):
+    s = fast_scheme()
+    p = s.prime_modulus
+    calls = []
+    real = fused_round.fused_mask_share_combine
+
+    def k1(x_cols, *args, **kw):
+        calls.append(tuple(x_cols.shape))
+        return real(x_cols, *args, **kw)
+
+    monkeypatch.setattr(fused_round, "fused_mask_share_combine", k1)
+    r = _msr(s, FullMasking(p), (4, 2), dim_tile=96, use_pallas=True)
+    x = np.random.default_rng(3).integers(0, 1 << 20, size=(16, 288))
+    np.testing.assert_array_equal(r.aggregate(x, 5).numpy(),
+                                  x.sum(axis=0) % p)
+    # local shard 144 columns in tiles of 48: 3 tiles x 8 shards
+    assert calls == [(4, 3, 16)] * 24
+
+
+def test_model_scale_round_quorum_reveal():
+    s = fast_scheme()
+    p = s.prime_modulus
+    survivors = tuple(range(s.reconstruction_threshold))
+    x = np.random.default_rng(4).integers(0, 1 << 20, size=(8, 192))
+    for pallas in (False, True):
+        r = _msr(s, FullMasking(p), (4, 2), dim_tile=96,
+                 surviving_clerks=survivors, use_pallas=pallas)
+        np.testing.assert_array_equal(r.aggregate(x, 6).numpy(),
+                                      x.sum(axis=0) % p)
+
+
+def test_model_scale_round_validation():
+    with pytest.raises(ValueError, match="model-scale step requires"):
+        _msr(SCHEMES["packed433"], None, (4, 2), use_pallas=True)
+    with pytest.raises(ValueError, match="must be divisible by the p axis"):
+        _msr(fast_scheme(), None, (3, 2))
+
+
+# -- run_devscale ---------------------------------------------------------------------
+
+#: the reference's record keys (sda_tpu/loadgen/devscale.py::run_devscale)
+REF_KEYS = {
+    "metric", "value", "unit", "platform", "pallas", "dim", "participants",
+    "p_shards", "d_shards", "dim_tile", "tiles", "participants_chunk",
+    "tile_rule", "rounds", "round_seconds_marginal", "compile_seconds",
+    "exact", "oracle", "retraces", "warm_program_reused", "compiled_shapes",
+    "roofline", "roofline_utilization", "hbm", "hbm_watermark_ratio",
+    "host_scaled", "seed", "xla", "ok",
+}
+
+
+def test_run_devscale_record_at_a_drill_dim():
+    record = run_devscale(DevScaleProfile(
+        dim=25_000, participants=8, participants_chunk=8, p_shards=4,
+        d_shards=2, rounds=3, seed=20260804, device="cpu"))
+    assert REF_KEYS | {"framework", "clerk_fed", "scan_lane"} <= set(record)
+    assert record["framework"] == "torch" and record["platform"] == "cpu"
+    assert record["ok"] and record["exact"] and record["host_scaled"]
+    assert record["oracle"] == {"mode": "full", "windows": 1, "cols": 25_000}
+    assert record["device_oracle"] == {"cols": 25_000, "outputs": 2}
+    assert record["retraces"] == 0 and record["warm_program_reused"]
+    assert record["tile_rule"] == "hbm_watermark"
+    assert record["dim_tile"] % 48 == 0
+    assert record["clerk_fed"]["exact"]
+    assert record["clerk_fed"]["sink_misses"] == 0
+    assert record["scan_lane"]["exact"]
+    assert record["hbm"]["within_watermark"] and record["value"] > 0
+    assert record["roofline_utilization"] is not None
+    assert record["compiled_shapes"] == {"stream.pod.step": 1,
+                                         "stream.pod.finale": 1}
+    assert not devprof.cost_analysis_enabled()
+
+
+def test_run_devscale_k1_lane_sampled_oracle():
+    """K1's lane with ChaCha masks over two dim tiles, past 2^17 columns:
+    the oracle samples seeded windows, as at model scale."""
+    record = run_devscale(DevScaleProfile(
+        dim=131_100, participants=8, participants_chunk=8, p_shards=4,
+        d_shards=2, rounds=2, pallas=True, mask="chacha", clerk_fed=False,
+        scan_lane=False, dim_tile=65_568, oracle_window_cols=512, seed=1,
+        device="cpu"))
+    assert record["ok"] and record["exact"] and record["pallas"]
+    assert record["tiles"] == 2 and record["tile_rule"] == "explicit"
+    assert record["oracle"] == {"mode": "sampled", "windows": 4,
+                                "cols": 4 * 512}
+    # every column, where the host oracle samples
+    assert record["device_oracle"] == {"cols": 131_100, "outputs": 2}
+
+
+@pytest.mark.parametrize("rows,tile", [(8, 4096), (3, 1000), (1, 30_000)])
+def test_device_oracle_checks_every_column(rows, tile):
+    """The device oracle sums the device provider's rows in int64 on the
+    device, whatever its blocking, and finds a wrong column in any of the
+    outputs it is given."""
+    d, P = 30_000, 8
+    dev = synthetic_device_block_provider32(P29, seed=4, device="cpu")
+    host = synthetic_block_provider32(P29, seed=4)
+    right = host(0, P, 0, d).astype(np.int64).sum(axis=0) % P29
+    assert loadgen._device_oracle_check(
+        (right, right), dev, P, d, P29, rows, tile) == (
+            True, {"cols": d, "outputs": 2})
+    wrong = right.copy()
+    wrong[17_777] = (wrong[17_777] + 1) % P29
+    ok, report = loadgen._device_oracle_check(
+        (right, wrong), dev, P, d, P29, rows, tile)
+    assert not ok
+    d0, d1 = report["failed_window"]
+    assert d0 <= 17_777 < d1 and report["cols"] == d0
+
+
+def test_run_devscale_families():
+    assert loadgen.flagship_dim("devscale") == 100_000_000
+    for family in ("mobilelite", "lora"):
+        with pytest.raises(ValueError, match="ROADMAP item 14"):
+            run_devscale(DevScaleProfile(family=family, device="cpu"))
+    with pytest.raises(ValueError, match="unknown flagship family"):
+        loadgen.flagship_dim("resnet")
+
+
+@pytest.mark.parametrize("bad", [dict(dim=0), dict(participants=0),
+                                 dict(rounds=1), dict(mask="bogus")])
+def test_devscale_profile_validation_equals_reference(bad):
+    with pytest.raises(ValueError) as ours:
+        DevScaleProfile(**bad).validate()
+    with pytest.raises(ValueError) as theirs:
+        ref_loadgen.DevScaleProfile(**bad).validate()
+    assert str(ours.value) == str(theirs.value)
+
+
+def test_oracle_check_equals_reference():
+    """The oracle itself is the reference's: the same windows, verdicts
+    and report on the same (wrong and right) outputs."""
+    host = synthetic_block_provider32(P29, seed=3)
+    d = 300_000
+    right = host(0, 4, 0, d).astype(np.int64).sum(axis=0) % P29
+    wrong = right.copy()
+    wrong[-1] ^= 1
+    for out in (right, wrong):
+        for profile in (DevScaleProfile(seed=5), DevScaleProfile(
+                seed=9, oracle_windows=6, oracle_window_cols=1000)):
+            ref_profile = ref_loadgen.DevScaleProfile(
+                seed=profile.seed, oracle_windows=profile.oracle_windows,
+                oracle_window_cols=profile.oracle_window_cols)
+            assert loadgen._oracle_check(out, host, 4, d, P29, profile) == \
+                ref_loadgen._oracle_check(out, host, 4, d, P29, ref_profile)

@@ -72,6 +72,15 @@ COPIES = [
 #: functions that a rewritten module copies verbatim from its reference
 FUNCTION_COPIES = [
     ("mesh/simpod.py", "_dim_grain"),
+    ("mesh/simpod.py", "_scheme_modulus"),
+    ("mesh/simpod.py", "_check_mask_modulus"),
+    ("mesh/simpod.py", "_check_masking_supported"),
+    ("mesh/simpod.py", "_build_matrices"),
+    ("mesh/simpod.py", "default_mesh_shape"),
+    ("mesh/multihost.py", "_MultihostCheckpointer._local_candidates"),
+    ("mesh/multihost.py", "_MultihostCheckpointer.finish"),
+    ("loadgen/devscale.py", "DevScaleProfile.validate"),
+    ("loadgen/devscale.py", "_oracle_check"),
     ("mesh/streaming.py", "array_block_provider"),
     ("mesh/streaming.py", "synthetic_block_provider"),
     ("mesh/streaming.py", "_atomic_npz"),

@@ -113,8 +113,31 @@ def _entry_points():
                            "--seconds", "0.001", "--lanes", "monolithic",
                            *device])
 
+    from sda_tpu_torch.loadgen import DevScaleProfile, run_devscale
+    from sda_tpu_torch.mesh import (ModelScaleRound, SimulatedPod,
+                                    StreamedPod, make_mesh,
+                                    make_multislice_mesh)
+
+    def on(kw):
+        """The mesh an entry point gets: the CUDA devices by default, or
+        one device named by ``device``."""
+        return None if "device" not in kw else make_mesh(
+            1, 1, devices=[kw["device"]])
+
     v1 = "sda-tpu/chacha20-prg/v1"
     return {
+        "make_mesh": lambda **kw: make_mesh(
+            1, 1, devices=[kw["device"]] if kw else None),
+        "make_multislice_mesh": lambda **kw: make_multislice_mesh(
+            1, 1, 1, devices=[kw["device"]] if kw else None),
+        "SimulatedPod": lambda **kw: SimulatedPod(s, FullMasking(p),
+                                                  mesh=on(kw)),
+        "StreamedPod": lambda **kw: StreamedPod(s, FullMasking(p),
+                                                mesh=on(kw)),
+        "ModelScaleRound": lambda **kw: ModelScaleRound(
+            s, FullMasking(p), mesh=on(kw)),
+        "run_devscale": lambda **kw: run_devscale(DevScaleProfile(
+            dim=48, rounds=2, p_shards=1, d_shards=1, **kw)),
         "bench": bench_main,
         "watermark_report": lambda **kw: devprof.watermark_report(**kw),
         "MontgomeryContext.premix": lambda **kw: MontgomeryContext(
@@ -165,7 +188,10 @@ def _entry_points():
                                   "SdaClient",
                                   "MontgomeryContext.premix",
                                   "FixedPointCodec.encode_device",
-                                  "sda", "bench", "watermark_report"])
+                                  "sda", "bench", "watermark_report",
+                                  "make_mesh", "make_multislice_mesh",
+                                  "SimulatedPod", "StreamedPod",
+                                  "ModelScaleRound", "run_devscale"])
 def test_entry_points_default_to_cuda(name):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default does not raise")
@@ -176,6 +202,24 @@ def test_entry_points_default_to_cuda(name):
         entry(device="cuda")
     assert entry(device="cpu") is not None
 
+
+
+@pytest.mark.parametrize("module", ["sda_tpu_torch.mesh.multihost",
+                                    "sda_tpu_torch.loadgen.devscale"])
+def test_multi_device_modules_leave_jax_out(module):
+    """The multi-device modes and the model-scale bench import without
+    jax or the JAX package (their workers and the card's script run
+    where neither is installed)."""
+    code = (
+        "import importlib, sys\n"
+        f"importlib.import_module({module!r})\n"
+        f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
 
 
 #: relative imports in the port whose targets it does not have yet, each
