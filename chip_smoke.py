@@ -61,7 +61,14 @@ offsets; ``run_devscale`` at ``BENCH_r15_devscale.json``'s configuration
 with its ``DeviceTileSink``-fed lane, exact against the sampled oracle,
 its peak device memory against the watermark; and ``mesh.multihost`` at
 world size 1 over NCCL, one round and a streamed round stopped and
-resumed from its snapshots, both exact.
+resumed from its snapshots, both exact. Then FedAvg on the card: 100
+participants train MobileLite (3,731,890 parameters) and the LoRA
+adapters of ``LoRAMLP()`` (11,782,400) through ``LocalTrainer`` on the
+card, and ``pod_fedavg_round`` aggregates them on K1 over
+``SimulatedPod`` (1x1 and virtual 4x2 meshes) and ``StreamedPod``
+(virtual 4x2), each round exact over every coordinate against the host
+encode of each delta; ``run_devscale`` at each family's width; K1 held
+to its plain version at those rounds' shard shapes.
 Prints the card's name and power
 limit, one JSON line of kernel measurements, and as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -126,6 +133,15 @@ DEVSCALE_DIM = 100_000_000
 #: the streamed multihost round (phase 20): participant and dim chunks,
 #: and the blocks fed before the provider stops it
 MH_CHUNK, MH_DIM_CHUNK, MH_STOP = 32, 262_144, 7
+#: FedAvg on the card (phase 21): participants, local SGD steps and
+#: learning rate of each family (MobileLite's SGD diverges at
+#: ``fl.FLProfile``'s 0.1), training examples a participant, batch, eval
+#: examples and the codec's clip (``fl.FLProfile``'s defaults)
+P_FEDAVG = 100
+FEDAVG_STEPS = {"mobilelite": 4, "lora": 2}
+FEDAVG_LR = {"mobilelite": 0.01, "lora": 0.1}
+FEDAVG_SHARD, FEDAVG_BATCH, FEDAVG_EVAL = 64, 16, 256
+FEDAVG_CLIP = 1.0
 #: K4's checks (phase 16): Paillier key sizes (n^2 of 32, 128 and 192
 #: limbs, each filling a group instance), premix row counts (at 256 lanes
 #: the larger ones split a lane's rows) and lanes; the split path of a small
@@ -180,10 +196,11 @@ def _median_ms(fn, reps: int, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
-def _profile(label: str, fn, reps: int = 3) -> None:
+def _profile(label: str, fn, reps: int = 3) -> dict:
     """Print the device time by operation over ``reps`` calls of ``fn()``
     (torch.profiler; the profiler's own cost inflates the wall time), and
-    the device's busy share of the window."""
+    the device's busy share of the window; returns the wall and busy ms a
+    call and the busy share."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -221,6 +238,8 @@ def _profile(label: str, fn, reps: int = 3) -> None:
     for dev_us, count, key in rows[:8]:
         print(f"    {dev_us / reps / 1e3:9.4f} ms/round {count / reps:6.1f}"
               f" calls/round  {key[:100]}")
+    return {"wall_ms": wall_us / reps / 1e3, "busy_ms": busy / reps / 1e3,
+            "busy_share": busy / wall_us}
 
 
 class DeviceCounts:
@@ -1217,6 +1236,349 @@ def multihost_phase(dev, P=P_MAIN, D=D_MAIN, chunk=MH_CHUNK,
             "resume_s": resume_s}
 
 
+def _fedavg_cohort(dev, model, params, data, P, steps, lr):
+    """Each of ``P`` participants trains ``params`` (a dict of ``model``'s
+    tensors, the rest of the module frozen) ``steps`` SGD steps (learning
+    rate ``lr``) at batch
+    ``FEDAVG_BATCH`` from its shard of ``data`` through ``LocalTrainer`` on
+    ``dev``, from the same global params. Returns the [P, d] float64 cohort
+    on ``dev``, the global vector, its ``unravel``, each participant's
+    ``local_fit`` time (ms) and the cohort's training wall (s)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from sda_tpu_torch.fl.data import shard_dataset
+    from sda_tpu_torch.models import LocalTrainer, ravel_pytree, sgd
+
+    train_x, train_y = data[:2]
+    shards = shard_dataset(train_x, train_y, P, seed=0)
+
+    def loss_fn(p, batch):
+        x, y = batch
+        return F.cross_entropy(torch.func.functional_call(model, p, (x,)),
+                               y.long())
+
+    trainer = LocalTrainer(loss_fn, sgd(lr), device=dev)
+    gvec, unravel = ravel_pytree(params)
+    cohort = torch.empty((P, gvec.numel()), dtype=torch.float64,
+                         device=dev)
+
+    def fit(ix):
+        shard_x, shard_y = shards[ix]
+        # run_fl's batch draw: (seed, 0x7A, round, device)
+        idx = np.random.default_rng([0, 0x7A, 0, ix]).integers(
+            0, len(shard_x), size=(steps, min(FEDAVG_BATCH, len(shard_x))))
+        batches = (torch.as_tensor(shard_x[idx], device=dev),
+                   torch.as_tensor(shard_y[idx], device=dev))
+        out, _, loss = trainer.fit(unravel(gvec), (), batches)
+        return ravel_pytree(out)[0], float(loss)
+
+    fit(0)  # warm: cuDNN's first calls, the allocator
+    _sync(dev)
+    times, losses = [], []
+    t0 = time.perf_counter()
+    for ix in range(P):
+        t1 = time.perf_counter()
+        vec, loss = fit(ix)
+        cohort[ix] = vec
+        _sync(dev)
+        times.append((time.perf_counter() - t1) * 1e3)
+        losses.append(loss)
+    wall = time.perf_counter() - t0
+    _check(all(np.isfinite(losses)), f"local losses not finite: {losses}")
+    _check(bool(torch.isfinite(cohort).all()), "a trained vector is not "
+           "finite")
+    return cohort, gvec, unravel, times, wall, losses
+
+
+def _sync(dev):
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _fedavg_oracle(codec, cohort, gvec, p):
+    """The exact sum the pod must reveal: the host ``codec.encode`` of
+    each participant's delta (float64 on the device, as
+    ``pod_fedavg_round`` takes it), column sums mod p accumulated a
+    participant at a time (no [P, d] host copy)."""
+    import numpy as np
+
+    acc = np.zeros(cohort.shape[1], dtype=np.int64)
+    for row in cohort:
+        acc += codec.encode((row - gvec).cpu().numpy())
+        acc %= p
+    return acc
+
+
+def _captured(pod):
+    """Wrap ``pod.aggregate`` to keep the sum of its last round."""
+    seen = []
+    inner = pod.aggregate
+
+    def aggregate(inputs, seed=None):
+        out = inner(inputs, seed)
+        seen[:] = [out]
+        return out
+
+    pod.aggregate = aggregate
+    return seen
+
+
+def fedavg_phase(dev, P=P_FEDAVG, mobilelite_kw=None, lora_kw=None,
+                 devscale_families=("mobilelite", "lora"), reps=3):
+    """Phase 21: FedAvg on the card over the flagship packed-Shamir scheme
+    (k=3, n=8, t=4, p = 2^29 - 679), Full masks, through the port's
+    entry points. ``P`` participants train MobileLite (default width,
+    3,731,890 parameters, 32x32x3 inputs) ``FEDAVG_STEPS["mobilelite"]``
+    SGD steps each through ``LocalTrainer``, from the same global params,
+    on ``fl/data.synthetic_classification`` at seed 0; their deltas go
+    through ``pod_fedavg_round`` on ``SimulatedPod(use_pallas=True)`` over
+    the 1x1 mesh and over the virtual 4x2 mesh, each round exact over
+    every coordinate against the host ``codec.encode`` of each delta and
+    the new global equal to ``global + decode_mean`` bit for bit; the new
+    global is unravelled into the module for one eval pass. Then
+    ``LoRAMLP()`` (default width, 11,782,400 adapter parameters on 28x28
+    inputs, the base frozen on the card): ``P`` participants train their
+    adapters, and ``pod_fedavg_round`` runs on
+    ``StreamedPod(use_pallas=True)`` over the virtual 4x2 mesh at the
+    watermark rule's tile, exact as above. Then ``run_devscale`` with each
+    of ``devscale_families``, exact. K1 is held to its plain version at
+    the 1x1 shard, a 4x2 shard and a streamed tile's shard.
+    ``mobilelite_kw``/``lora_kw`` shrink the families for a rehearsal on
+    the CPU. Returns the phase's JSON record."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from sda_tpu_torch.fl.data import synthetic_classification
+    from sda_tpu_torch.loadgen import DevScaleProfile, run_devscale
+    from sda_tpu_torch.mesh import (SimulatedPod, StreamedPod, make_mesh,
+                                    simpod, watermark_dim_tile)
+    from sda_tpu_torch.models import (FixedPointCodec, LoRAMLP, MobileLite,
+                                      lora_adapter_params, pod_fedavg_round)
+
+    scheme, full, p = _flagship()
+    on_card = dev.type == "cuda"
+    # device memory allocated when the phase starts (earlier phases' live
+    # tensors), and the peak of each part of the phase
+    at_start = torch.cuda.memory_allocated(dev) if on_card else None
+    peaks = {}
+    _peak(dev)
+    # fl/scenario.py::_make_codec's rule for the widest grid, on p
+    q_cap = (p // 2 - 1) // P
+    frac_bits = min(16, int(math.floor(math.log2(q_cap / FEDAVG_CLIP))))
+    codec = FixedPointCodec(p, frac_bits, P, clip=FEDAVG_CLIP)
+    k1 = _k1_reset()
+    launches, k1_total, rounds = {}, 0, {}
+
+    def fedavg_round(label, pod, cohort, gvec, want, seed, shards_a_round):
+        """Warm round (its sum ``want``, its new global ``global +
+        decode_mean(want)``), then the median of ``reps`` timed ones."""
+        nonlocal k1_total
+        seen = _captured(pod)
+        _k1_reset()
+        t0 = time.perf_counter()
+        new_vec = pod_fedavg_round(pod, codec, gvec, cohort, seed)
+        first_ms = (time.perf_counter() - t0) * 1e3
+        n = k1.launches
+        _check(not on_card or n == shards_a_round,
+               f"fedavg {label}: K1 launched {n} times, want "
+               f"{shards_a_round}")
+        summed = seen[0]
+        summed = (summed.cpu().numpy() if isinstance(summed, torch.Tensor)
+                  else np.asarray(summed))
+        _check(summed.shape == want.shape and np.array_equal(summed, want),
+               f"fedavg {label}: pod sum != host encode column sums mod p")
+        g_host = gvec.cpu().numpy()
+        _check(np.array_equal(new_vec, g_host + codec.decode_mean(want, P)),
+               f"fedavg {label}: new global != global + decode_mean")
+        ms = (_median_ms(lambda: pod_fedavg_round(pod, codec, gvec, cohort,
+                                                  seed), reps=reps,
+                         warmup=0) if on_card else None)
+        k1_total += k1.launches
+        launches[label] = n
+        rounds[label] = {"exact": True, "cols": int(want.size),
+                         "k1_launches": n, "first_round_ms": first_ms,
+                         "round_ms": ms}
+        print(f"  fedavg {label}: exact over all {want.size} columns, K1 "
+              f"{n} launches a round, first round {first_ms:.1f} ms"
+              + ("" if ms is None else f", median of {reps} {ms:.1f} ms"))
+        return new_vec
+
+    # -- MobileLite, P participants, SimulatedPod 1x1 and 4x2 --------------
+    gen = torch.Generator().manual_seed(0)
+    mob = MobileLite(device=dev, generator=gen, **(mobilelite_kw or {}))
+    mob_params = {k: v.detach() for k, v in mob.state_dict().items()}
+    data = synthetic_classification(P * FEDAVG_SHARD, FEDAVG_EVAL,
+                                    image_shape=(32, 32, 3), seed=0)
+    cohort, gvec, unravel, fit_ms, fit_wall, mob_losses = _fedavg_cohort(
+        dev, mob, mob_params, data, P, FEDAVG_STEPS["mobilelite"],
+        FEDAVG_LR["mobilelite"])
+    d_mob = int(gvec.numel())
+    print(f"  MobileLite: d={d_mob}, {P} participants x "
+          f"{FEDAVG_STEPS['mobilelite']} steps, local_fit median "
+          f"{statistics.median(fit_ms):.1f} ms, cohort {fit_wall:.2f} s, "
+          f"mean loss {statistics.mean(mob_losses):.4f}")
+    meshes = {"1x1": make_mesh(1, 1, devices=[dev]),
+              "4x2": make_mesh(4, 2, devices=[dev] * 8)}
+    pods = {name: SimulatedPod(scheme, full, mesh=mesh, use_pallas=True)
+            for name, mesh in meshes.items()}
+    want = _fedavg_oracle(codec, cohort, gvec, p)
+    for name, pod in pods.items():
+        new_vec = fedavg_round(f"mobilelite {name}", pod, cohort, gvec, want,
+                               21, pod.mesh.devices.size)
+    profile = None
+    if on_card:
+        _k1_reset()
+        profile = _profile("fedavg pod round 4x2 (MobileLite)",
+                           lambda: pod_fedavg_round(pods["4x2"], codec, gvec,
+                                                    cohort, 21), reps=reps)
+        k1_total += k1.launches
+    mob.load_state_dict(unravel(torch.from_numpy(new_vec)))
+    with torch.no_grad():
+        logits = mob(torch.as_tensor(data[2], device=dev))
+    _check(tuple(logits.shape) == (FEDAVG_EVAL, 10)
+           and bool(torch.isfinite(logits).all()),
+           f"eval pass: logits {tuple(logits.shape)}")
+    accuracy = float((logits.argmax(-1).cpu()
+                      == torch.as_tensor(data[3]).long()).float().mean())
+    print(f"  eval pass of the new global on {dev.type}: logits "
+          f"{tuple(logits.shape)} finite, accuracy {accuracy:.4f}")
+    peaks["mobilelite rounds"] = _peak(dev)
+    # K1 at the pods' shard shapes, on the encoded cohort (the cohort
+    # freed first: K1's plain version at the 1x1 shard is the phase's
+    # largest allocation)
+    encoded = codec.encode_device(
+        (cohort - gvec[None, :]).to(torch.float32), device=dev)
+    P_pad, d_pad = pods["1x1"].padded_shape(P, d_mob)
+    x1 = torch.zeros((P_pad, d_pad), dtype=torch.int64, device=dev)
+    x1[:P, :d_mob] = encoded
+    P_pad, d_pad = pods["4x2"].padded_shape(P, d_mob)
+    P_loc, d_loc = P_pad // 4, d_pad // 2
+    x4 = torch.zeros((P_loc, d_loc), dtype=torch.int64, device=dev)
+    rows = encoded[3 * P_loc:4 * P_loc, d_loc:]
+    x4[:rows.shape[0], :rows.shape[1]] = rows
+    del cohort, encoded, rows, pods
+    _empty_cache(dev)
+    holds = [_k1_shard_hold("fedavg 1x1 shard", dev, scheme, True, x1,
+                            simpod._tile_seed(21, 0, 0))]
+    del x1
+    holds.append(_k1_shard_hold("fedavg 4x2 shard (3, 1)", dev, scheme,
+                                True, x4, simpod._tile_seed(21, 3, 1)))
+    del x4
+    _empty_cache(dev)
+    peaks["mobilelite shard holds"] = _peak(dev)
+
+    # -- LoRA adapters, P participants, StreamedPod 4x2 --------------------
+    lora = LoRAMLP(device=dev, generator=torch.Generator().manual_seed(0),
+                   **(lora_kw or {}))
+    adapters = {k: v.detach() for k, v in lora_adapter_params(lora).items()}
+    data = synthetic_classification(P * FEDAVG_SHARD, FEDAVG_EVAL,
+                                    image_shape=(28, 28, 1), seed=0)
+    cohort, gvec, unravel, lora_ms, lora_wall, losses = _fedavg_cohort(
+        dev, lora, adapters, data, P, FEDAVG_STEPS["lora"], FEDAVG_LR["lora"])
+    d_lora = int(gvec.numel())
+    print(f"  LoRAMLP adapters: d={d_lora}, {P} participants x "
+          f"{FEDAVG_STEPS['lora']} steps, local_fit median "
+          f"{statistics.median(lora_ms):.1f} ms, cohort {lora_wall:.2f} s, "
+          f"mean loss {statistics.mean(losses):.4f}")
+    tile = watermark_dim_tile(scheme, full, participants_chunk=P,
+                              p_shards=4, d_shards=2, pallas=True, dim=d_lora,
+                              shards_per_device=8, device=dev)
+    spod = StreamedPod(scheme, full, mesh=meshes["4x2"], participants_chunk=P,
+                       dim_chunk=tile, use_pallas=True)
+    tiles = -(-d_lora // spod.dim_chunk)
+    fedavg_round("lora streamed 4x2", spod, cohort, gvec,
+                 _fedavg_oracle(codec, cohort, gvec, p), 22, 8 * tiles)
+    peaks["lora round"] = _peak(dev)
+    rounds["lora streamed 4x2"].update(dim_tile=spod.dim_chunk, tiles=tiles)
+    Pc_loc, d_loc = spod.participants_chunk // 4, spod.dim_chunk // 2
+    rows = codec.encode_device(
+        (cohort[3 * Pc_loc:4 * Pc_loc, d_loc:2 * d_loc]
+         - gvec[None, d_loc:2 * d_loc]).to(torch.float32), device=dev)
+    x = torch.zeros((Pc_loc, d_loc), dtype=torch.int64, device=dev)
+    x[:rows.shape[0], :rows.shape[1]] = rows
+    holds.append(_k1_shard_hold(
+        "fedavg streamed shard (3, 1) of tile 0", dev, scheme, True, x,
+        simpod._tile_seed(simpod._tile_seed(22, 0, 0), 3, 1)))
+    del cohort, rows, x
+    _empty_cache(dev)
+
+    # before run_devscale, whose cost capture resets the peak counter at
+    # each instrumented step (its record carries its own)
+    peaks["lora shard hold"] = _peak(dev)
+
+    # -- run_devscale at the families' widths ------------------------------
+    devscale = {}
+    for family in devscale_families:
+        _k1_reset()
+        rec = run_devscale(DevScaleProfile(
+            family=family, dim=0, participants=8, participants_chunk=8,
+            p_shards=4, d_shards=2, mask="full", pallas=True, rounds=2,
+            seed=20260805, device=str(dev)))
+        want = rec["tiles"] * 8 * 3  # warm + timed + the sink-fed round
+        _check(rec["exact"] and rec["ok"] and rec["family"] == family,
+               f"devscale {family}: {rec.get('oracle')} "
+               f"{rec.get('device_oracle')}")
+        _check(rec["dim"] == {"mobilelite": 3_731_890,
+                              "lora": 11_782_400}[family],
+               f"devscale {family}: dim {rec['dim']}")
+        _check(not on_card or k1.launches == want,
+               f"devscale {family}: K1 launched {k1.launches} times, want "
+               f"{want}")
+        k1_total += k1.launches
+        launches[f"devscale {family}"] = k1.launches
+        devscale[family] = {key: rec[key] for key in (
+            "value", "round_seconds_marginal", "dim", "dim_tile", "tiles",
+            "exact", "device_oracle", "hbm")}
+        print(f"  run_devscale family={family}: dim {rec['dim']}, value "
+              f"{rec['value']} elements/s, exact, K1 {k1.launches} launches")
+
+    return {"stage": "fedavg", "participants": P,
+            "fractional_bits": frac_bits, "clip": FEDAVG_CLIP,
+            "mobilelite": {"dim": d_mob, "steps": FEDAVG_STEPS["mobilelite"],
+                           "lr": FEDAVG_LR["mobilelite"],
+                           "local_fit_ms_median": statistics.median(fit_ms),
+                           "training_wall_s": fit_wall,
+                           "mean_loss": statistics.mean(mob_losses),
+                           "eval_accuracy": accuracy},
+            "lora": {"dim": d_lora, "steps": FEDAVG_STEPS["lora"],
+                     "lr": FEDAVG_LR["lora"],
+                     "local_fit_ms_median": statistics.median(lora_ms),
+                     "training_wall_s": lora_wall,
+                     "mean_loss": statistics.mean(losses)},
+            "rounds": rounds, "devscale": devscale,
+            "k1_launches": launches, "k1_launches_phase": k1_total,
+            "k1_shard_max_abs_err": max(holds),
+            "device_bytes_at_start": at_start, "peak_device_bytes": peaks,
+            "pod_round_profile": profile}
+
+
+def _peak(dev):
+    """The device-memory peak since the last call (None off the card)."""
+    import torch
+
+    if dev.type != "cuda":
+        return None
+    peak = torch.cuda.max_memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    return peak
+
+
+def _empty_cache(dev):
+    import gc
+
+    import torch
+
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+
 def _k4_reset():
     from sda_tpu_torch.crypto import paillier_tpu
 
@@ -2135,6 +2497,16 @@ def main() -> int:
     print(f"phases 18-20: {time.perf_counter() - t18:.1f} s")
     k3_launches["pod_round"] = sum(rec18["k3_launches"].values())
 
+    # -- 21. FedAvg on the card --------------------------------------------
+    print(f"fedavg: P={P_FEDAVG} MobileLite (SimulatedPod 1x1, 4x2) and "
+          f"LoRAMLP adapters (StreamedPod 4x2), K1; run_devscale by family "
+          f"({smi}):")
+    t21 = time.perf_counter()
+    rec21 = fedavg_phase(dev)
+    rec21["phase_s"] = time.perf_counter() - t21
+    print(json.dumps(rec21), flush=True)
+    print(f"phase 21: {rec21['phase_s']:.1f} s")
+
     # -- 8. the record ------------------------------------------------------
     print(smi)
     print(json.dumps({"kernels": [{
@@ -2149,13 +2521,16 @@ def main() -> int:
         "launches_devscale": rec19["k1_launches"],
         "launches_multihost": rec20["k1_launches_round"]
         + rec20["k1_launches_resumed"],
+        "launches_fedavg": rec21["k1_launches"],
         "launches_by_phase": {
             "pod_round": rec18["k1_launches_phase"],
             "devscale": rec19["k1_launches_phase"],
-            "multihost": rec20["k1_launches_phase"]},
+            "multihost": rec20["k1_launches_phase"],
+            "fedavg": rec21["k1_launches_phase"]},
         "max_abs_err": max(max_err["K1"], rec18["k1_shard_max_abs_err"],
                            rec19["k1_shard_max_abs_err"],
-                           rec20["k1_shard_max_abs_err"]),
+                           rec20["k1_shard_max_abs_err"],
+                           rec21["k1_shard_max_abs_err"]),
         "ms": k1_ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,

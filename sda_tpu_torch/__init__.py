@@ -20,8 +20,12 @@ caller passes ``device="cpu"``.
 - ``sda_tpu_torch.http``     — the REST transport, both directions
 - ``sda_tpu_torch.store``    — client-side key/identity storage
 - ``sda_tpu_torch.mesh``     — the single-device aggregation round
-- ``sda_tpu_torch.convert``  — schemes, resources and matrices carried
-  across from the JAX package
+- ``sda_tpu_torch.models``   — fixed-point codec, model families, local
+  training and FedAvg over the protocol or the pods
+- ``sda_tpu_torch.fl``       — the FL scenario driver and its data shim
+- ``sda_tpu_torch.tree``     — hierarchical rounds and their simulator
+- ``sda_tpu_torch.convert``  — schemes, resources, matrices and model
+  weights carried across from the JAX package
 """
 
 __version__ = "0.1.0"

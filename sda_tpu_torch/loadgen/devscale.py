@@ -40,8 +40,6 @@ __all__ = ["DevScaleProfile", "run_devscale"]
 
 #: the ROADMAP's model-scale rung (``fl/flagship.py::DEVSCALE_DIM``)
 DEVSCALE_DIM = 100_000_000
-#: families whose dimension needs ``models/families.py``
-_PENDING_FAMILIES = ("mobilelite", "lora")
 
 
 @dataclass
@@ -49,7 +47,7 @@ class DevScaleProfile:
     """Knobs for the model-scale round bench."""
 
     dim: int = DEVSCALE_DIM           # target dimension (>= 1e8 = ROADMAP rung)
-    family: Optional[str] = None      # devscale (sets dim); mobilelite|lora wait
+    family: Optional[str] = None      # mobilelite | lora | devscale (sets dim)
     participants: int = 8
     participants_chunk: int = 8
     p_shards: Optional[int] = None    # default: gcd(devices, committee)
@@ -76,17 +74,6 @@ class DevScaleProfile:
             raise ValueError("rounds must be >= 2 (round 1 is the warmup)")
         if self.mask not in ("none", "full", "chacha"):
             raise ValueError(f"unknown mask {self.mask!r}")
-
-
-def flagship_dim(family: str) -> int:
-    """The dimension of a flagship family; only ``devscale`` is fixed."""
-    if family == "devscale":
-        return DEVSCALE_DIM
-    if family in _PENDING_FAMILIES:
-        raise ValueError(
-            f"family {family!r} needs models/families.py, which the port "
-            f"does not have yet (ROADMAP item 14)")
-    raise ValueError(f"unknown flagship family {family!r}")
 
 
 def _oracle_check(out, host_provider, participants, dim, modulus, profile):
@@ -160,6 +147,8 @@ def run_devscale(profile: DevScaleProfile) -> dict:
 
     dim = int(profile.dim)
     if profile.family:
+        from ..fl.flagship import flagship_dim
+
         dim = flagship_dim(profile.family)
 
     k = 3

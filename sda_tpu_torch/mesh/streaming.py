@@ -814,7 +814,10 @@ class StreamedPod:
         )
 
     def aggregate(self, inputs, seed: Optional[int] = None) -> np.ndarray:
-        inputs = np.asarray(inputs)
+        """[P, d] inputs (an array, or a tensor read in place on its
+        device) -> the [d] aggregate (host array)."""
+        if not isinstance(inputs, torch.Tensor):
+            inputs = np.asarray(inputs)
         return self.aggregate_blocks(
             array_block_provider(inputs), inputs.shape[0], inputs.shape[1],
             seed)

@@ -2,8 +2,8 @@
 
 Port of ``sda_tpu/models/encoding.py``: the host (numpy) lane is the
 reference's, and ``encode_device`` is torch on an explicit device.
-``ravel_pytree`` flattens jax pytrees and comes over with the model
-families (ROADMAP item 14).
+``ravel_pytree`` flattens nested dicts and lists of tensors (a
+``state_dict`` too) in jax's order.
 
 The reference aggregates i64 vectors and leaves the float<->integer story
 to the application ("combining locally trained machine learning models",
@@ -35,6 +35,7 @@ __all__ = [
     "FixedPointCodec",
     "field_capacity",
     "field_headroom_check",
+    "ravel_pytree",
 ]
 
 
@@ -94,6 +95,67 @@ def field_headroom_check(max_abs: int, max_summands: int, modulus: int,
             f"(per-coordinate capacity {cap}): increase the modulus or "
             f"lower max_summands")
     return margin
+
+
+def _tree_leaves(tree, out):
+    """Append ``tree``'s leaves to ``out`` in jax's order: a dict's values
+    by sorted key, a list's or tuple's in order, depth first."""
+    if isinstance(tree, dict):
+        for key in sorted(tree):
+            _tree_leaves(tree[key], out)
+    elif isinstance(tree, (list, tuple)):
+        for item in tree:
+            _tree_leaves(item, out)
+    else:
+        out.append(tree)
+    return out
+
+
+def _tree_rebuild(tree, leaves):
+    """``tree``'s structure with its leaves taken in order from the
+    iterator ``leaves`` (each container keeps its type and key order)."""
+    if isinstance(tree, dict):
+        done = {key: _tree_rebuild(tree[key], leaves) for key in sorted(tree)}
+        return type(tree)((key, done[key]) for key in tree)
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_rebuild(item, leaves) for item in tree)
+    return next(leaves)
+
+
+def ravel_pytree(tree):
+    """Flatten a tree of float tensors to one float64 vector.
+
+    The tree is nested dicts, lists and tuples (a module's ``state_dict``
+    too) of tensors, numpy arrays or numbers; dicts flatten by sorted key
+    as jax's pytrees do, so a dict tree gives the reference's vector,
+    coordinate for coordinate. The vector lies on the first leaf's device.
+    Returns (vector, unravel) where unravel maps a same-length float
+    vector (tensor or numpy) back to the original structure, each leaf a
+    tensor of its original shape, dtype and device. This is the analog of
+    the reference's "the model IS the vector" convention (README.md:3-15):
+    one participation carries one flattened model (or model delta).
+    """
+    leaves = [torch.as_tensor(leaf) for leaf in _tree_leaves(tree, [])]
+    home = leaves[0].device if leaves else torch.device("cpu")
+    specs = [(leaf.shape, leaf.dtype, leaf.device, leaf.numel())
+             for leaf in leaves]
+    vec = torch.cat([leaf.detach().reshape(-1).to(home, torch.float64)
+                     for leaf in leaves]) if leaves \
+        else torch.zeros((0,), dtype=torch.float64)
+
+    def unravel(flat):
+        flat = torch.as_tensor(flat).to(home, torch.float64)
+        if flat.shape != vec.shape:
+            raise ValueError(f"expected shape {tuple(vec.shape)}, got "
+                             f"{tuple(flat.shape)}")
+        out, off = [], 0
+        for shape, dtype, device, size in specs:
+            out.append(flat[off:off + size].reshape(shape).to(
+                device, dtype, copy=True))
+            off += size
+        return _tree_rebuild(tree, iter(out))
+
+    return vec, unravel
 
 
 class FixedPointCodec:

@@ -333,6 +333,14 @@ def instrument(name: str, fn, cost=None):
     return wrapper
 
 
+def install_monitoring() -> bool:
+    """The reference registers ``jax.monitoring`` listeners here, feeding
+    the ``xla.compile.*`` counters. Eager torch compiles nothing, so the
+    port registers nothing and returns False, as the reference does where
+    jax is missing."""
+    return False
+
+
 # -- reports ------------------------------------------------------------------
 
 def report() -> Dict[str, dict]:

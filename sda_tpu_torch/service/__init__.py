@@ -17,9 +17,9 @@ that turns the one-shot substrate into a long-running system:
   of rounds.
 
 Port of ``sda_tpu/service/__init__.py`` without ``soak.py``
-(``SoakProfile``, ``run_soak``): the soak drill drives ``chaos.drill``
-and ``server.fleet``, which the port does not have yet (ROADMAP item 14),
-so it comes over with them.
+(``SoakProfile``, ``run_soak``): the soak drill drives
+``chaos.drill.run_chaos_drill``, which needs ``loadgen``'s latency report,
+which the port does not have yet (ROADMAP item 14).
 
 Tenant fairness lives in the admission plane (``http/admission.py``):
 per-recipient budget buckets layered over the per-agent buckets, keyed

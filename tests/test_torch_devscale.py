@@ -550,12 +550,27 @@ def test_device_oracle_checks_every_column(rows, tile):
 
 
 def test_run_devscale_families():
-    assert loadgen.flagship_dim("devscale") == 100_000_000
-    for family in ("mobilelite", "lora"):
-        with pytest.raises(ValueError, match="ROADMAP item 14"):
-            run_devscale(DevScaleProfile(family=family, device="cpu"))
+    """The flagship dims pinned (``tests/test_devscale.py``'s recipe), and
+    ``run_devscale(family="lora")`` on the CPU: the family sets the dim,
+    the record carries both and is exact (one participant, no masks,
+    quarter-million-column tiles: the drill's knobs, the family's
+    width)."""
+    from sda_tpu_torch.fl import FLAGSHIP_FAMILIES, flagship_dim, flagship_dims
+
+    dims = flagship_dims()
+    assert set(FLAGSHIP_FAMILIES) <= set(dims)
+    assert dims["mobilelite"] == 3_731_890   # MobileLite default config
+    assert dims["lora"] == 11_782_400        # LoRAMLP adapter sub-tree
+    assert dims["devscale"] == 100_000_000   # the ROADMAP model-scale rung
     with pytest.raises(ValueError, match="unknown flagship family"):
-        loadgen.flagship_dim("resnet")
+        flagship_dim("resnet")
+    record = run_devscale(DevScaleProfile(
+        family="lora", dim=0, participants=1, participants_chunk=1,
+        p_shards=1, d_shards=1, rounds=2, mask="none", dim_tile=262_144,
+        clerk_fed=False, device="cpu"))
+    assert record["family"] == "lora" and record["dim"] == 11_782_400
+    assert record["ok"] and record["exact"]
+    assert record["device_oracle"] == {"cols": 11_782_400, "outputs": 2}
 
 
 @pytest.mark.parametrize("bad", [dict(dim=0), dict(participants=0),

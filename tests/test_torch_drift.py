@@ -16,8 +16,10 @@ ROOT = Path(__file__).resolve().parent.parent
 
 COPIES = [
     "chaos/__init__.py",
+    "chaos/drill.py",
     "chaos/poison.py",
     "cli/__init__.py",
+    "cli/fleetd.py",
     "cli/main.py",
     "cli/serverd.py",
     "client/embed.py",
@@ -29,6 +31,9 @@ COPIES = [
     "crypto/sodium.py",
     "crypto/varint.py",
     "fields/chacha.py",
+    "fl/__init__.py",
+    "fl/data.py",
+    "fl/dp.py",
     "http/__init__.py",
     "http/admission.py",
     "http/aserver.py",
@@ -50,6 +55,7 @@ COPIES = [
     "server/__init__.py",
     "server/breaker.py",
     "server/core.py",
+    "server/fleet.py",
     "server/jsonfs.py",
     "server/lifecycle.py",
     "server/health.py",
@@ -64,6 +70,10 @@ COPIES = [
     "service/scheduler.py",
     "store/__init__.py",
     "store/file.py",
+    "tree/__init__.py",
+    "tree/plan.py",
+    "tree/round.py",
+    "tree/sim.py",
     "utils/env.py",
     "utils/logsetup.py",
     "utils/metrics.py",
@@ -104,15 +114,45 @@ FUNCTION_COPIES = [
         "chain_rel_uncertainty", "_window_stats", "check", "format_table",
         "default_paths", "build_parser", "run", "main")],
     ("cli/bench.py", "build_parser"),
+    ("models/federated.py", "FederatedSession"),
+    ("models/federated.py", "LocalTrainer.init_state"),
+    ("fl/flagship.py", "flagship_dims"),
+    *[("fl/scenario.py", name) for name in (
+        "_make_codec", "_load_dataset", "_attack_block",
+        "_robust_tree_update")],
+]
+
+#: functions that a rewritten module copies but for the ``device=``
+#: keyword arguments it adds to calls (the clients' and the tree round's
+#: device)
+DEVICE_KEYWORD_COPIES = [
+    ("fl/scenario.py", "_run_protocol_mode"),
+    ("fl/scenario.py", "_run_tree_mode"),
 ]
 
 #: lines a copy words otherwise, by line number (1-based), each replaced
 #: by the text given (which may span lines): docstring lines of
-#: ``lifecycle.py``, ``health.py`` and ``scheduler.py`` name steps of the
-#: reference's own history; the CLI's device lines are the port's
-#: counterpart of ``JAX_PLATFORMS`` (``sda --device``: the agent's field
-#: arithmetic; ``sdad --device``: the Paillier premix)
+#: ``lifecycle.py``, ``health.py``, ``scheduler.py`` and ``fl/__init__.py``
+#: name steps of the reference's own history; the CLI's device lines are
+#: the port's counterpart of ``JAX_PLATFORMS`` (``sda --device``: the
+#: agent's field arithmetic; ``sdad --device``: the Paillier premix)
 EDITS = {
+    "fl/__init__.py": {
+        4: "servers over one store (``server/fleet.py``), deterministic round",
+        5: "termination (``server/lifecycle.py``), gray-failure survival, "
+           "exactly-once\nsporadic devices (``client/journal.py``),",
+        6: "hierarchical trees (``tree/``) and recurring multi-tenant rounds"
+           "\n(``service/scheduler.py``).",
+        11: "stack — availability churn modeled by the churn schedule +",
+        12: "journal/resume, round ids minted by the scheduler so device",
+    },
+    "tree/round.py": {
+        103: "    collect_leaf_subtotals: bool = False,\n    device=None,",
+        117: "    otherwise one is built from ``store``/``http``. ``device`` is "
+             "the\n    clients' device (CUDA unless ``\"cpu\"``).",
+        205: "        client = SdaClient(agent, keystore, client_service(),\n"
+             "                           device=device)",
+    },
     "server/lifecycle.py": {
         37: "(``transition_round_state`` on all four backends — the fleet's "
             "single-winner",
@@ -202,3 +242,22 @@ def test_function_copy_matches_reference(rel, name):
     ref = _function_source(ROOT / "sda_tpu" / rel, name)
     port = _function_source(ROOT / "sda_tpu_torch" / rel, name)
     assert port == re.sub(r"\bsda_tpu\b", "sda_tpu_torch", ref)
+
+
+def _without_device_keywords(source: str) -> str:
+    """``ast.dump`` of ``source`` with every call's ``device=`` keyword
+    argument dropped."""
+    tree = ast.parse(source)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Call):
+            node.keywords = [k for k in node.keywords if k.arg != "device"]
+    return ast.dump(tree)
+
+
+@pytest.mark.parametrize("rel,name", DEVICE_KEYWORD_COPIES)
+def test_function_copy_matches_reference_but_for_device(rel, name):
+    ref = re.sub(r"\bsda_tpu\b", "sda_tpu_torch",
+                 _function_source(ROOT / "sda_tpu" / rel, name))
+    port = _function_source(ROOT / "sda_tpu_torch" / rel, name)
+    assert port != ref, "an exact copy: list it in FUNCTION_COPIES"
+    assert _without_device_keywords(port) == _without_device_keywords(ref)
