@@ -68,7 +68,17 @@ card, and ``pod_fedavg_round`` aggregates them on K1 over
 ``SimulatedPod`` (1x1 and virtual 4x2 meshes) and ``StreamedPod``
 (virtual 4x2), each round exact over every coordinate against the host
 encode of each delta; ``run_devscale`` at each family's width; K1 held
-to its plain version at those rounds' shard shapes.
+to its plain version at those rounds' shard shapes. Then the port's
+``sda-sim`` (``sda_tpu_torch.cli.sim.main``) in this process at the
+flagship width, each run exact by its own ``--verify``: the pod on K1,
+the streamed round on K1 and K3 with ChaCha masks, the quorum reveal
+without clerk 6, one multihost worker process over NCCL (its launches
+counted in the worker), and the devscale profile at MobileLite's width,
+each with its K1 and K3 launches; the drill profiles (load, chaos,
+pickup, soak, analytics) where libsodium is present; K1 held to its
+plain version at the pod's shard, the streamed round's first tile, the
+worker's last shard and the devscale profile's shard, and K3 at the
+streamed round's windows, each on the rows and seeds its run drew.
 Prints the card's name and power
 limit, one JSON line of kernel measurements, and as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -133,6 +143,8 @@ DEVSCALE_DIM = 100_000_000
 #: the streamed multihost round (phase 20): participant and dim chunks,
 #: and the blocks fed before the provider stops it
 MH_CHUNK, MH_DIM_CHUNK, MH_STOP = 32, 262_144, 7
+#: the participant chunk of the streamed sim run (phase 22)
+SIM_CHUNK = 50
 #: FedAvg on the card (phase 21): participants, local SGD steps and
 #: learning rate of each family (MobileLite's SGD diverges at
 #: ``fl.FLProfile``'s 0.1), training examples a participant, batch, eval
@@ -1558,6 +1570,229 @@ def fedavg_phase(dev, P=P_FEDAVG, mobilelite_kw=None, lora_kw=None,
             "pod_round_profile": profile}
 
 
+def _sim(label, argv, smi=""):
+    """``sda_tpu_torch.cli.sim.main(argv)`` in this process: it must return
+    0 and print exactly one JSON line, which is returned with the K1 and
+    K3 launches of the run (counted from 0 just before it)."""
+    from sda_tpu_torch.cli import sim
+
+    k1, k3 = _k1_reset(), _k3_reset()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = sim.main(argv)
+    wall = time.perf_counter() - t0
+    lines = [line for line in out.getvalue().splitlines()
+             if line.startswith("{")]
+    _check(rc == 0, f"sim {label}: exit code {rc}")
+    _check(len(lines) == 1, f"sim {label}: {len(lines)} JSON lines")
+    rec = json.loads(lines[0])
+    launches = {"k1": k1.launches, "k1_by_instance": dict(
+        k1.instance_launches), "k3": k3.launches,
+        "k3_by_op": dict(k3.op_launches)}
+    print(f"  sim {label}: {rec.get('mode')}, exact {rec.get('exact')}, "
+          f"seconds {rec.get('seconds')}, elements_per_sec "
+          f"{rec.get('elements_per_sec', rec.get('value'))}, wall "
+          f"{wall:.1f} s; K1 {launches['k1_by_instance']}, K3 "
+          f"{launches['k3_by_op']}, the sim's own count "
+          f"{rec.get('launches')} ({smi})")
+    return rec, launches, wall
+
+
+def sim_phase(dev, smi="", P=P_MAIN, D=D_MAIN, chunk=SIM_CHUNK,
+              devscale_family="mobilelite"):
+    """Phase 22: the port's ``sda-sim`` (``cli/sim.main``) in this process
+    at P x D, each run exact by its own ``--verify``: (a) the pod on K1
+    (full masks, one shard, a warm and a timed round: 2 K1 launches on a
+    card); (b) the streamed round on K1 and K3 (ChaCha masks, participant
+    chunks of ``chunk``: one K1 launch and one K3 window a tile, the tiling
+    as the sim reports it); (c) the quorum reveal without clerk 6 on K1;
+    (d) one multihost worker process (NCCL on a card, gloo on the CPU,
+    world size 1, a mesh of 8 entries of its device), whose one JSON line
+    the coordinator forwards, with the launches the worker counted (one
+    K1 launch a shard a round: 16); (e) the devscale profile at
+    ``devscale_family``'s width on K1, exact on the device oracle; (f) the
+    drill profiles at ``ci.sh``'s sizes where libsodium is present, else
+    one skip line. Then K1 held to its plain version at (a)'s shard, (b)'s
+    first tile, (d)'s last shard and (e)'s last shard of its first tile,
+    and K3 at (b)'s windows, each on the rows and seeds its run drew.
+    Returns the phase's JSON record."""
+    import numpy as np
+    import torch
+
+    from sda_tpu_torch.crypto import sodium
+    from sda_tpu_torch.mesh import SimulatedPod, make_mesh, simpod
+    from sda_tpu_torch.mesh.streaming import synthetic_device_block_provider32
+
+    scheme, full, p = _flagship()
+    on_card = dev.type == "cuda"
+    device = ["--device", str(dev)]
+    base = ["--participants", str(P), "--dim", str(D), "--verify", *device]
+    pallas = ["--pallas"] if on_card else []
+    runs, launches = {}, {}
+
+    def run(name, argv):
+        rec, n, wall = _sim(name, argv, smi)
+        _check(rec.get("exact") is True, f"sim {name}: not exact {rec}")
+        runs[name] = {key: rec.get(key) for key in (
+            "mode", "participants", "dim", "prime", "pallas", "exact",
+            "dropped_clerks", "seconds", "elements_per_sec", "tiles",
+            "tile_shape")}
+        runs[name]["wall_s"] = wall
+        launches[name] = n
+        if "--multihost" not in argv:
+            # the sim's own count of its rounds' launches agrees with the
+            # counters read around it (the worker's (d) has only its own)
+            _check(rec["launches"] == {"k1": n["k1"], "k3": n["k3"]},
+                   f"sim {name}: reports launches {rec['launches']}, "
+                   f"counted {n}")
+        return rec, n
+
+    # (a) the pod on K1
+    rec, n = run("pod", [*base, "--clerks", "8", "--mask", "full", *pallas])
+    _check(rec["mode"] == "simpod mesh (1, 1)" and rec["pallas"] == on_card
+           and rec["prime"] == p, f"sim pod: {rec}")
+    _check(not on_card or n["k1"] == 2,
+           f"sim pod: K1 launched {n['k1']} times, want 2")
+    # (b) the streamed round on K1 and K3
+    rec, n = run("streamed", [*base, "--streaming", "--mask", "chacha",
+                              "--participants-chunk", str(chunk), *pallas])
+    _check(rec["mode"] == "streaming" and rec["pallas"] == on_card,
+           f"sim streamed: {rec}")
+    tiles, (rows, width) = rec["tiles"], rec["tile_shape"]
+    if on_card:
+        _check(n["k1"] == tiles and n["k1_by_instance"][
+            "columns_unmasked"] == tiles,
+            f"sim streamed: K1 {n['k1_by_instance']}, want {tiles} on "
+            "columns_unmasked")
+        _check(n["k3_by_op"]["expand"] == tiles,
+               f"sim streamed: K3 {n['k3_by_op']}, want {tiles} windows")
+    # (c) the quorum reveal
+    rec, n = run("quorum", [*base, "--drop-clerks", "6", *pallas])
+    _check(rec["dropped_clerks"] == [6], f"sim quorum: {rec}")
+    _check(not on_card or n["k1"] == 2,
+           f"sim quorum: K1 launched {n['k1']} times, want 2")
+    # (d) one multihost worker process
+    _empty_cache(dev)
+    rec, n = run("multihost", [*base, "--multihost", "1",
+                               "--devices-per-process", "8", *pallas])
+    _check(rec["mode"] == "multihost x1 simpod mesh (8, 1)"
+           and rec["pallas"] == on_card, f"sim multihost: {rec}")
+    # K1 and K3 ran in the worker: the launches are its own count, one K1
+    # launch a shard a round (warm + timed)
+    launches["multihost"] = {**rec["launches"], "counted_by": "worker"}
+    _check(not on_card or rec["launches"] == {"k1": 8 * 2, "k3": 0},
+           f"sim multihost: the worker launched {rec['launches']}, want "
+           "K1 16, K3 0")
+    # (e) the devscale profile through the sim's dispatch
+    _empty_cache(dev)
+    rec, n, _ = _sim("devscale", ["--devscale", "--devscale-family",
+                                  devscale_family, "--devscale-pallas",
+                                  *device], smi)
+    _check(rec["ok"] and rec["exact"] and rec["device_oracle"]["cols"]
+           == rec["dim"], f"sim devscale: {rec}")
+    # one K1 launch a shard a tile in each round: the warm and timed ones
+    # and the sink-fed one (no scan lane at a model's width)
+    _check("scan_lane" not in rec, f"sim devscale: a scan lane ran {rec}")
+    want = (rec["tiles"] * rec["p_shards"] * rec["d_shards"]
+            * (rec["rounds"] + ("clerk_fed" in rec)))
+    _check(not on_card or n["k1"] == want,
+           f"sim devscale: K1 launched {n['k1']} times, want {want}")
+    drec = rec
+    runs["devscale"] = {key: rec.get(key) for key in (
+        "dim", "tiles", "dim_tile", "p_shards", "d_shards", "rounds",
+        "seed", "value", "round_seconds_marginal", "exact", "device_oracle",
+        "platform")}
+    launches["devscale"] = n
+    # (f) the drill profiles (they seal every share: libsodium)
+    drills = {"load": ["--load", "--participants", "24", "--dim", "4",
+                       "--load-arrivals", "closed", "--load-concurrency",
+                       "8", "--load-seed", "20260803"],
+              "chaos": ["--chaos", "--dead-clerks", "1", "--chaos-seed",
+                        "20260803", "--chaos-rate", "0.05"],
+              "pickup": ["--pickup", "--pickup-snapshots", "6",
+                         "--pickup-interval", "0.5", "--pickup-wait", "10",
+                         "--pickup-seed", "20260803"],
+              "soak": ["--soak", "--soak-tenants", "2", "--soak-epochs", "3",
+                       "--soak-participants", "4", "--soak-seed",
+                       "20260803"],
+              "analytics": ["--analytics", "histogram,countmin",
+                            "--analytics-participants", "4",
+                            "--analytics-epochs", "2", "--analytics-seed",
+                            "20260806"]}
+    if not sodium.available():
+        drill_rec = {"stage": "sim_drills", "run": False,
+                     "why": "libsodium not found on this machine"}
+        print(json.dumps(drill_rec))
+    else:
+        drill_rec = {"stage": "sim_drills", "run": True}
+        for name, argv in drills.items():
+            rec, _, wall = _sim(name, [*argv, *device], smi)
+            drill_rec[name] = {"exact": rec.get("exact"), "wall_s": wall,
+                               "value": rec.get("value")}
+            _check(rec.get("exact") is True, f"sim {name}: {rec}")
+    # the kernels at the shapes the runs launched them with, on the rows
+    # and seeds each run drew
+    pod = SimulatedPod(scheme, full, mesh=make_mesh(1, 1, devices=[dev]))
+    f = pod._field
+
+    def hold(case, rows_of, shape, seed, masked=True):
+        """K1 on ``rows_of`` zero-padded to ``shape``, as the run's shard."""
+        x = torch.zeros(shape, dtype=torch.int64, device=dev)
+        r = rows_of[:shape[0], :shape[1]]
+        x[:r.shape[0], :r.shape[1]] = f.to_residues(r.to(dev))
+        return _k1_shard_hold(case, dev, scheme, masked, x, seed)
+
+    inputs = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 1 << 20, size=(P, D), dtype=np.int64))
+    # (a) the one shard, the round seed 0's tile (0, 0)
+    k1_err = hold("sim pod shard", inputs, pod.padded_shape(P, D),
+                  simpod._tile_seed(0, 0, 0))
+    _empty_cache(dev)
+    # (b) tile 0, keyed by the round seed's tile (0, 0); its ChaCha masks
+    # are K3's, so K1 runs unmasked
+    k1_err = max(k1_err, hold("sim streamed tile 0", inputs, (rows, width),
+                              simpod._tile_seed(0, 0, 0), masked=False))
+    del inputs
+    _empty_cache(dev)
+    k3_err = max(_k3_window("sim streamed", dev, 0, p0, min(rows, P - p0),
+                            0, width, p)
+                 for p0 in sorted({0, (P - 1) // rows * rows}))
+    # (d) the worker's last shard of the (8, 1) mesh: rank 0's rows
+    # (default_rng(1000)), padded to 8 row shards, and its padding rows
+    P_pad, d_pad = SimulatedPod(scheme, full, mesh=make_mesh(
+        8, 1, devices=[dev] * 8)).padded_shape(-(-P // 8) * 8, D)
+    P_loc = P_pad // 8
+    local = torch.from_numpy(np.random.default_rng(1000).integers(
+        0, 1 << 20, size=(P, D), dtype=np.int64))
+    k1_err = max(k1_err, hold("sim multihost shard (7, 0)",
+                              local[7 * P_loc:], (P_loc, d_pad),
+                              simpod._tile_seed(0, 7, 0)))
+    del local
+    _empty_cache(dev)
+    # (e) the last shard of the warm round's first tile: the device
+    # provider's rows, the tile's seed, then the shard's
+    ps, ds = drec["p_shards"], drec["d_shards"]
+    Pc_loc = drec["participants_chunk"] // ps
+    d_loc = drec["dim_tile"] // ds
+    r0, c0 = (ps - 1) * Pc_loc, (ds - 1) * d_loc
+    prov = synthetic_device_block_provider32(p, seed=drec["seed"],
+                                             device=dev)
+    k1_err = max(k1_err, hold(
+        f"sim devscale shard ({ps - 1}, {ds - 1}) of tile 0",
+        prov(r0, min(r0 + Pc_loc, drec["participants"]), c0,
+             min(c0 + d_loc, drec["dim"])), (Pc_loc, d_loc),
+        simpod._tile_seed(simpod._tile_seed(drec["seed"], 0, 0), ps - 1,
+                          ds - 1)))
+    _empty_cache(dev)
+    return {"stage": "sim", "participants": P, "dim": D,
+            "participants_chunk": chunk, "streamed_tiles": tiles,
+            "runs": runs, "launches": launches, "drills": drill_rec,
+            "k1_launches": sum(n["k1"] for n in launches.values()),
+            "k3_launches": sum(n["k3"] for n in launches.values()),
+            "k1_shard_max_abs_err": k1_err, "k3_window_max_abs_err": k3_err}
+
+
 def _peak(dev):
     """The device-memory peak since the last call (None off the card)."""
     import torch
@@ -2507,6 +2742,16 @@ def main() -> int:
     print(json.dumps(rec21), flush=True)
     print(f"phase 21: {rec21['phase_s']:.1f} s")
 
+    # -- 22. the port's sda-sim ---------------------------------------------
+    print(f"sim: the port's sda-sim at P={P_MAIN} x d={D_MAIN}: pod, "
+          f"streamed, quorum, one multihost worker, devscale ({smi}):")
+    t22 = time.perf_counter()
+    rec22 = sim_phase(dev, smi)
+    rec22["phase_s"] = time.perf_counter() - t22
+    print(json.dumps(rec22), flush=True)
+    print(f"phase 22: {rec22['phase_s']:.1f} s")
+    k3_launches["sim"] = rec22["k3_launches"]
+
     # -- 8. the record ------------------------------------------------------
     print(smi)
     print(json.dumps({"kernels": [{
@@ -2522,15 +2767,18 @@ def main() -> int:
         "launches_multihost": rec20["k1_launches_round"]
         + rec20["k1_launches_resumed"],
         "launches_fedavg": rec21["k1_launches"],
+        "launches_sim": rec22["k1_launches"],
         "launches_by_phase": {
             "pod_round": rec18["k1_launches_phase"],
             "devscale": rec19["k1_launches_phase"],
             "multihost": rec20["k1_launches_phase"],
-            "fedavg": rec21["k1_launches_phase"]},
+            "fedavg": rec21["k1_launches_phase"],
+            "sim": rec22["k1_launches"]},
         "max_abs_err": max(max_err["K1"], rec18["k1_shard_max_abs_err"],
                            rec19["k1_shard_max_abs_err"],
                            rec20["k1_shard_max_abs_err"],
-                           rec21["k1_shard_max_abs_err"]),
+                           rec21["k1_shard_max_abs_err"],
+                           rec22["k1_shard_max_abs_err"]),
         "ms": k1_ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
@@ -2561,7 +2809,8 @@ def main() -> int:
         "max_abs_err": max(k3_rec["max_abs_err"],
                            rec14["k3_window_max_abs_err"],
                            rec15["k3_window_max_abs_err"],
-                           rec18["k3_window_max_abs_err"]),
+                           rec18["k3_window_max_abs_err"],
+                           rec22["k3_window_max_abs_err"]),
         "ms": k3_rec["ms"],
         "plain_ms": k3_rec["plain_ms"],
         "bound_ms": k3_rec["bound_ms"],

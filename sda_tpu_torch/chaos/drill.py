@@ -66,6 +66,7 @@ def run_chaos_drill(
     brownout_s: float = 0.0,
     churn_rate: float = 0.0,
     async_http: bool = False,
+    device=None,
 ) -> dict:
     """Run one full aggregation round over HTTP under injected faults.
 
@@ -119,7 +120,8 @@ def run_chaos_drill(
 
     Returns the report dict (``exact``, ``injected_ratio``, the round's
     lifecycle history, counters...). Requires libsodium (real sealed-box
-    crypto, as in production rounds).
+    crypto, as in production rounds). ``device`` is the clients' device
+    (CUDA unless ``"cpu"``).
     """
     import numpy as np
 
@@ -226,7 +228,8 @@ def run_chaos_drill(
             def new_client():
                 keystore = MemoryKeystore()
                 agent = SdaClient.new_agent(keystore)
-                return SdaClient(agent, keystore, new_proxy())
+                return SdaClient(agent, keystore, new_proxy(),
+                                 device=device)
 
             # -- clean setup (no injection yet: the drill targets the round)
             recipient = new_client()
@@ -329,7 +332,8 @@ def run_chaos_drill(
             equivocations_undetected = 0
             resume_started = time.perf_counter()
             for agent, _row in departed:
-                rejoined = SdaClient(agent, MemoryKeystore(), new_proxy())
+                rejoined = SdaClient(agent, MemoryKeystore(), new_proxy(),
+                                     device=device)
                 resumed += rejoined.resume(journal)
             time_to_resume_s = time.perf_counter() - resume_started
             if departed:
@@ -338,7 +342,8 @@ def run_chaos_drill(
                 # input — exactly the double-count the exactly-once plane
                 # exists to stop. Detection = typed ParticipationConflict.
                 agent, row = departed[0]
-                probe = SdaClient(agent, MemoryKeystore(), new_proxy())
+                probe = SdaClient(agent, MemoryKeystore(), new_proxy(),
+                                  device=device)
                 try:
                     # upload directly (not participate()): the probe is an
                     # upload-level attack and must reach the server even

@@ -14,12 +14,12 @@ that turns the one-shot substrate into a long-running system:
 - ``retention.py`` — terminal rounds past their TTL transition to
   ``expired`` via the lifecycle CAS and are cascade-purged from all four
   store backends, keeping store size and fleet memory flat over hundreds
-  of rounds.
-
-Port of ``sda_tpu/service/__init__.py`` without ``soak.py``
-(``SoakProfile``, ``run_soak``): the soak drill drives
-``chaos.drill.run_chaos_drill``, which needs ``loadgen``'s latency report,
-which the port does not have yet (ROADMAP item 14).
+  of rounds;
+- ``soak.py`` — the long-haul drill behind ``sda-sim --soak``: T tenants
+  x R pipelined epochs of real-crypto rounds with churn and chaos armed,
+  asserting bit-exact reveals, zero cross-epoch/cross-tenant leakage,
+  and flat store size + RSS after retention; the headline BENCH metric
+  is sustained ``rounds_per_hour``.
 
 Tenant fairness lives in the admission plane (``http/admission.py``):
 per-recipient budget buckets layered over the per-agent buckets, keyed
@@ -36,15 +36,18 @@ from .scheduler import (
     epoch_snapshot_id,
     schedules_report,
 )
+from .soak import SoakProfile, run_soak
 
 __all__ = [
     "RetentionPolicy",
     "RoundScheduler",
     "ScheduleSpec",
+    "SoakProfile",
     "epoch_aggregation_id",
     "epoch_snapshot_id",
     "expire_round",
     "purge_round",
+    "run_soak",
     "schedules_report",
     "sweep_retention",
 ]

@@ -15,6 +15,9 @@ import pytest
 ROOT = Path(__file__).resolve().parent.parent
 
 COPIES = [
+    "analytics/__init__.py",
+    "analytics/encoders.py",
+    "analytics/scenario.py",
     "chaos/__init__.py",
     "chaos/drill.py",
     "chaos/poison.py",
@@ -22,6 +25,7 @@ COPIES = [
     "cli/fleetd.py",
     "cli/main.py",
     "cli/serverd.py",
+    "cli/tracecli.py",
     "client/embed.py",
     "client/journal.py",
     "client/relay.py",
@@ -40,9 +44,17 @@ COPIES = [
     "http/base.py",
     "http/client.py",
     "http/server.py",
+    "loadgen/__init__.py",
+    "loadgen/connstorm.py",
+    "loadgen/driver.py",
+    "loadgen/inputbench.py",
+    "loadgen/pickup.py",
+    "loadgen/recorderbench.py",
     "native/__init__.py",
     "native/src/sda_native.cpp",
+    "obs/forensics.py",
     "obs/recorder.py",
+    "obs/slo.py",
     "obs/timeline.py",
     "obs/trace.py",
     "protocol/__init__.py",
@@ -56,9 +68,9 @@ COPIES = [
     "server/breaker.py",
     "server/core.py",
     "server/fleet.py",
+    "server/health.py",
     "server/jsonfs.py",
     "server/lifecycle.py",
-    "server/health.py",
     "server/memory.py",
     "server/mongo.py",
     "server/routing.py",
@@ -66,8 +78,10 @@ COPIES = [
     "server/sqlite.py",
     "server/stores.py",
     "server/wakeup.py",
+    "service/__init__.py",
     "service/retention.py",
     "service/scheduler.py",
+    "service/soak.py",
     "store/__init__.py",
     "store/file.py",
     "tree/__init__.py",
@@ -120,6 +134,10 @@ FUNCTION_COPIES = [
     *[("fl/scenario.py", name) for name in (
         "_make_codec", "_load_dataset", "_attack_block",
         "_robust_tree_update")],
+    # cli/sim.py rewrites the mesh modes, the multihost coordinator and
+    # the FL and devscale profiles (no backend selection)
+    ("cli/sim.py", "_export_trace"),
+    ("cli/sim.py", "_run_connstorm"),
 ]
 
 #: functions that a rewritten module copies but for the ``device=``
@@ -128,15 +146,82 @@ FUNCTION_COPIES = [
 DEVICE_KEYWORD_COPIES = [
     ("fl/scenario.py", "_run_protocol_mode"),
     ("fl/scenario.py", "_run_tree_mode"),
+    *[("cli/sim.py", name) for name in (
+        "_run_load", "_run_tree", "_run_soak", "_run_analytics",
+        "_run_pickup", "_run_chaos")],
 ]
 
 #: lines a copy words otherwise, by line number (1-based), each replaced
 #: by the text given (which may span lines): docstring lines of
-#: ``lifecycle.py``, ``health.py``, ``scheduler.py`` and ``fl/__init__.py``
-#: name steps of the reference's own history; the CLI's device lines are
+#: ``lifecycle.py``, ``health.py``, ``scheduler.py``, ``fl/__init__.py``
+#: and ``analytics/scenario.py`` name steps of the reference's own history; the CLI's device lines are
 #: the port's counterpart of ``JAX_PLATFORMS`` (``sda --device``: the
-#: agent's field arithmetic; ``sdad --device``: the Paillier premix)
+#: agent's field arithmetic; ``sdad --device``: the Paillier premix); the
+#: drills' and benches' client lines pass the clients' ``device`` (a
+#: profile field, or a keyword), CUDA unless ``"cpu"``
+_DEVICE_FIELD = ("    device: Optional[str] = None  # the clients' device: "
+                 "CUDA unless \"cpu\"")
 EDITS = {
+    "chaos/drill.py": {
+        68: "    async_http: bool = False,\n    device=None,",
+        122: "    crypto, as in production rounds). ``device`` is the "
+             "clients' device\n    (CUDA unless ``\"cpu\"``).",
+        229: "                return SdaClient(agent, keystore, new_proxy(),\n"
+             "                                 device=device)",
+        332: "                rejoined = SdaClient(agent, MemoryKeystore(), "
+             "new_proxy(),\n                                     "
+             "device=device)",
+        341: "                probe = SdaClient(agent, MemoryKeystore(), "
+             "new_proxy(),\n                                  device=device)",
+    },
+    "loadgen/driver.py": {
+        106: "    async_http: bool = False\n" + _DEVICE_FIELD,
+        300: "                return SdaClient(agent, keystore, "
+             "_proxy_for(agent.id),\n"
+             "                                 device=profile.device)",
+        391: "                                     "
+             "_proxy_for(participant.agent.id),\n"
+             "                                     device=profile.device)",
+    },
+    "loadgen/pickup.py": {
+        51: "    timeout_s: float = 120.0\n" + _DEVICE_FIELD,
+        86: "                             SdaHttpClient(http_server.address, "
+            "token=\"t\"),\n"
+            "                             device=profile.device)",
+    },
+    "loadgen/inputbench.py": {
+        49: "                    seed: int = 0, device=None) -> dict:",
+        50: "    \"\"\"Run both rungs at ``dim``; returns the JSON-able "
+            "report. ``device``:\n    the participant's device (CUDA unless "
+            "``\"cpu\"``).\"\"\"",
+        71: "        client = SdaClient(SdaClient.new_agent(keystore), "
+            "keystore, service,\n                           device=device)",
+        118: "        \"platform\": participant.crypto.device.type,",
+        136: "    parser.add_argument(\"--seed\", type=int, default=0)\n"
+             "    parser.add_argument(\"--device\", default=\"cuda\",\n"
+             "                        help=\"the participant's device \"\n"
+             "                             \"(cuda, or cpu for the host)\")",
+        138: "    print(json.dumps(run_input_bench(args.dim, args.repeats, "
+             "args.seed,\n                                     "
+             "args.device)))",
+    },
+    "service/soak.py": {
+        72: "    timeout_s: float = 600.0\n" + _DEVICE_FIELD,
+        223: "                         _proxy(key if key is not None else "
+             "agent.id, tenant),\n"
+             "                         device=profile.device)",
+        399: "                                _proxy(device.agent.id, "
+             "tenant[\"id\"]),\n"
+             "                                device=profile.device)",
+    },
+    "analytics/scenario.py": {
+        8: "one clerk committee. Epochs are minted/closed by the round "
+           "scheduler",
+        112: "    timeout_s: float = 600.0\n" + _DEVICE_FIELD,
+        451: "        client = SdaClient(agent, keystore, "
+             "client_service(agent.id),\n"
+             "                           device=profile.device)",
+    },
     "fl/__init__.py": {
         4: "servers over one store (``server/fleet.py``), deterministic round",
         5: "termination (``server/lifecycle.py``), gray-failure survival, "

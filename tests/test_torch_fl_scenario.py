@@ -421,3 +421,18 @@ def test_run_fl_families_train_on_the_port(family):
     assert report["exact"] is True and report["rounds_exact"] == 2
     losses = [row["mean_local_loss"] for row in report["per_round"]]
     assert losses[-1] < losses[0]
+
+
+def test_input_bench_shape():
+    """The participate-input bench (``loadgen/inputbench.py``) reports both
+    rungs, its participant on the CPU; no perf assertion."""
+    _needs_sodium()
+    from sda_tpu_torch.loadgen.inputbench import run_input_bench
+
+    report = run_input_bench(dim=2048, repeats=2, device="cpu")
+    assert report["dim"] == 2048
+    assert report["platform"] == "cpu"
+    for key in ("convert_list_ms", "convert_array_ms", "seal_list_ms",
+                "seal_array_ms", "value"):
+        assert isinstance(report[key], (int, float)), key
+    assert json.dumps(report)

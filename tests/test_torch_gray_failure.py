@@ -1,9 +1,11 @@
 """The recipes of ``tests/test_gray_failure.py`` against the port's copies:
 gray failpoint kinds (``chaos``), fleet health (``server/health.py``:
 heartbeats, the suspect/dead CAS, lease recall, hedging), the store
-circuit breaker (``server/breaker.py``) and the clerk's result wait. The
-reference file's drills that spawn a fleet (``server/fleet.py``) or read
-``sda-sim``'s parser wait for those modules (ROADMAP item 14).
+circuit breaker (``server/breaker.py``), the clerk's result wait, and the
+fleet drills (``server/fleet.py`` spawning the port's ``sdad``: the
+graceful drain's heartbeat and a SIGKILLed worker's lease recall, the
+clients on the CPU). ``sda-sim``'s ``--chaos-spec`` recipe is in
+``tests/test_torch_sim.py``.
 """
 
 import re
@@ -736,3 +738,162 @@ def test_await_result_jitter_is_seeded_per_agent():
     assert draws["a"] == [random.Random(
         f"{client_a.agent.id}:{agg}").random() for _ in range(4)]
     assert draws["a"] != draws["b"]
+
+
+# ---------------------------------------------------------------------------
+# the fleet: a graceful drain's heartbeat, then SIGKILL a worker holding
+# leases mid-round
+
+
+def test_drained_heartbeat_lands_after_graceful_drain(tmp_path):
+    """A SIGTERM'd worker's terminal 'drained' row is written AFTER the
+    drain hands leases back (a worker killed mid-drain must look
+    stale-alive — diagnosable — never prematurely 'drained')."""
+    from sda_tpu_torch.server.fleet import Fleet
+
+    fleet = Fleet(1, ["--sqlite", str(tmp_path / "one.db")],
+                  extra_args=["--heartbeat", "0.25", "--job-lease", "5"])
+    try:
+        fleet.start(timeout_s=120.0)
+    finally:
+        summaries = fleet.stop()
+    assert summaries and summaries[0].get("leaked") == 0
+    store = new_sqlite_server(tmp_path / "one.db").server.clerking_job_store
+    assert store.get_worker_heartbeat("w0")["state"] == "drained"
+
+
+# ---------------------------------------------------------------------------
+# the capstone: SIGKILL a fleet worker holding leases mid-round
+
+
+def _run_sigkill_drill(tmp_path, backend_args, lease_seconds=30.0):
+    """Two real `sdad` workers over one shared store; w0 grants itself
+    every clerking-job lease and is SIGKILLed (no drain); w1's heartbeat
+    detector must recall the leases and the round must complete
+    bit-exactly well inside the lease-expiry fallback."""
+    from sda_tpu_torch.client import SdaClient
+    from sda_tpu_torch.crypto import MemoryKeystore, sodium
+    from sda_tpu_torch.http import SdaHttpClient
+    from sda_tpu_torch.protocol import FullMasking
+    from sda_tpu_torch.server.fleet import Fleet
+
+    if not sodium.available():
+        pytest.skip("needs libsodium (real crypto round)")
+
+    scheme = AdditiveSharing(share_count=3, modulus=433)
+    fleet = Fleet(2, backend_args, extra_args=[
+        "--job-lease", str(lease_seconds),
+        "--heartbeat", "0.25", "--suspect-after", "0.5",
+        "--dead-after", "1.0", "--round-sweep", "0.2",
+        "--statusz",
+    ])
+    kill_to_done_s = None
+    try:
+        fleet.start(timeout_s=120.0)
+        w0, w1 = fleet.addresses["w0"], fleet.addresses["w1"]
+
+        proxy_w1 = SdaHttpClient(w1, token="gray-drill",
+                                 max_retries=8, backoff_base=0.01,
+                                 backoff_cap=0.1)
+        proxy_w0 = SdaHttpClient(w0, token="gray-drill",
+                                 max_retries=2, backoff_base=0.01,
+                                 backoff_cap=0.05, deadline=10.0)
+
+        def new_client():
+            keystore = MemoryKeystore()
+            agent = SdaClient.new_agent(keystore)
+            return SdaClient(agent, keystore, proxy_w1, device="cpu")
+
+        recipient = new_client()
+        recipient.upload_agent()
+        recipient_key = recipient.new_encryption_key()
+        recipient.upload_encryption_key(recipient_key)
+        candidates = {recipient.agent.id: recipient}
+        for _ in range(scheme.share_count):
+            clerk = new_client()
+            clerk.upload_agent()
+            clerk.upload_encryption_key(clerk.new_encryption_key())
+            candidates[clerk.agent.id] = clerk
+        agg = Aggregation(
+            id=AggregationId.random(), title="sigkill-drill",
+            vector_dimension=4, modulus=scheme.modulus,
+            recipient=recipient.agent.id, recipient_key=recipient_key,
+            masking_scheme=FullMasking(scheme.modulus),
+            committee_sharing_scheme=scheme,
+            recipient_encryption_scheme=SodiumEncryption(),
+            committee_encryption_scheme=SodiumEncryption(),
+        )
+        recipient.upload_aggregation(agg)
+        recipient.begin_aggregation(agg.id)
+        committee = recipient.service.get_committee(recipient.agent, agg.id)
+        clerks = [candidates[cid] for cid, _ in committee.clerks_and_keys]
+
+        inputs = np.arange(4 * 4, dtype=np.int64).reshape(4, 4) % 433
+        for row in inputs:
+            participant = new_client()
+            participant.upload_agent()
+            participant.participate([int(x) for x in row], agg.id)
+        recipient.end_aggregation(agg.id)  # snapshot + job fan-out
+
+        # every clerking job is leased THROUGH w0 — and every poll
+        # response is "lost" with the worker, the gray-failure shape:
+        # leases live in the shared store, the work never happens
+        for clerk in clerks:
+            doomed = proxy_w0.get_clerking_job(clerk.agent, clerk.agent.id)
+            assert doomed is not None, "w0 must grant each clerk's lease"
+        fleet.kill("w0")
+        t_kill = time.monotonic()
+
+        # the committee keeps polling via the surviving worker: nothing
+        # is pollable until w1's detector declares w0 dead and recalls
+        deadline = time.monotonic() + 20.0
+        done = False
+        while time.monotonic() < deadline and not done:
+            for clerk in clerks:
+                try:
+                    clerk.run_chores(-1)
+                except ServerError:
+                    pass  # transient while the fleet re-converges
+            status = recipient.service.get_aggregation_status(
+                recipient.agent, agg.id)
+            done = bool(
+                status is not None and status.snapshots
+                and status.snapshots[0].number_of_clerking_results
+                >= scheme.share_count)
+            if not done:
+                time.sleep(0.05)
+        assert done, "round stalled: heartbeat recall never freed the leases"
+        kill_to_done_s = time.monotonic() - t_kill
+
+        output = recipient.await_result(agg.id, deadline=10.0)
+        expected = inputs.sum(axis=0) % 433
+        assert (output.positive().values == expected).all(), \
+            "zero lost participations, bit-exact reveal"
+        # MTTR: well under the lease-expiry fallback (the pre-heartbeat
+        # recovery path would idle ~lease_seconds)
+        assert kill_to_done_s < lease_seconds / 2, (
+            f"recovered in {kill_to_done_s:.1f}s — not meaningfully "
+            f"faster than the {lease_seconds}s lease-expiry fallback")
+
+        # the surviving worker's statusz names the dead peer
+        import requests
+
+        statusz = requests.get(w1 + "/statusz", timeout=10).json()
+        assert statusz["fleet_health"]["w0"]["state"] == "dead"
+        assert statusz["fleet_health"]["w1"]["state"] == "alive"
+    finally:
+        summaries = fleet.stop()
+    # w1 drains clean; w0 was SIGKILLed so it reports killed-or-dead
+    by_node = {s.get("node_id"): s for s in summaries if s.get("node_id")}
+    assert by_node.get("w1", {}).get("leaked") == 0
+    return kill_to_done_s
+
+
+@pytest.mark.chaos
+def test_sigkill_worker_midround_recovers_via_heartbeats_sqlite(tmp_path):
+    _run_sigkill_drill(tmp_path, ["--sqlite", str(tmp_path / "shared.db")])
+
+
+@pytest.mark.chaos
+def test_sigkill_worker_midround_recovers_via_heartbeats_jsonfs(tmp_path):
+    _run_sigkill_drill(tmp_path, ["--jfs", str(tmp_path / "shared-jfs")])

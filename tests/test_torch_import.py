@@ -128,8 +128,21 @@ def _entry_points():
     from sda_tpu_torch.models import (LeNet, LocalTrainer, LoRAMLP,
                                       MobileLite, pod_fedavg_round, sgd)
 
+    from sda_tpu_torch.chaos.drill import run_chaos_drill
+    from sda_tpu_torch.cli import sim
+    from sda_tpu_torch.loadgen import LoadProfile, run_load
+
+    def sim_main(**kw):
+        device = ["--device", kw["device"]] if "device" in kw else []
+        return sim.main(["--participants", "4", "--dim", "24", *device])
+
     v1 = "sda-tpu/chacha20-prg/v1"
     return {
+        "sim": sim_main,
+        "run_chaos_drill": lambda **kw: run_chaos_drill(3, 4, rate=0.0,
+                                                        **kw),
+        "run_load": lambda **kw: run_load(LoadProfile(
+            participants=3, dim=4, arrivals="closed", concurrency=2, **kw)),
         "run_fl": lambda **kw: run_fl(FLProfile(participants=2, rounds=1,
                                                 **kw)),
         "pod_fedavg_round": lambda **kw: pod_fedavg_round(
@@ -210,7 +223,8 @@ def _entry_points():
                                   "ModelScaleRound", "run_devscale",
                                   "run_fl", "pod_fedavg_round",
                                   "LocalTrainer", "LeNet", "MobileLite",
-                                  "LoRAMLP"])
+                                  "LoRAMLP", "sim", "run_chaos_drill",
+                                  "run_load"])
 def test_entry_points_default_to_cuda(name):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default does not raise")
@@ -244,12 +258,7 @@ def test_multi_device_modules_leave_jax_out(module):
 #: relative imports in the port whose targets it does not have yet, each
 #: with the ROADMAP item that ports the target: (importing module, target
 #: module, name or None) -> item
-PENDING_IMPORTS = {
-    # the chaos drill's latency summary (its end, after the round): the
-    # HTTP load benches of ``loadgen``
-    ("sda_tpu_torch.chaos.drill", "sda_tpu_torch.loadgen",
-     "latency_report_ms"): "item 14 (loadgen)",
-}
+PENDING_IMPORTS = {}
 
 
 def _top_level_names(path: Path) -> set:
@@ -336,7 +345,11 @@ def test_relative_import_scan_sees_function_level_imports():
     "sda_tpu_torch.cli.bench", "sda_tpu_torch.obs.regress",
     "sda_tpu_torch.utils.traceparse", "sda_tpu_torch.fl",
     "sda_tpu_torch.tree", "sda_tpu_torch.server.fleet",
-    "sda_tpu_torch.cli.fleetd", "sda_tpu_torch.models.families"])
+    "sda_tpu_torch.cli.fleetd", "sda_tpu_torch.models.families",
+    "sda_tpu_torch.cli.sim", "sda_tpu_torch.cli.tracecli",
+    "sda_tpu_torch.loadgen", "sda_tpu_torch.loadgen.inputbench",
+    "sda_tpu_torch.loadgen.recorderbench", "sda_tpu_torch.analytics",
+    "sda_tpu_torch.obs.forensics", "sda_tpu_torch.obs.slo"])
 def test_entry_module_leaves_jax_out(module):
     code = (f"import importlib, sys\nimportlib.import_module({module!r})\n"
             f"bad = [m for m in sys.modules if m.split('.')[0] in "

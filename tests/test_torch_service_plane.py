@@ -1,8 +1,9 @@
 """The recipes of ``tests/test_service_plane.py`` against the port's copies
 of the service plane (``sda_tpu_torch/service``: the recurring-round
 scheduler and retention), the delete cascade and tenant admission, on all
-four store backends. The reference file's soak smoke waits for the port's
-``service/soak.py`` (ROADMAP item 14).
+four store backends, and the soak drill (``service/soak.py``) at the
+reference's smoke size, its clients on the CPU, held to the reference's
+report on the same seed.
 """
 
 import re
@@ -714,3 +715,57 @@ def test_rounds_report_prefers_live_and_rolls_up_tenants():
     RoundScheduler(service.server, [spec]).tick_once()
     report = lifecycle.rounds_report(service.server, limit=50)
     assert str(recipient.id) in report["by_tenant"]
+
+
+# ---------------------------------------------------------------------------
+# the soak drill, smoke-sized (real crypto end to end)
+
+def test_soak_smoke_memory():
+    from sda_tpu_torch.crypto import sodium
+
+    if not sodium.available():
+        pytest.skip("libsodium not present")
+    from sda_tpu_torch.service import SoakProfile, run_soak
+
+    report = run_soak(SoakProfile(
+        tenants=2, epochs=2, participants=4, dim=4, seed=11, churn=0.5,
+        device="cpu"))
+    assert report["exact"] is True
+    assert report["rounds_exact"] == 4
+    # epoch e entered collecting before epoch e-1 revealed, per tenant
+    assert report["pipelined"] is True
+    assert report["pipelined_pairs"] == "2/2"
+    # zero cross-epoch/cross-tenant contamination
+    assert report["leaks"] == 0
+    assert sum(report["replay_probes"].values()) == 2
+    # retention kept the store flat: every revealed round purged
+    assert report["retention"]["purged_rounds"] == 4
+    assert report["retention"]["store_rows_flat"] is True
+    # churned devices all resumed via their journals
+    assert report["churn"]["participants_resumed"] \
+        == report["churn"]["participants_churned"]
+    assert report["value"] > 0  # rounds_per_hour headline
+    assert report["unit"] == "rounds/hour"
+
+
+def test_soak_matches_reference_on_the_same_seed():
+    """The soak smoke through both packages on the same seed: the same
+    rounds, verdicts, churn plan, replay probes and retention counts."""
+    from sda_tpu_torch.crypto import sodium
+
+    if not sodium.available():
+        pytest.skip("libsodium not present")
+    from sda_tpu.service import SoakProfile as RefProfile
+    from sda_tpu.service import run_soak as ref_run_soak
+    from sda_tpu_torch.service import SoakProfile, run_soak
+
+    kw = dict(tenants=2, epochs=2, participants=4, dim=4, seed=11,
+              churn=0.5)
+    ref = ref_run_soak(RefProfile(**kw))
+    got = run_soak(SoakProfile(**kw, device="cpu"))
+    for key in ("exact", "rounds", "rounds_exact", "pipelined",
+                "pipelined_pairs", "leaks", "replay_probes", "churn",
+                "client_failures", "unit"):
+        assert got[key] == ref[key], key
+    for key in ("purged_rounds", "store_rows_flat"):
+        assert got["retention"][key] == ref["retention"][key], key
