@@ -20,11 +20,17 @@ operation bound is counted from the algorithm's work
 CUDA version used; the participant loop's SASS opcode mix (``cuobjdump
 -sass``) is printed as a diagnostic. Then the protocol path: the role
 crypto (``CryptoModule`` on the card) at the flagship width, P=100,
-without transport; and, where libsodium is present, one round through
-``SdaClient``s on the card over the in-process memory server (P=20 at
-the same width) and the README walkthrough's round over the HTTP server,
-each revealed exactly, with the port's field ops counted by the device
-they ran on. Then ChaCha seed masks on K3 (``csrc/chacha.cu``): K3 held
+without transport; the port's host crypto (``crypto/csrc/sodium.c``,
+built by the host compiler: sealed boxes and Ed25519 in place of
+libsodium) against known answers from libsodium, with sealed-box round
+trips at the protocol's bundle sizes and its throughput on the card
+machine's host; one round through ``SdaClient``s on the card over the
+in-process memory server (P=20 at the same width), with Full masks and
+with ChaCha masks on K3 (one expand a participant, the recipient's
+combine, both held to the plain version on the round's own seeds), and
+the README walkthrough's round over the HTTP server, each revealed
+exactly, with the port's field ops counted by the device they ran on.
+Then ChaCha seed masks on K3 (``csrc/chacha.cu``): K3 held
 to its plain version and to the host spec (``fields.chacha``) for both
 PRGs, four moduli (one that forces the host replay), several widths and
 stream windows, and timed beside its bound; the role crypto with ChaCha
@@ -42,7 +48,12 @@ ciphertexts of a 2048-bit key) through ``paillier_combine`` with
 ``SDA_PREMIX_DEVICE=1`` in at most two K4 launches, byte-identical to the
 host fold, a homomorphic check on real encryptions, and K4's time beside
 its bound, the wrapper's, the plain version's and the host fold's, and
-on the same column shape at a 3072-bit key. Then the bench plane: the
+on the same column shape at a 3072-bit key; then the premix inside a live
+server (``SdaHttpServer`` over the memory server with
+``premix_paillier``, 2048-bit PackedPaillier clerks, the size floor as
+shipped): K4 must launch, every clerk job holds one premixed batch, the
+reveal is exact, and K4 is held to its plain version at a column the
+server folded. Then the bench plane: the
 port's bench (``sda_tpu_torch.benchmarks.bench``) in-process at the
 flagship width, all three lanes exact, its roofline utilization in
 (0, 1.05], K1's launches matching its lanes' calls, K1's device time in
@@ -75,7 +86,7 @@ the streamed round on K1 and K3 with ChaCha masks, the quorum reveal
 without clerk 6, one multihost worker process over NCCL (its launches
 counted in the worker), and the devscale profile at MobileLite's width,
 each with its K1 and K3 launches; the drill profiles (load, chaos,
-pickup, soak, analytics) where libsodium is present; K1 held to its
+pickup, soak, analytics, tree, fl) at ``ci.sh``'s sizes, each exact; K1 held to its
 plain version at the pod's shard, the streamed round's first tile, the
 worker's last shard and the devscale profile's shard, and K3 at the
 streamed round's windows, each on the rows and seeds its run drew.
@@ -178,6 +189,33 @@ SHARES_PREMIX, PREMIX_WINDOW, PREMIX_VALUE_BITS = 333_333, 45, 29
 #: stop at 64 rounds), and the turns of its instrumented-round A/B
 BENCH_SECONDS = 2.0
 AB_TURNS = 24
+#: known answers of the port's host crypto, from libsodium 1.0.18
+#: (``tests/test_torch_sodium.py`` holds them to it): crypto_scalarmult_base
+#: of bytes(range(32)); crypto_sign_seed_keypair of bytes(range(32, 64)) and
+#: its detached signature of KAT_MESSAGE; KAT_MESSAGE sealed to KAT_BOX_PK
+#: with the ephemeral secret key bytes(range(64, 96))
+KAT_MESSAGE = b"sda-tpu-torch host crypto known answer"
+KAT_BOX_PK = "8f40c5adb68f25624ae5b214ea767a6ec94d829d3d7b5e1ad1ba6f3e2138285f"
+KAT_SIGN_PK = "29acbae141bccaf0b22e1a94d34d0bc7361e526d0bfe12c89794bc9322966dd7"
+KAT_SIG = ("f13a1ec2f0048c0aea663d60a914704020066bc54e1250cbf10bd0e45b1f1b45"
+           "3ab2a8c23485b364ab31f4cc75c7500a6a8684ee4509ff9b7e07749d9113c80a")
+KAT_SEALED = (
+    "79a631eede1bf9c98f12032cdeadd0e7a079398fc786b88cc846ec89af85a51a"
+    "5a327140a0a87a0c6c2e38b2113be4c7ba3ce0546deaeba3ef57306c10ff56d4"
+    "cb8065e1427bfa4d933612f7ee600e474bda67c23a2b")
+#: sealed-box sizes of the host-crypto checks: empty, one byte, about a
+#: clerk's share bundle and the recipient's mask bundle of phase 10
+#: (varints of 333,333 packed shares and of 999,999 Full masks below 2^29);
+#: the timing's bundle, its repeats, and the sign/verify repeats
+SEAL_SIZES = (0, 1, 1_500_000, 4_000_000)
+SEAL_BUNDLE, SEAL_REPS, SIGN_REPS = 1_500_000, 20, 200
+#: the live-server premix (phase 16b): participants and dimension of the
+#: round (modulus 433, 3 additive clerks) and its committee's
+#: PackedPaillier scheme (2048-bit keys, 60 windows of 32 bits a
+#: plaintext, 16-bit values): each clerk column is P x ceil(D / 60) = 272
+#: ciphertexts, above encryption._DEVICE_PREMIX_MIN_MODMULS = 64
+P_PREMIX_SERVER, D_PREMIX_SERVER = 8, 2000
+PREMIX_SERVER_SCHEME = (60, 32, 16, 2048)
 #: the README walkthrough's round: three participants' 10-dim inputs
 WALKTHROUGH = ([0, 0, 0, 1, 1, 1, 2, 2, 2, 3], [0, 1, 1, 1, 1, 2, 2, 3, 3, 3],
                [0, 1, 1, 2, 2, 3, 2, 3, 3, 4])
@@ -1612,15 +1650,16 @@ def sim_phase(dev, smi="", P=P_MAIN, D=D_MAIN, chunk=SIM_CHUNK,
     the coordinator forwards, with the launches the worker counted (one
     K1 launch a shard a round: 16); (e) the devscale profile at
     ``devscale_family``'s width on K1, exact on the device oracle; (f) the
-    drill profiles at ``ci.sh``'s sizes where libsodium is present, else
-    one skip line. Then K1 held to its plain version at (a)'s shard, (b)'s
-    first tile, (d)'s last shard and (e)'s last shard of its first tile,
-    and K3 at (b)'s windows, each on the rows and seeds its run drew.
+    drill profiles at ``ci.sh``'s sizes, each exact, with the K3 calls
+    of each counted against its launches and held to the plain version on
+    the seeds it drew. Then K1 held to its plain version at (a)'s shard,
+    (b)'s first tile, (d)'s last shard and (e)'s last shard of its first
+    tile, and K3 at (b)'s windows, each on the rows and seeds its run
+    drew.
     Returns the phase's JSON record."""
     import numpy as np
     import torch
 
-    from sda_tpu_torch.crypto import sodium
     from sda_tpu_torch.mesh import SimulatedPod, make_mesh, simpod
     from sda_tpu_torch.mesh.streaming import synthetic_device_block_provider32
 
@@ -1704,7 +1743,8 @@ def sim_phase(dev, smi="", P=P_MAIN, D=D_MAIN, chunk=SIM_CHUNK,
         "seed", "value", "round_seconds_marginal", "exact", "device_oracle",
         "platform")}
     launches["devscale"] = n
-    # (f) the drill profiles (they seal every share: libsodium)
+    # (f) the drill profiles at ci.sh's sizes (every share sealed by the
+    # port's host crypto)
     drills = {"load": ["--load", "--participants", "24", "--dim", "4",
                        "--load-arrivals", "closed", "--load-concurrency",
                        "8", "--load-seed", "20260803"],
@@ -1719,18 +1759,49 @@ def sim_phase(dev, smi="", P=P_MAIN, D=D_MAIN, chunk=SIM_CHUNK,
               "analytics": ["--analytics", "histogram,countmin",
                             "--analytics-participants", "4",
                             "--analytics-epochs", "2", "--analytics-seed",
-                            "20260806"]}
-    if not sodium.available():
-        drill_rec = {"stage": "sim_drills", "run": False,
-                     "why": "libsodium not found on this machine"}
-        print(json.dumps(drill_rec))
-    else:
-        drill_rec = {"stage": "sim_drills", "run": True}
-        for name, argv in drills.items():
-            rec, _, wall = _sim(name, [*argv, *device], smi)
-            drill_rec[name] = {"exact": rec.get("exact"), "wall_s": wall,
-                               "value": rec.get("value")}
-            _check(rec.get("exact") is True, f"sim {name}: {rec}")
+                            "20260806"],
+              "tree": ["--tree", "--participants", "24", "--dim", "4",
+                       "--tree-group-size", "6", "--tree-seed", "20260803",
+                       "--tree-dropout", "0.1", "--tree-sim", "100000"],
+              "fl": ["--fl", "--participants", "8", "--fl-family", "lenet",
+                     "--fl-rounds", "3", "--fl-local-steps", "6",
+                     "--fl-batch", "32", "--fl-target", "0.8",
+                     "--fl-churn", "0.25", "--fl-dead-clerks", "1",
+                     "--fl-store", "sqlite", "--fl-http", "--fl-seed",
+                     "20260803"]}
+    # Their masks cancel inside a round, so an exact reveal cannot see a
+    # wrong K3 call: each drill's K3 calls are recorded, counted against
+    # its launches and held to plain on the seeds it drew (the first
+    # expand and the first combine of each shape, modulus and PRG).
+    k3 = _k3_reset()
+    drill_rec, k3_drill_err = {}, 0
+    for name, argv in drills.items():
+        replayed = k3.replayed
+        with K3Calls() as k3_calls:
+            rec, n, wall = _sim(name, [*argv, *device], smi)
+        _check(rec.get("exact") is True, f"sim {name}: {rec}")
+        ops = collections.Counter(op for op, _, _ in k3_calls.calls)
+        # one launch a call, and one expand more for a combine whose
+        # flagged seeds it replayed
+        by_op = n["k3_by_op"]
+        _check(not on_card or (
+            by_op["blocks"] == 0 and by_op["combine"] == ops["combine"]
+            and ops["expand"] <= by_op["expand"] <= ops["expand"] + min(
+                k3.replayed - replayed, ops["combine"])),
+            f"sim {name}: K3 launched {by_op}, its roles asked {dict(ops)}")
+        held = {}
+        for op, seeds, kw in k3_calls.calls:
+            held.setdefault((op, len(seeds), kw["dimension"], kw["modulus"],
+                             kw["prg"]), (op, seeds, kw))
+        for call in held.values():
+            k3_drill_err = max(k3_drill_err,
+                               _k3_call_hold(f"sim {name}", *call))
+        drill_rec[name] = {"exact": rec.get("exact"), "wall_s": wall,
+                           "value": rec.get("value"), "k3": n["k3"],
+                           "k3_calls": dict(ops), "k3_held": len(held)}
+    # the tree drill's rounds mask with ChaCha seeds: K3 on a card
+    _check(not on_card or drill_rec["tree"]["k3"] > 0,
+           f"sim tree: K3 launched no time {drill_rec['tree']}")
     # the kernels at the shapes the runs launched them with, on the rows
     # and seeds each run drew
     pod = SimulatedPod(scheme, full, mesh=make_mesh(1, 1, devices=[dev]))
@@ -1790,7 +1861,9 @@ def sim_phase(dev, smi="", P=P_MAIN, D=D_MAIN, chunk=SIM_CHUNK,
             "runs": runs, "launches": launches, "drills": drill_rec,
             "k1_launches": sum(n["k1"] for n in launches.values()),
             "k3_launches": sum(n["k3"] for n in launches.values()),
-            "k1_shard_max_abs_err": k1_err, "k3_window_max_abs_err": k3_err}
+            "k3_launches_drills": sum(d["k3"] for d in drill_rec.values()),
+            "k1_shard_max_abs_err": k1_err, "k3_window_max_abs_err": k3_err,
+            "k3_drills_max_abs_err": k3_drill_err}
 
 
 def _peak(dev):
@@ -2237,31 +2310,181 @@ def _aggregation(dim, modulus, masking, sharing):
         committee_encryption_scheme=SodiumEncryption())
 
 
-def protocol_round(dev, P, D, seed=0):
-    """Phase 10: one round over the in-process memory server at the
-    flagship width, every role an ``SdaClient`` on ``dev``: one recipient,
-    n clerks, P participants. Returns the phase's JSON record."""
+def host_crypto(reps=SEAL_REPS, sign_reps=SIGN_REPS, sizes=SEAL_SIZES,
+                bundle=SEAL_BUNDLE):
+    """The port's host crypto (``crypto/csrc/sodium.c``), built by the host
+    compiler at first use: the known answers from libsodium reproduced,
+    sealed-box round trips at ``sizes`` (and a tampered box refused), and
+    the host's seal and open rate at ``bundle`` bytes and its sign and
+    verify rate. Returns the JSON record."""
+    import numpy as np
+
+    from sda_tpu_torch.crypto import sodium
+
+    t0 = time.perf_counter()
+    sodium._load()
+    build_s = time.perf_counter() - t0
+    box_sk, seed = bytes(range(32)), bytes(range(32, 64))
+    pk = sodium.box_public(box_sk)
+    vk, sk = sodium.sign_seed_keypair(seed)
+    sig = sodium.sign_detached(KAT_MESSAGE, sk)
+    sealed = sodium.seal_with_ephemeral(KAT_MESSAGE, pk, bytes(range(64, 96)))
+    for name, got, want in (("box_public", pk, KAT_BOX_PK),
+                            ("sign_seed_keypair", vk, KAT_SIGN_PK),
+                            ("sign_detached", sig, KAT_SIG),
+                            ("seal_with_ephemeral", sealed, KAT_SEALED)):
+        _check(got.hex() == want, f"host crypto: {name} != libsodium's")
+    _check(sodium.seal_open(sealed, pk, box_sk) == KAT_MESSAGE,
+           "host crypto: the known sealed box does not open")
+    _check(sodium.verify_detached(sig, KAT_MESSAGE, vk)
+           and not sodium.verify_detached(sig, KAT_MESSAGE + b"!", vk),
+           "host crypto: verify of the known signature")
+    rng = np.random.default_rng(12)
+    rpk, rsk = sodium.box_keypair()
+    for size in sizes:
+        msg = rng.integers(0, 256, size, dtype=np.uint8).tobytes()
+        box = sodium.seal(msg, rpk)
+        _check(len(box) == size + sodium.SEAL_OVERHEAD
+               and sodium.seal_open(box, rpk, rsk) == msg,
+               f"host crypto: seal/open round trip at {size} B")
+        flipped = bytearray(box)
+        flipped[-1] ^= 1
+        try:
+            sodium.seal_open(bytes(flipped), rpk, rsk)
+        except ValueError:
+            continue
+        _fail(f"host crypto: a tampered {size} B box opened")
+    msg = rng.integers(0, 256, bundle, dtype=np.uint8).tobytes()
+    box = sodium.seal(msg, rpk)
+
+    def rate(fn, n):
+        t0 = time.perf_counter()
+        for i in range(n):
+            fn(i)
+        return n / (time.perf_counter() - t0)
+
+    return {"stage": "host_crypto", "known_answers": True,
+            "round_trip_bytes": list(sizes), "build_s": build_s,
+            "bundle_bytes": bundle,
+            "seal_MB_per_s": rate(lambda i: sodium.seal(msg, rpk), reps)
+            * bundle / 1e6,
+            "open_MB_per_s": rate(lambda i: sodium.seal_open(box, rpk, rsk),
+                                  reps) * bundle / 1e6,
+            "sign_per_s": rate(lambda i: sodium.sign_detached(
+                msg[:64 + i], sk), sign_reps),
+            "verify_per_s": rate(lambda i: sodium.verify_detached(
+                sig, KAT_MESSAGE, vk), sign_reps)}
+
+
+class K3Calls:
+    """While entered, records the seeds, width, modulus and PRG of every
+    mask expansion and combine a role asks of K3 (``chacha_device.
+    expand_mask`` and ``combine_masks``) as (operation, seeds, keywords)."""
+
+    def __enter__(self):
+        from sda_tpu_torch.fields import chacha_device
+
+        self.module, self.calls = chacha_device, []
+        self._saved = expand, combine = (chacha_device.expand_mask,
+                                         chacha_device.combine_masks)
+
+        def expand_mask(seed, dimension, modulus, *, prg, device=None):
+            self.calls.append(("expand", [list(seed)], dict(
+                dimension=dimension, modulus=modulus, prg=prg,
+                device=device)))
+            return expand(seed, dimension, modulus, prg=prg, device=device)
+
+        def combine_masks(seeds, dimension, modulus, *, prg, device=None):
+            self.calls.append(("combine", [list(s) for s in seeds], dict(
+                dimension=dimension, modulus=modulus, prg=prg,
+                device=device)))
+            return combine(seeds, dimension, modulus, prg=prg, device=device)
+
+        chacha_device.expand_mask = expand_mask
+        chacha_device.combine_masks = combine_masks
+        return self
+
+    def __exit__(self, *exc):
+        self.module.expand_mask, self.module.combine_masks = self._saved
+
+
+def _k3_call_hold(case, op, seeds, kw):
+    """A K3 call of a round made again on the same seeds, width, modulus
+    and PRG, held to the plain version with ``torch.equal``. Returns the
+    max |error|."""
+    import torch
+
+    from sda_tpu_torch.device import resolve_device
+    from sda_tpu_torch.fields import chacha_device as cd
+
+    words = cd._seed_matrix(seeds, resolve_device(kw["device"]))
+    args = (kw["dimension"], kw["modulus"], kw["prg"])
+    got = cd.chacha_kernel(op, words, dimension=args[0], modulus=args[1],
+                           prg=args[2])[0]
+    want = (cd.expand_plain(words, 0, *args) if op == "expand"
+            else cd.combine_plain(words, *args))[0]
+    _check(got.shape == want.shape,
+           f"{case}: K3 {op} {tuple(got.shape)} vs {tuple(want.shape)}")
+    equal = torch.equal(got, want)
+    err = 0 if equal else int((got - want).abs().max())
+    _check(equal, f"{case}: K3 {op} of {len(seeds)} seeds x {args[0]} != "
+           f"plain (max |err| {err})")
+    print(f"  {case}: K3 {op} of {len(seeds)} seeds x {args[0]} on the "
+          "round's seeds: equal to plain")
+    return err
+
+
+def protocol_round(dev, P, D, seed=0, masking=None):
+    """Phases 10 and 10b: one round over the in-process memory server at
+    the flagship width, every role an ``SdaClient`` on ``dev``: one
+    recipient, n clerks, P participants, with Full masks or the given
+    ones. ChaCha masks go through K3 on a card (one expand a participant,
+    the recipient's combine), which is held to its plain version on the
+    seeds the round drew. Returns the phase's JSON record."""
     import numpy as np
 
     from sda_tpu_torch import utils
+    from sda_tpu_torch.protocol import ChaChaMasking
     from sda_tpu_torch.server import new_memory_server
 
-    scheme, masking, p = _flagship()
+    scheme, full, p = _flagship()
+    masking = masking or full
+    seeded = isinstance(masking, ChaChaMasking)
     inputs = np.random.default_rng(seed).integers(0, 1 << 20, size=(P, D))
     utils.reset_phase_report()
-    with DeviceCounts() as counts:
+    k3 = _k3_reset()
+    with DeviceCounts() as counts, K3Calls() as k3_calls:
         t0 = time.perf_counter()
         out = _round(new_memory_server(), dev,
                      _aggregation(D, p, masking, scheme), inputs,
                      scheme.share_count)
         wall = time.perf_counter() - t0
+    k3_launches = dict(k3.op_launches)
     _check(np.array_equal(out, inputs.sum(0) % p),
            "protocol round: reveal != column sum mod p")
-    calls = counts.check("protocol round", dev.type, ROLE_OPS[:5])
-    return {"stage": "protocol_round", "run": True, "participants": P,
-            "clerks": scheme.share_count, "dim": D, "exact": True,
-            "wall_s": wall, "elements_per_s": P * D / wall,
-            "phases_s": _phases(utils), "device_calls": calls}
+    # a ChaCha masker adds and subtracts on the host
+    calls = counts.check("protocol round", dev.type,
+                         ROLE_OPS[:3] if seeded else ROLE_OPS[:5])
+    rec = {"stage": "protocol_round_chacha" if seeded else "protocol_round",
+           "run": True, "participants": P, "clerks": scheme.share_count,
+           "dim": D, "masking": type(masking).__name__, "exact": True,
+           "wall_s": wall, "elements_per_s": P * D / wall,
+           "phases_s": _phases(utils), "device_calls": calls}
+    if seeded:
+        ops = collections.Counter(op for op, _, _ in k3_calls.calls)
+        _check(dev.type != "cuda" or (
+            ops["expand"] >= P and ops["combine"] == 1 and k3_launches
+            == {"blocks": 0, "expand": ops["expand"], "combine": 1}),
+            f"protocol round (ChaCha): K3 calls {dict(ops)}, launches "
+            f"{k3_launches}")
+        # the first participant's expand and the recipient's combine
+        held = [next(c for c in k3_calls.calls if c[0] == op)
+                for op in ("expand", "combine") if ops[op]]
+        rec["k3_launches"] = k3_launches
+        rec["k3_max_abs_err"] = max(
+            [_k3_call_hold("protocol round (ChaCha)", *c) for c in held],
+            default=0)
+    return rec
 
 
 def http_round(dev, host_path_max):
@@ -2304,6 +2527,143 @@ def http_round(dev, host_path_max):
     return {"stage": "http_round", "run": True,
             "host_path_max": host_path_max, "reveal": [int(v) for v in out],
             "exact": True, "wall_s": wall, "device_calls": calls}
+
+
+def premix_server_phase(dev, P=P_PREMIX_SERVER, D=D_PREMIX_SERVER,
+                        scheme_args=PREMIX_SERVER_SCHEME, seed=0):
+    """Phase 16b: the broker's Paillier premix inside a live server, the
+    recipe of ``tests/test_torch_premix_server.py::
+    test_premix_over_http_seam``: ``SdaHttpServer`` in this process over
+    the memory server with ``premix_paillier`` (as ``sdad
+    --premix-paillier`` sets it) and ``SDA_PREMIX_DEVICE=1`` with the
+    premix on ``dev``, the size floor as shipped. A recipient (sealed-box
+    key), 3 clerks with PackedPaillier keys of ``scheme_args`` and P
+    participants of D values mod 433, every role an ``SdaClient`` on
+    ``dev`` over HTTP; at the snapshot the server folds each clerk's column
+    of P x ceil(D / components) ciphertexts through K4, which must launch
+    on a card; every clerk job holds one premixed batch and the reveal is
+    exact. K4 is then held to its plain version at the first column the
+    server folded. Returns the phase's JSON record."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from sda_tpu_torch import utils
+    from sda_tpu_torch.client import SdaClient
+    from sda_tpu_torch.crypto import encryption
+    from sda_tpu_torch.crypto import paillier_tpu as pt
+    from sda_tpu_torch.http import SdaHttpClient, SdaHttpServer
+    from sda_tpu_torch.protocol import (AdditiveSharing, FullMasking,
+                                        PackedPaillierEncryption,
+                                        SodiumEncryption)
+    from sda_tpu_torch.server import new_memory_server
+    from sda_tpu_torch.store import Filebased
+
+    scheme = PackedPaillierEncryption(*scheme_args)
+    B = -(-D // scheme.component_count)
+    _check(P * B >= encryption._DEVICE_PREMIX_MIN_MODMULS,
+           f"premix server: a column of {P} x {B} is below the size floor")
+    inputs = np.random.default_rng(seed).integers(0, 433, size=(P, D))
+    folds = []
+    leg = encryption._device_premix_rows
+
+    def recorded(pk, rows):
+        folds.append((pk, rows))
+        return leg(pk, rows)
+
+    saved = (os.environ.get("SDA_PREMIX_DEVICE"), encryption.PREMIX_DEVICE)
+    os.environ["SDA_PREMIX_DEVICE"] = "1"
+    encryption.PREMIX_DEVICE = str(dev)
+    encryption._device_premix_rows = recorded
+    service = new_memory_server()
+    service.server.premix_paillier = True
+    httpd = SdaHttpServer(service, bind="127.0.0.1:0").start_background()
+    utils.reset_phase_report()
+    k4 = _k4_reset()
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            def client(name):
+                ks = Filebased(Path(tmp) / name)
+                return SdaClient(SdaClient.new_agent(ks), ks,
+                                 SdaHttpClient(httpd.address, ks),
+                                 device=dev)
+
+            t0 = time.perf_counter()
+            recipient = client("recipient")
+            key = recipient.new_encryption_key()
+            recipient.upload_agent()
+            recipient.upload_encryption_key(key)
+            aggregation = _aggregation(
+                D, 433, FullMasking(433), AdditiveSharing(3, 433)).replace(
+                recipient=recipient.agent.id, recipient_key=key,
+                recipient_encryption_scheme=SodiumEncryption(),
+                committee_encryption_scheme=scheme)
+            recipient.upload_aggregation(aggregation)
+            clerks = [client(f"clerk-{i}") for i in range(3)]
+            for clerk in clerks:
+                clerk.upload_agent()
+                clerk.upload_encryption_key(clerk.new_encryption_key(scheme))
+            recipient.begin_aggregation(aggregation.id)
+            setup_s = time.perf_counter() - t0
+            for i, x in enumerate(inputs):
+                participant = client(f"p-{i}")
+                participant.upload_agent()
+                participant.participate([int(v) for v in x], aggregation.id)
+            participate_s = time.perf_counter() - t0 - setup_s
+            t1 = time.perf_counter()
+            recipient.end_aggregation(aggregation.id)
+            snapshot_s = time.perf_counter() - t1
+            k4_launches, k4_by_op = k4.launches, dict(k4.op_launches)
+            premixed = 0
+            for member in clerks + [recipient]:
+                job = service.get_clerking_job(member.agent, member.agent.id)
+                if job is not None:
+                    _check(len(job.encryptions) == 1,
+                           f"premix server: a clerk job holds "
+                           f"{len(job.encryptions)} batches, want 1")
+                    premixed += 1
+            _check(premixed == 3, f"premix server: {premixed} premixed jobs")
+            for member in [recipient] + clerks:
+                member.run_chores(-1)
+            out = recipient.reveal_aggregation(aggregation.id)
+            wall = time.perf_counter() - t0
+    finally:
+        httpd.shutdown()
+        encryption._device_premix_rows = leg
+        encryption.PREMIX_DEVICE = saved[1]
+        if saved[0] is None:
+            os.environ.pop("SDA_PREMIX_DEVICE")
+        else:
+            os.environ["SDA_PREMIX_DEVICE"] = saved[0]
+    _check(np.array_equal(out.positive().values, inputs.sum(0) % 433),
+           "premix server: reveal != column sum mod 433")
+    shapes = [(len(rows), len(rows[0])) for _, rows in folds]
+    _check(shapes == [(P, B)] * 3, f"premix server: folds {shapes}")
+    _check(dev.type != "cuda" or k4_launches > 0,
+           "premix server: K4 never launched")
+    # K4 at the first column the server folded, against its plain version
+    pk, rows = folds[0]
+    n2 = pk.n_squared
+    ctx = pt.MontgomeryContext(n2)
+    x = torch.from_numpy(ctx.to_limbs(
+        [c % n2 for row in rows for c in row]).reshape(P, B, ctx.L)).to(dev)
+    fix = torch.from_numpy(ctx.fold_fix(P)).to(dev)
+    got, want = ctx.premix_limbs(x), pt.premix_plain(ctx, x, fix)
+    equal = torch.equal(got, want)
+    err = 0 if equal else int((got.to(torch.int64)
+                               - want.to(torch.int64)).abs().max())
+    _check(equal, f"premix server: K4 != plain at the folded column "
+           f"[{P}, {B}, {ctx.L}] (max |err| {err})")
+    print(f"  premix server: K4 at the folded column [{P}, {B}, {ctx.L}] "
+          "equal to plain")
+    return {"stage": "premix_server", "participants": P, "dim": D,
+            "clerks": 3, "key_bits": scheme_args[3], "column": [P, B],
+            "limbs": ctx.L, "exact": True, "premixed_jobs": premixed,
+            "k4_launches": k4_launches, "k4_launches_by_op": k4_by_op,
+            "k4_max_abs_err": err, "setup_s": setup_s,
+            "participate_s": participate_s, "snapshot_s": snapshot_s,
+            "wall_s": wall, "phases_s": _phases(utils)}
 
 
 def main() -> int:
@@ -2647,26 +3007,33 @@ def main() -> int:
           f"d={D_MAIN} ({smi}):")
     print(json.dumps(role_crypto(dev, P_MAIN, D_MAIN)), flush=True)
 
-    # -- 10-11. protocol rounds through SdaClient (need libsodium) ----------
-    from sda_tpu_torch.crypto import sharing, sodium
+    # -- 9b. the port's host crypto, built from the checkout --------------
+    from sda_tpu_torch.crypto import sharing
+    from sda_tpu_torch.protocol import ChaChaMasking
 
-    if not sodium.available():
-        print(json.dumps({"stage": "protocol_round", "run": False,
-                          "why": "libsodium not found on this machine"}))
-    else:
-        print(f"protocol round: memory server, P={P_PROTOCOL} x d={D_MAIN} "
-              f"({smi}):")
-        print(json.dumps(protocol_round(dev, P_PROTOCOL, D_MAIN)), flush=True)
-        for host_path_max in (sharing.HOST_PATH_MAX, 0):
-            print(json.dumps(http_round(dev, host_path_max)), flush=True)
+    print(f"host crypto: sealed boxes and Ed25519 from crypto/csrc/sodium.c, "
+          f"known answers from libsodium 1.0.18 (host of {smi}):")
+    print(json.dumps(host_crypto()), flush=True)
+
+    # -- 10-11. protocol rounds through SdaClient ---------------------------
+    t10 = time.perf_counter()
+    print(f"protocol round: memory server, P={P_PROTOCOL} x d={D_MAIN} "
+          f"({smi}):")
+    print(json.dumps(protocol_round(dev, P_PROTOCOL, D_MAIN)), flush=True)
+    print(f"protocol round, ChaCha masks on K3: memory server, "
+          f"P={P_PROTOCOL} x d={D_CHACHA} ({smi}):")
+    rec10b = protocol_round(dev, P_PROTOCOL, D_CHACHA,
+                            masking=ChaChaMasking(p, D_CHACHA, 128))
+    print(json.dumps(rec10b), flush=True)
+    for host_path_max in (sharing.HOST_PATH_MAX, 0):
+        print(json.dumps(http_round(dev, host_path_max)), flush=True)
+    print(f"phases 10-11: {time.perf_counter() - t10:.1f} s")
 
     # -- 12. K3 vs its plain version and the host spec, timed --------------
     print(f"K3 vs plain and host spec (tolerance: exact, torch.equal; {smi}):")
     k3_rec = chacha_kernels(dev, p, *built["chacha"], cuobjdump)
 
     # -- 13. the role crypto with ChaCha masks through K3 ------------------
-    from sda_tpu_torch.protocol import ChaChaMasking
-
     print(f"role crypto: flagship scheme, ChaCha masking, P={P_MAIN} x "
           f"d={D_CHACHA} ({smi}):")
     rec13 = role_crypto(dev, P_MAIN, D_CHACHA,
@@ -2684,7 +3051,9 @@ def main() -> int:
     rec15 = streamed_round(dev, P_STREAM, D_STREAM, STREAM_CHUNK)
     rec15["phase_s"] = time.perf_counter() - t15
     print(json.dumps(rec15), flush=True)
-    k3_launches = {"role_crypto": sum(rec13["k3_launches"].values()),
+    k3_launches = {"protocol_round_chacha":
+                   sum(rec10b["k3_launches"].values()),
+                   "role_crypto": sum(rec13["k3_launches"].values()),
                    "chacha_round": sum(rec14["k3_launches"].values()),
                    "streamed_round": sum(rec15["k3_launches"].values())}
 
@@ -2695,6 +3064,16 @@ def main() -> int:
     k4_rec = premix_phase(dev, built["montgomery"][1])
     k4_rec["phase_s"] = time.perf_counter() - t16
     print(json.dumps(k4_rec), flush=True)
+    print(f"premix server: SdaHttpServer over the memory server, "
+          f"premix_paillier, SDA_PREMIX_DEVICE=1, P={P_PREMIX_SERVER} x "
+          f"d={D_PREMIX_SERVER}, {PREMIX_SERVER_SCHEME[3]}-bit PackedPaillier "
+          f"clerks ({smi}):")
+    t16b = time.perf_counter()
+    rec16b = premix_server_phase(dev)
+    rec16b["phase_s"] = time.perf_counter() - t16b
+    print(json.dumps(rec16b), flush=True)
+    k4_launches = {"premix": k4_rec["launches"],
+                   "premix_server": rec16b["k4_launches"]}
 
     # -- 17. the bench plane ------------------------------------------------
     print(f"bench: the port's bench at P={P_MAIN} x d={D_MAIN} ({smi}):")
@@ -2751,6 +3130,7 @@ def main() -> int:
     print(json.dumps(rec22), flush=True)
     print(f"phase 22: {rec22['phase_s']:.1f} s")
     k3_launches["sim"] = rec22["k3_launches"]
+    k3_launches["sim_drills"] = rec22["k3_launches_drills"]
 
     # -- 8. the record ------------------------------------------------------
     print(smi)
@@ -2807,10 +3187,12 @@ def main() -> int:
         "launches": sum(k3_launches.values()),
         "launches_by_phase": k3_launches,
         "max_abs_err": max(k3_rec["max_abs_err"],
+                           rec10b["k3_max_abs_err"],
                            rec14["k3_window_max_abs_err"],
                            rec15["k3_window_max_abs_err"],
                            rec18["k3_window_max_abs_err"],
-                           rec22["k3_window_max_abs_err"]),
+                           rec22["k3_window_max_abs_err"],
+                           rec22["k3_drills_max_abs_err"]),
         "ms": k3_rec["ms"],
         "plain_ms": k3_rec["plain_ms"],
         "bound_ms": k3_rec["bound_ms"],
@@ -2825,8 +3207,11 @@ def main() -> int:
         "route": "cuda",
         "source": "sda_tpu_torch/fields/csrc/montgomery.cu",
         "replaces": "sda_tpu/crypto/paillier_tpu.py:137",
+        "launches": sum(k4_launches.values()),
+        "launches_by_phase": k4_launches,
+        "max_abs_err": max(k4_rec["max_abs_err"], rec16b["k4_max_abs_err"]),
         **{key: k4_rec[key] for key in (
-            "launches", "launches_by_op", "max_abs_err", "ms", "ms_of",
+            "launches_by_op", "ms", "ms_of",
             "wrapper_ms", "ms_wide", "bound_ms_wide", "ms_wide_of",
             "plain_ms", "plain_ms_of", "plain_ms_flagship", "bound_ms",
             "bound_by", "host_ms", "host_of")},

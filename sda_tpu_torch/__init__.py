@@ -13,7 +13,8 @@ caller passes ``device="cpu"``.
   sharing, dimension tiling, host ChaCha, and the fused
   mask-share-combine kernel
 - ``sda_tpu_torch.crypto``   — sharing/masking (on the role's device),
-  encryption and signing (libsodium, on the host)
+  encryption and signing (the port's own sealed boxes and Ed25519, on
+  the host: ``crypto/csrc/sodium.c``)
 - ``sda_tpu_torch.client``   — participant/clerk/recipient workflows
 - ``sda_tpu_torch.server``   — server core and its stores (memory, jsonfs,
   sqlite, mongo)

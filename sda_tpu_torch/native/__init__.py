@@ -2,42 +2,29 @@
 
 ``available()`` gates all use — every caller has a pure-Python/numpy
 fallback, so a missing compiler degrades performance, never correctness.
-The library is compiled once into the package directory and reused.
+The library links the port's host crypto (``crypto/csrc/sodium.c``) for
+the participant core's sealed boxes and random draws, and is compiled once
+into ``sda_tpu_torch/_build/`` (``fields/_build.build_host``), keyed on
+its sources.
 """
 
 from __future__ import annotations
 
 import ctypes
-import os
-import subprocess
 import threading
 from pathlib import Path
 from typing import List, Optional, Sequence
 
 import numpy as np
 
-_HERE = Path(__file__).parent
-_SRC = _HERE / "src" / "sda_native.cpp"
-_LIB_PATH = _HERE / "libsda_native.so"
-_ABI_VERSION = 5
+from ..fields import _build
+
+_SRC = Path(__file__).parent / "src" / "sda_native.cpp"
+_ABI_VERSION = 6
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 _build_failed = False
-
-
-def _compile() -> bool:
-    # portable codegen only: a -march=native .so cached in the package
-    # directory SIGILLs (uncatchable) if the directory later moves to a
-    # CPU without those ISA extensions, and it measured no speedup for
-    # the __int128 Montgomery ladder anyway
-    cmd = ["g++", "-O3", "-fPIC", "-shared", "-std=c++17",
-           str(_SRC), "-o", str(_LIB_PATH), "-ldl"]
-    try:
-        subprocess.run(cmd, check=True, capture_output=True, timeout=120)
-        return True
-    except (OSError, subprocess.SubprocessError):
-        return False
 
 
 def _load() -> Optional[ctypes.CDLL]:
@@ -47,22 +34,15 @@ def _load() -> Optional[ctypes.CDLL]:
             return _lib
         if _build_failed:
             return None
+        from ..crypto import sodium
+
         try:
-            stale = not _LIB_PATH.exists() or (
-                _SRC.exists() and _LIB_PATH.stat().st_mtime < _SRC.stat().st_mtime
-            )
-        except OSError:
-            stale = not _LIB_PATH.exists()
-        if stale:
-            if not _SRC.exists() or not _compile():
-                _build_failed = True
-                return None
-        try:
-            lib = ctypes.CDLL(str(_LIB_PATH))
+            lib = ctypes.CDLL(str(_build.build_host(
+                "sda_native", (_SRC, *sodium.SOURCES))))
             if lib.sda_native_abi_version() != _ABI_VERSION:
                 _build_failed = True
                 return None
-        except OSError:
+        except (OSError, RuntimeError):
             _build_failed = True
             return None
         i64p = ctypes.POINTER(ctypes.c_int64)
@@ -304,8 +284,8 @@ def embed_participate(
             out.ctypes.data_as(u8), cap, _i64(lens),
         )
         what = "sda_embed_participate_shamir"
-    if rc == 1:
-        raise RuntimeError("libsodium unavailable at runtime")
+    if rc == 5:
+        raise RuntimeError("the system's random source failed")
     if rc:
         raise ValueError(f"{what} failed (rc={rc})")
     blobs, pos = [], 0

@@ -1,21 +1,21 @@
 // sda-tpu native host kernels.
 //
 // The reference's native-performance surface is libsodium (C) and the
-// threshold-secret-sharing Rust crate; sda-tpu binds libsodium directly via
-// ctypes and re-owns the field math here: an exact C++ oracle for the modular
+// threshold-secret-sharing Rust crate; the port carries its own sealed boxes
+// (sda_tpu_torch/crypto/csrc/sodium.c, linked into this library) and re-owns
+// the field math here: an exact C++ oracle for the modular
 // matmul kernels (independent of numpy/XLA, used for bit-exactness audits)
 // plus fast ChaCha20 mask PRGs implementing both CHACHA_PRG_V1 and the
 // rand-0.3-compatible CHACHA_PRG_RAND03 (sda_tpu_torch/fields/chacha.py) for the
 // recipient's seed re-expansion hot loop (reference:
 // client/src/receive.rs:102-118, masking/chacha.rs:57-77).
 //
-// Build: g++ -O3 -shared -fPIC (see build.py). ABI: plain C, int64/uint32
-// buffers owned by the caller.
+// Build: g++ -O2 -shared -fPIC with crypto/csrc/sodium.c
+// (fields/_build.build_host). ABI: plain C, int64/uint32 buffers owned by
+// the caller.
 
 #include <cstdint>
 #include <cstring>
-
-#include <dlfcn.h>
 
 #include <vector>
 
@@ -433,65 +433,41 @@ int sda_powmod_batch(const uint64_t* bases, int64_t count, const uint64_t* exp,
 // C-friendly" API for mobile/embedded apps (reference README.md:196-204).
 // This is the TPU build's analog of its compute half: the COMPLETE
 // participant crypto — canonicalize -> mask (none/full/chacha) ->
-// additive-share -> zigzag-varint -> libsodium sealed boxes — behind one
+// additive-share -> zigzag-varint -> sealed boxes — behind one
 // C call, wire-compatible with the Python clerks/recipient (same varint
 // and sealedbox formats, crypto/varint.py + crypto/sodium.py). Transport
 // stays with the embedding host, exactly the split the reference intended
 // (its embeddable client wrapped client-http separately).
 //
-// libsodium is loaded at RUNTIME (dlopen), so this file builds — and every
-// other export works — on machines without it; callers get return code 1.
+// The sealed boxes and the random draws come from the port's host crypto
+// (crypto/csrc/sodium.c), compiled into this library.
+
+extern "C" {
+int sda_randombytes(void* buf, uint64_t n);
+int sda_box_seal(uint8_t* c, const uint8_t* m, uint64_t mlen,
+                 const uint8_t* pk);
+}
 
 namespace {
-
-typedef int (*fn_sodium_init)(void);
-typedef void (*fn_randombytes_buf)(void*, size_t);
-typedef int (*fn_crypto_box_seal)(unsigned char*, const unsigned char*,
-                                  unsigned long long, const unsigned char*);
-
-struct Sodium {
-    fn_randombytes_buf randombytes = nullptr;
-    fn_crypto_box_seal seal = nullptr;
-    bool ok = false;
-};
-
-static Sodium& sodium() {
-    static Sodium s = [] {
-        Sodium r;
-        // keep in sync with crypto/sodium.py _SONAMES: a host where the
-        // Python client finds sodium must not fail the embedded core
-        const char* names[] = {"libsodium.so.23", "libsodium.so",
-                               "libsodium.so.26", "libsodium.so.18",
-                               nullptr};
-        void* h = nullptr;
-        for (int i = 0; names[i] && !h; ++i)
-            h = dlopen(names[i], RTLD_NOW);
-        if (!h) return r;
-        fn_sodium_init init = (fn_sodium_init)dlsym(h, "sodium_init");
-        r.randombytes = (fn_randombytes_buf)dlsym(h, "randombytes_buf");
-        r.seal = (fn_crypto_box_seal)dlsym(h, "crypto_box_seal");
-        // sodium_init: 0 fresh, 1 already initialized, -1 failure
-        if (init && r.randombytes && r.seal && init() >= 0) r.ok = true;
-        return r;
-    }();
-    return s;
-}
 
 const int64_t kSealBytes = 48;  // crypto_box_SEALBYTES (x25519 pk + MAC)
 
 // exact uniform draws in [0, m): rejection over u64 (no modulo bias),
-// bulk-filled — one randombytes_buf call per vector, per-lane redraw only
-// on rejection (probability < 2^-32 for the moduli in play)
-static void uniform_fill(Sodium& s, uint64_t m, int64_t* dst, int64_t n) {
+// bulk-filled — one getrandom-backed fill per vector, per-lane redraw only
+// on rejection (probability < 2^-32 for the moduli in play). Returns 0, or
+// 5 when the system's random source fails.
+static int uniform_fill(uint64_t m, int64_t* dst, int64_t n) {
     const uint64_t zone =
         (uint64_t)(((((unsigned __int128)1) << 64) / m) * m - 1);
     std::vector<uint64_t> buf((size_t)n);
-    s.randombytes(buf.data(), (size_t)n * sizeof(uint64_t));
+    if (sda_randombytes(buf.data(), (uint64_t)n * sizeof(uint64_t))) return 5;
     for (int64_t i = 0; i < n; ++i) {
         uint64_t v = buf[(size_t)i];
-        while (v > zone) s.randombytes(&v, sizeof v);
+        while (v > zone)
+            if (sda_randombytes(&v, sizeof v)) return 5;
         dst[i] = (int64_t)(v % m);
     }
+    return 0;
 }
 
 // zigzag + LEB128, matching sda_tpu_torch.crypto.varint (the reference's
@@ -523,12 +499,12 @@ static uint64_t moddot_row(const int64_t* row, const uint64_t* vals,
     return (uint64_t)(acc % m);
 }
 
-static int seal_blob(Sodium& s, const std::vector<uint8_t>& msg,
+static int seal_blob(const std::vector<uint8_t>& msg,
                      const uint8_t* pk, uint8_t* out, int64_t cap,
                      int64_t* written) {
     int64_t need = (int64_t)msg.size() + kSealBytes;
     if (need > cap) return 2;
-    if (s.seal(out, msg.data(), (unsigned long long)msg.size(), pk) != 0)
+    if (sda_box_seal(out, msg.data(), (uint64_t)msg.size(), pk) != 0)
         return 4;
     *written = need;
     return 0;
@@ -538,7 +514,7 @@ static int seal_blob(Sodium& s, const std::vector<uint8_t>& msg,
 // seal the recipient payload (mask vector / chacha seed) at `out`.
 // Shared by the additive and Shamir entry points; *rec_written = 0 for
 // masking none. Returns the usual embed rc.
-static int mask_phase(Sodium& s, const int64_t* secret, int64_t dim,
+static int mask_phase(const int64_t* secret, int64_t dim,
                       int64_t modulus, int32_t masking_kind,
                       int32_t seed_bits, const uint8_t* recipient_pk,
                       uint8_t* out, int64_t out_cap,
@@ -556,7 +532,7 @@ static int mask_phase(Sodium& s, const int64_t* secret, int64_t dim,
     if (masking_kind == 1) {
         payload.reserve((size_t)dim * 5);
         std::vector<int64_t> mask((size_t)dim);
-        uniform_fill(s, m, mask.data(), dim);
+        if (uniform_fill(m, mask.data(), dim)) return 5;
         for (int64_t i = 0; i < dim; ++i) {
             uint64_t v = (uint64_t)masked[(size_t)i]
                        + (uint64_t)mask[(size_t)i];
@@ -570,7 +546,7 @@ static int mask_phase(Sodium& s, const int64_t* secret, int64_t dim,
         if (seed_bits <= 0 || seed_bits > 256) return 3;
         int words = (seed_bits + 31) / 32;
         uint32_t seed[8] = {0};
-        s.randombytes(seed, (size_t)words * 4);
+        if (sda_randombytes(seed, (uint64_t)words * 4)) return 5;
         std::vector<int64_t> mask((size_t)dim);
         // kind 2 = CHACHA_PRG_V1, kind 3 = CHACHA_PRG_RAND03 (the stream a
         // bare Rust-shaped scheme implies; rand-0.3 interop)
@@ -590,7 +566,7 @@ static int mask_phase(Sodium& s, const int64_t* secret, int64_t dim,
         for (int w = 0; w < words; ++w)
             varint_append(payload, (int64_t)seed[w]);
     }
-    return seal_blob(s, payload, recipient_pk, out, out_cap, rec_written);
+    return seal_blob(payload, recipient_pk, out, out_cap, rec_written);
 }
 
 }  // namespace
@@ -611,8 +587,8 @@ extern "C" {
 //
 // Sharing here is additive; Shamir committees use the sibling
 // sda_embed_participate_shamir below (host-computed share matrix).
-// Returns 0 ok, 1 libsodium unavailable, 2 out_cap too small,
-// 3 bad arguments, 4 sealing failure.
+// Returns 0 ok, 2 out_cap too small, 3 bad arguments, 4 sealing failure,
+// 5 the system's random source failed.
 int sda_embed_participate(
     const int64_t* secret, int64_t dim, int64_t modulus,
     int32_t share_count, int32_t masking_kind, int32_t seed_bits,
@@ -620,13 +596,11 @@ int sda_embed_participate(
     uint8_t* out, int64_t out_cap, int64_t* out_lens) {
     if (dim < 0 || modulus <= 0 || share_count < 1) return 3;
     if (masking_kind < 0 || masking_kind > 3) return 3;
-    Sodium& s = sodium();
-    if (!s.ok) return 1;
     const uint64_t m = (uint64_t)modulus;
     std::vector<int64_t> masked;
     std::vector<uint8_t> payload;
     int64_t pos = 0, written = 0;
-    int rc0 = mask_phase(s, secret, dim, modulus, masking_kind, seed_bits,
+    int rc0 = mask_phase(secret, dim, modulus, masking_kind, seed_bits,
                          recipient_pk, out, out_cap, masked, &written);
     if (rc0) return rc0;
     out_lens[0] = written;
@@ -638,7 +612,7 @@ int sda_embed_participate(
     for (int32_t c = 0; c < share_count; ++c) {
         payload.clear();
         if (c + 1 < share_count) {
-            uniform_fill(s, m, share.data(), dim);
+            if (uniform_fill(m, share.data(), dim)) return 5;
             for (int64_t i = 0; i < dim; ++i) {
                 uint64_t a = (uint64_t)acc[(size_t)i]
                            + (uint64_t)share[(size_t)i];
@@ -654,7 +628,7 @@ int sda_embed_participate(
         }
         for (int64_t i = 0; i < dim; ++i)
             varint_append(payload, share[(size_t)i]);
-        int rc = seal_blob(s, payload, clerk_pks + (size_t)c * 32,
+        int rc = seal_blob(payload, clerk_pks + (size_t)c * 32,
                            out + pos, out_cap - pos, &written);
         if (rc) return rc;
         out_lens[1 + c] = written;
@@ -692,12 +666,10 @@ int sda_embed_participate_shamir(
     if (k < 1 || m2 < k + 1) return 3;
     if (share_modulus >= (int64_t)1 << 62) return 3;  // u128 accum bound
     if (masking_kind < 0 || masking_kind > 3) return 3;
-    Sodium& s = sodium();
-    if (!s.ok) return 1;
     const uint64_t m = (uint64_t)share_modulus;
     std::vector<int64_t> masked;
     int64_t pos = 0, written = 0;
-    int rc0 = mask_phase(s, secret, dim, mask_modulus, masking_kind,
+    int rc0 = mask_phase(secret, dim, mask_modulus, masking_kind,
                          seed_bits, recipient_pk, out, out_cap, masked,
                          &written);
     if (rc0) return rc0;
@@ -708,7 +680,7 @@ int sda_embed_participate_shamir(
     std::vector<std::vector<uint8_t>> clerk_payloads((size_t)n_shares);
     for (auto& p : clerk_payloads) p.reserve((size_t)B * 5);
     std::vector<int64_t> rands((size_t)(B * t));
-    if (t > 0) uniform_fill(s, m, rands.data(), B * t);
+    if (t > 0 && uniform_fill(m, rands.data(), B * t)) return 5;
     std::vector<uint64_t> vals((size_t)m2);
     for (int64_t b = 0; b < B; ++b) {
         vals[0] = 0;  // the share matrix's fixed zero column
@@ -727,7 +699,7 @@ int sda_embed_participate_shamir(
         }
     }
     for (int32_t i = 0; i < n_shares; ++i) {
-        int rc = seal_blob(s, clerk_payloads[(size_t)i],
+        int rc = seal_blob(clerk_payloads[(size_t)i],
                            clerk_pks + (size_t)i * 32,
                            out + pos, out_cap - pos, &written);
         if (rc) return rc;
@@ -737,6 +709,6 @@ int sda_embed_participate_shamir(
     return 0;
 }
 
-int sda_native_abi_version() { return 5; }
+int sda_native_abi_version() { return 6; }
 
 }  // extern "C"

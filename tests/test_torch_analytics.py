@@ -351,14 +351,10 @@ def test_signed_contributions_ride_nonneg_residues():
 
 
 # ---------------------------------------------------------------------------
-# the scenario over the real stack (libsodium-gated) + CLI hygiene
+# the scenario over the real stack + CLI hygiene
 
 
 def test_analytics_scenario_smoke_in_process():
-    from sda_tpu_torch.crypto import sodium
-
-    if not sodium.available():
-        pytest.skip("libsodium not present")
     from sda_tpu_torch.analytics import AnalyticsProfile, run_analytics
 
     report = run_analytics(AnalyticsProfile(
@@ -381,10 +377,6 @@ def test_analytics_scenario_refuses_oversized_encoder():
     # 40000 samples/device cannot fit, and the typed refusal names the
     # encoder and fires BEFORE any service spins up (sizing is checked
     # after crypto availability, so gate)
-    from sda_tpu_torch.crypto import sodium
-
-    if not sodium.available():
-        pytest.skip("libsodium not present")
     with pytest.raises(FieldSizingError, match="HistogramEncoder"):
         run_analytics(AnalyticsProfile(
             kinds=["histogram"], participants=4, values_per_device=40000,
@@ -505,10 +497,6 @@ def test_ci_analytics_drill_through_the_ports_sim(capsys):
     ``sda-sim --analytics``."""
     import json
 
-    from sda_tpu_torch.crypto import sodium
-
-    if not sodium.available():
-        pytest.skip("libsodium not present")
     from sda_tpu_torch.cli import sim
 
     rc = sim.main(["--analytics", "histogram,countmin",

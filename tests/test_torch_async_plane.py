@@ -739,11 +739,8 @@ def test_pickup_bench_longpoll_beats_polling():
     """``ci.sh``'s job-pickup A/B at 2 snapshots a mode: both modes reveal
     bit-exactly and the long-poll enqueue->lease p99 sits well below the
     polling baseline's on the same fixed-seed round."""
-    from sda_tpu_torch.crypto import sodium
     from sda_tpu_torch.loadgen import PickupProfile, run_pickup_bench
 
-    if not sodium.available():
-        pytest.skip("libsodium not present")
     record = run_pickup_bench(PickupProfile(
         snapshots=2, poll_interval=0.25, wait_s=10, seed=20260803,
         device="cpu"))

@@ -17,7 +17,7 @@ import pytest
 
 from sda_tpu_torch import chaos
 from sda_tpu_torch.chaos import FailpointRegistry, InjectedFault
-from sda_tpu_torch.crypto import sodium
+from sda_tpu.crypto import sodium as ref_sodium
 from sda_tpu_torch.http import SdaHttpClient, SdaHttpServer
 from sda_tpu_torch.protocol import (
     AgentId,
@@ -495,10 +495,6 @@ def test_chaos_round_completes_bit_exactly():
     failures and one clerk abandoning a pulled job: lease reissue +
     retrying transport must still land the bit-exact sum."""
     from sda_tpu_torch.chaos.drill import run_chaos_drill
-    from sda_tpu_torch.crypto import sodium
-
-    if not sodium.available():
-        pytest.skip("libsodium not present")
 
     seed = int(os.environ.get("SDA_CHAOS_SEED", "20260803"))
     report = run_chaos_drill(participants=5, dim=4, rate=0.2, seed=seed,
@@ -519,10 +515,6 @@ def test_chaos_round_schedule_is_reproducible():
     """Same seed -> same injection schedule (trigger counts match across
     runs; hit counts may differ slightly with thread timing)."""
     from sda_tpu_torch.chaos.drill import run_chaos_drill
-    from sda_tpu_torch.crypto import sodium
-
-    if not sodium.available():
-        pytest.skip("libsodium not present")
 
     a = run_chaos_drill(participants=3, dim=2, rate=0.2, seed=11,
                         lease_seconds=0.4, device="cpu")
@@ -537,11 +529,11 @@ def test_chaos_round_schedule_is_reproducible():
 # ---------------------------------------------------------------------------
 # the port's drill against the reference, and ci.sh's drills
 
-needs_sodium = pytest.mark.skipif(not sodium.available(),
-                                  reason="libsodium not present")
+needs_ref_sodium = pytest.mark.skipif(
+    not ref_sodium.available(), reason="the reference's libsodium not present")
 
 
-@needs_sodium
+@needs_ref_sodium
 def test_chaos_drill_matches_reference_on_the_same_seed():
     """``run_chaos_drill(participants=3, dim=4, rate=0.0)`` on the CPU: the
     same revealed sum and the same verdicts as the reference's drill."""
@@ -567,7 +559,6 @@ def _sim_chaos(capsys, *flags):
     return rc, json.loads(capsys.readouterr().out.strip().splitlines()[-1])
 
 
-@needs_sodium
 def test_ci_dead_clerk_drill_packed_degrades_bit_exact(capsys):
     """``ci.sh``'s dead-clerk drill, packed Shamir: clerking -> degraded
     -> revealed, bit-exact from the surviving 7-of-8 quorum."""
@@ -580,7 +571,6 @@ def test_ci_dead_clerk_drill_packed_degrades_bit_exact(capsys):
     assert shamir["time_to_degraded_s"] and shamir["time_to_degraded_s"] > 0
 
 
-@needs_sodium
 def test_ci_dead_clerk_drill_additive_fails_closed(capsys):
     """``ci.sh``'s dead-clerk drill, additive sharing: a terminal
     ``failed`` with a machine-readable reason, surfaced as a typed
@@ -594,7 +584,6 @@ def test_ci_dead_clerk_drill_additive_fails_closed(capsys):
     assert additive["time_to_failed_s"] and additive["time_to_failed_s"] > 0
 
 
-@needs_sodium
 def test_ci_brownout_drill_breaker_trips_and_recovers(capsys):
     """``ci.sh``'s brownout drill: the store browns out mid-clerking, the
     breaker trips, sheds 503 + Retry-After, closes again, and the round
@@ -612,7 +601,6 @@ def test_ci_brownout_drill_breaker_trips_and_recovers(capsys):
     assert mttr and 0 < mttr < 10.0, report
 
 
-@needs_sodium
 def test_ci_churn_drill_exactly_once(capsys):
     """``ci.sh``'s churn drill over sqlite: departures resume from their
     journals, mid-upload crashes replay byte-identically, the

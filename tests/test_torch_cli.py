@@ -16,7 +16,7 @@ from pathlib import Path
 
 import pytest
 
-from sda_tpu_torch.crypto import sodium
+from sda_tpu.crypto import sodium as ref_sodium
 from sda_tpu_torch.http import SdaHttpServer
 from sda_tpu_torch.server import new_jsonfs_server
 
@@ -24,7 +24,8 @@ from sda_tpu_torch.cli.main import main as sda_main
 
 ROOT = Path(__file__).resolve().parent.parent
 
-pytestmark = pytest.mark.skipif(not sodium.available(), reason="libsodium not present")
+needs_ref_sodium = pytest.mark.skipif(
+    not ref_sodium.available(), reason="the reference's libsodium not present")
 
 
 @pytest.fixture
@@ -385,10 +386,9 @@ def test_cli_embedded_participation(httpd, tmp_path, capsys):
     mixed with a Python participant — the walkthrough sum must still be
     exact (the embeddable-client path, reference README.md:196-204)."""
     from sda_tpu_torch import native
-    from sda_tpu_torch.crypto import sodium
 
-    if not (sodium.available() and native.available()):
-        pytest.skip("libsodium or native library not present")
+    if not native.available():
+        pytest.skip("native library not built")
     url = httpd.address
 
     def sda(identity, *args):
@@ -420,10 +420,9 @@ def test_cli_embedded_participation(httpd, tmp_path, capsys):
 def test_cli_embedded_shamir_participation(httpd, tmp_path, capsys):
     """`participate --embedded` over a packed-Shamir committee via REST."""
     from sda_tpu_torch import native
-    from sda_tpu_torch.crypto import sodium
 
-    if not (sodium.available() and native.available()):
-        pytest.skip("libsodium or native library not present")
+    if not native.available():
+        pytest.skip("native library not built")
     url = httpd.address
 
     def sda(identity, *args):
@@ -453,10 +452,9 @@ def test_cli_embedded_rejects_paillier_cleanly(httpd, tmp_path, capsys):
     """`participate --embedded` on a Paillier aggregation: clear error,
     exit 1, no traceback (the embedded core is Sodium-only)."""
     from sda_tpu_torch import native
-    from sda_tpu_torch.crypto import sodium
 
-    if not (sodium.available() and native.available()):
-        pytest.skip("libsodium or native library not present")
+    if not native.available():
+        pytest.skip("native library not built")
     url = httpd.address
 
     def sda(identity, *args, expect_rc=0):
@@ -537,6 +535,7 @@ def _walkthrough(main, url, root, capsys, device=()):
     return sda("recipient", "aggregations", "reveal", agg)
 
 
+@needs_ref_sodium
 def test_port_sda_against_reference_server(tmp_path, capsys):
     """The port's ``sda`` against the reference's HTTP server (the server
     the reference's ``sdad`` runs) over its jsonfs store."""
@@ -553,6 +552,7 @@ def test_port_sda_against_reference_server(tmp_path, capsys):
         server.shutdown()
 
 
+@needs_ref_sodium
 def test_reference_sda_against_port_sdad(tmp_path, capsys):
     """The reference's ``sda`` against the port's ``sdad`` process."""
     from sda_tpu.cli.main import main as ref_main

@@ -28,10 +28,11 @@ import sda_tpu_torch.server as port_server
 import sda_tpu_torch.store as port_store
 from sda_tpu_torch import protocol as port_protocol
 from sda_tpu_torch.convert import resource_from_reference
-from sda_tpu_torch.crypto import sharing, sodium
+from sda_tpu_torch.crypto import sharing
+from sda_tpu.crypto import sodium as ref_sodium
 
-pytestmark = pytest.mark.skipif(not sodium.available(),
-                                reason="libsodium not present")
+pytestmark = pytest.mark.skipif(
+    not ref_sodium.available(), reason="the reference's libsodium not present")
 
 DIM = 10
 INPUTS = np.random.default_rng(7).integers(0, 433, size=(3, DIM))

@@ -279,12 +279,10 @@ def _protocol_round(aggregation, inputs):
 
 @pytest.mark.parametrize("sharing_kind", ["packed", "additive"])
 def test_clerk_device_tiles_equal_the_host_fold(monkeypatch, sharing_kind):
-    from sda_tpu_torch.crypto import sharing, sodium
+    from sda_tpu_torch.crypto import sharing
     from sda_tpu_torch.protocol import (Aggregation, AggregationId, AgentId,
                                         EncryptionKeyId, SodiumEncryption)
 
-    if not sodium.available():
-        pytest.skip("libsodium not present")
     d = 300
     scheme = (fast_scheme() if sharing_kind == "packed"
               else AdditiveSharing(share_count=3, modulus=P29))

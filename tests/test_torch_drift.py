@@ -32,7 +32,6 @@ COPIES = [
     "crypto/batch.py",
     "crypto/paillier.py",
     "crypto/signing.py",
-    "crypto/sodium.py",
     "crypto/varint.py",
     "fields/chacha.py",
     "fl/__init__.py",
@@ -50,8 +49,6 @@ COPIES = [
     "loadgen/inputbench.py",
     "loadgen/pickup.py",
     "loadgen/recorderbench.py",
-    "native/__init__.py",
-    "native/src/sda_native.cpp",
     "obs/forensics.py",
     "obs/recorder.py",
     "obs/slo.py",
@@ -138,6 +135,13 @@ FUNCTION_COPIES = [
     # the FL and devscale profiles (no backend selection)
     ("cli/sim.py", "_export_trace"),
     ("cli/sim.py", "_run_connstorm"),
+    # native/__init__.py rewrites the library's build and load (the port's
+    # own host crypto is linked in) and embed_participate's return codes;
+    # the bindings of the field kernels stay copies
+    *[("native/__init__.py", name) for name in (
+        "available", "_i64", "modmatmul", "modsum_axis0",
+        "chacha_expand_mask", "chacha_combine_masks", "_u64", "_limbs",
+        "powmod", "powmod_batch")],
 ]
 
 #: functions that a rewritten module copies but for the ``device=``

@@ -82,10 +82,6 @@ def _new_client(service):
 
 
 def test_federated_session_exact_round():
-    from sda_tpu_torch.crypto import sodium
-
-    if not sodium.available():
-        pytest.skip("libsodium not present")
     from sda_tpu_torch.protocol import (
         AdditiveSharing,
         Aggregation,
@@ -140,10 +136,6 @@ def test_federated_session_packed_shamir_semantics():
     positive() lift mod m recovers the centered sum. Pins that the wrap
     algebra composes (reference: crypto.rs derived properties +
     receive.rs:14-21 lift)."""
-    from sda_tpu_torch.crypto import sodium
-
-    if not sodium.available():
-        pytest.skip("libsodium not present")
     from sda_tpu_torch.fields import numtheory
     from sda_tpu_torch.protocol import (
         Aggregation,
@@ -205,10 +197,6 @@ def test_federated_session_surfaces_typed_round_verdict():
     clerks) must surface a typed lifecycle verdict from ``await_result``
     within the deadline — not hang, not silently decode a partial
     committee sum, not a bare NotFound."""
-    from sda_tpu_torch.crypto import sodium
-
-    if not sodium.available():
-        pytest.skip("libsodium not present")
     from sda_tpu_torch.protocol import (
         AdditiveSharing,
         Aggregation,
@@ -259,10 +247,6 @@ def test_participation_input_ndarray_fast_path():
     """The encoded int64 ndarray goes through ``participate`` without a
     per-element Python conversion; raw float arrays are rejected (a
     silent float->int64 truncation would bypass the codec contract)."""
-    from sda_tpu_torch.crypto import sodium
-
-    if not sodium.available():
-        pytest.skip("libsodium not present")
     from sda_tpu_torch.protocol import (
         AdditiveSharing,
         Aggregation,

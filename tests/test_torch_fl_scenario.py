@@ -41,13 +41,6 @@ def _cpu(**kw):
     return FLProfile(device="cpu", **kw)
 
 
-def _needs_sodium():
-    from sda_tpu_torch.crypto import sodium
-
-    if not sodium.available():
-        pytest.skip("libsodium not present")
-
-
 # ---------------------------------------------------------------------------
 # data shim
 
@@ -192,7 +185,6 @@ def test_parse_poison_kind():
 # the scenario driver (linear family, in-process: the tier-1 smoke)
 
 def test_fl_round_trip_with_churn():
-    _needs_sodium()
     report = run_fl(_cpu(participants=5, rounds=2, churn=0.4,
                               target_accuracy=0.5, seed=3))
     assert report["exact"] is True
@@ -220,7 +212,6 @@ def test_fl_round_trip_with_churn():
 
 
 def test_fl_dead_clerk_degrades_every_round():
-    _needs_sodium()
     report = run_fl(_cpu(participants=4, rounds=2, dead_clerks=1,
                               target_accuracy=0.5, seed=1))
     assert report["exact"] is True
@@ -231,7 +222,6 @@ def test_fl_dead_clerk_degrades_every_round():
 
 
 def test_fl_is_seed_deterministic_and_dp_noise_is_seeded():
-    _needs_sodium()
     profile = _cpu(participants=4, rounds=2, target_accuracy=0.99,
                         dp_sigma=0.05, seed=11)
     a = run_fl(profile)
@@ -247,7 +237,6 @@ def test_fl_is_seed_deterministic_and_dp_noise_is_seeded():
 
 
 def test_fl_tree_population_mode():
-    _needs_sodium()
     report = run_fl(_cpu(participants=9, rounds=1, tree_group_size=3,
                               target_accuracy=0.5, seed=5))
     assert report["exact"] is True
@@ -262,7 +251,6 @@ def test_fl_poisoning_undefended_vs_norm_clip():
     undefended run and is absorbed by the codec's norm clip — BOTH stay
     bit-exact (poisoning corrupts inputs, never the protocol) and both
     count every tainted share upload at the clerks."""
-    _needs_sodium()
     base = dict(participants=5, rounds=2, target_accuracy=0.9, seed=3,
                 poison=0.4)
     undef = run_fl(_cpu(**base))
@@ -291,7 +279,6 @@ def test_fl_poisoning_undefended_vs_norm_clip():
 def test_fl_backdoor_reports_attack_success_curve():
     """backdoor:DIM is a training-time attack: main accuracy is not the
     signal — the report must carry the trigger-measured success curve."""
-    _needs_sodium()
     report = run_fl(_cpu(participants=5, rounds=2, poison=0.4,
                               poison_kind="backdoor:3",
                               target_accuracy=0.5, seed=3))
@@ -308,7 +295,6 @@ def test_fl_tree_robust_trimmed_mean():
     """Tree mode with --fl-tree-robust: signflip attackers inside leaf
     groups, the root's per-coordinate trimmed mean over unmasked leaf
     subtotals holds the target where magnitude defenses are blind."""
-    _needs_sodium()
     report = run_fl(_cpu(participants=9, rounds=2, tree_group_size=3,
                               poison=0.25, poison_kind="signflip",
                               tree_robust=True, target_accuracy=0.9,
@@ -323,7 +309,6 @@ def test_fl_tree_robust_trimmed_mean():
 
 
 def test_fl_profile_validation():
-    _needs_sodium()
     with pytest.raises(ValueError, match="devices"):
         run_fl(_cpu(participants=1))
     with pytest.raises(ValueError, match="dead clerks"):
@@ -352,7 +337,6 @@ def test_fl_profile_validation():
 def test_fl_http_round_trip():
     """One round over a REAL HTTP server: the wire path (binary codec
     negotiation included) must not change the verdict."""
-    _needs_sodium()
     report = run_fl(_cpu(participants=4, rounds=1, http=True,
                               target_accuracy=0.5, seed=2))
     assert report["exact"] is True and report["reached_target"] is True
@@ -387,7 +371,10 @@ def test_run_fl_default_profile_matches_reference():
     packages: the same report keys, the same participations and reveals a
     round, and accuracy a round within 0.02 (float training differs in
     the last bits, so a few quantized coordinates may differ by a step)."""
-    _needs_sodium()
+    from sda_tpu.crypto import sodium as ref_sodium
+
+    if not ref_sodium.available():
+        pytest.skip("the reference's libsodium not present")
     from sda_tpu.fl import FLProfile as RefProfile
     from sda_tpu.fl import run_fl as ref_run_fl
 
@@ -413,7 +400,6 @@ def test_run_fl_default_profile_matches_reference():
 def test_run_fl_families_train_on_the_port(family):
     """The families at run_fl's drill widths train through the secure
     rounds on the port: every round exact, the loss falls."""
-    _needs_sodium()
     report = run_fl(_cpu(family=family, participants=3,
                               rounds=2, local_steps=2, batch_size=8,
                               shard_size=16, eval_size=32,
@@ -426,7 +412,6 @@ def test_run_fl_families_train_on_the_port(family):
 def test_input_bench_shape():
     """The participate-input bench (``loadgen/inputbench.py``) reports both
     rungs, its participant on the CPU; no perf assertion."""
-    _needs_sodium()
     from sda_tpu_torch.loadgen.inputbench import run_input_bench
 
     report = run_input_bench(dim=2048, repeats=2, device="cpu")

@@ -13,7 +13,7 @@ import numpy as np
 import pytest
 
 from sda_tpu_torch.client import SdaClient
-from sda_tpu_torch.crypto import MemoryKeystore, sharing, sodium
+from sda_tpu_torch.crypto import MemoryKeystore, sharing
 from sda_tpu_torch.protocol import (
     AdditiveSharing,
     Aggregation,
@@ -34,9 +34,6 @@ from sda_tpu_torch.server import (
     new_sqlite_server,
 )
 from sda_tpu_torch.store import Filebased
-
-pytestmark = pytest.mark.skipif(not sodium.available(),
-                                reason="libsodium not present")
 
 
 def agg_default() -> Aggregation:

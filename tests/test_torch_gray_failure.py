@@ -772,13 +772,10 @@ def _run_sigkill_drill(tmp_path, backend_args, lease_seconds=30.0):
     detector must recall the leases and the round must complete
     bit-exactly well inside the lease-expiry fallback."""
     from sda_tpu_torch.client import SdaClient
-    from sda_tpu_torch.crypto import MemoryKeystore, sodium
+    from sda_tpu_torch.crypto import MemoryKeystore
     from sda_tpu_torch.http import SdaHttpClient
     from sda_tpu_torch.protocol import FullMasking
     from sda_tpu_torch.server.fleet import Fleet
-
-    if not sodium.available():
-        pytest.skip("needs libsodium (real crypto round)")
 
     scheme = AdditiveSharing(share_count=3, modulus=433)
     fleet = Fleet(2, backend_args, extra_args=[

@@ -15,7 +15,7 @@ import pytest
 import requests
 
 from sda_tpu_torch import chaos
-from sda_tpu_torch.crypto import sodium
+from sda_tpu.crypto import sodium as ref_sodium
 from sda_tpu_torch.http import SdaHttpClient, SdaHttpServer
 from sda_tpu_torch.http.admission import AdmissionControl, TokenBucket
 from sda_tpu_torch.http.server import route_label
@@ -329,7 +329,6 @@ def test_client_caps_retry_after_at_the_op_deadline():
 
 # -- loadgen smoke (tier-1: tiny N, deterministic seed) ---------------------
 
-@pytest.mark.skipif(not sodium.available(), reason="libsodium not present")
 def test_loadgen_closed_loop_smoke():
     from sda_tpu_torch.loadgen import LoadProfile, run_load
 
@@ -352,7 +351,6 @@ def test_loadgen_closed_loop_smoke():
     assert set(report["phases_ms"]) == {"register", "participate"}
 
 
-@pytest.mark.skipif(not sodium.available(), reason="libsodium not present")
 def test_loadgen_overload_sheds_429_and_still_exact():
     """The acceptance property at smoke scale: under a forced overload
     profile the server sheds with 429/Retry-After — zero 5xx, zero lost
@@ -399,7 +397,8 @@ def test_latency_report_ms_matches_reference():
         ref_metrics.reset_all()
 
 
-@pytest.mark.skipif(not sodium.available(), reason="libsodium not present")
+@pytest.mark.skipif(not ref_sodium.available(),
+                    reason="the reference's libsodium not present")
 def test_run_load_matches_reference_on_the_same_seed():
     """One closed-loop round through both packages on the same seed: the
     same revealed sum (its digest), admissions, request mix and server
@@ -420,7 +419,6 @@ def test_run_load_matches_reference_on_the_same_seed():
     assert set(got["latency_ms"]) == set(ref["latency_ms"])
 
 
-@pytest.mark.skipif(not sodium.available(), reason="libsodium not present")
 def test_ci_loadgen_smoke_through_the_ports_sim(capsys):
     """``ci.sh``'s loadgen smoke (fixed seed, closed loop, zero 5xx, a
     histogram report) through the port's ``sda-sim --load``."""

@@ -17,7 +17,7 @@ import numpy as np
 import pytest
 
 from sda_tpu_torch.client import SdaClient
-from sda_tpu_torch.crypto import MemoryKeystore, encryption, sodium
+from sda_tpu_torch.crypto import MemoryKeystore, encryption
 from sda_tpu_torch.protocol import (
     AdditiveSharing,
     Aggregation,
@@ -26,9 +26,6 @@ from sda_tpu_torch.protocol import (
     PackedPaillierEncryption,
 )
 from sda_tpu_torch.server import new_memory_server
-
-pytestmark = pytest.mark.skipif(not sodium.available(),
-                                reason="libsodium not present")
 
 SCHEME = PackedPaillierEncryption(
     component_count=3, component_bitsize=32, max_value_bitsize=16,

@@ -721,10 +721,6 @@ def test_rounds_report_prefers_live_and_rolls_up_tenants():
 # the soak drill, smoke-sized (real crypto end to end)
 
 def test_soak_smoke_memory():
-    from sda_tpu_torch.crypto import sodium
-
-    if not sodium.available():
-        pytest.skip("libsodium not present")
     from sda_tpu_torch.service import SoakProfile, run_soak
 
     report = run_soak(SoakProfile(
@@ -751,10 +747,10 @@ def test_soak_smoke_memory():
 def test_soak_matches_reference_on_the_same_seed():
     """The soak smoke through both packages on the same seed: the same
     rounds, verdicts, churn plan, replay probes and retention counts."""
-    from sda_tpu_torch.crypto import sodium
+    from sda_tpu.crypto import sodium as ref_sodium
 
-    if not sodium.available():
-        pytest.skip("libsodium not present")
+    if not ref_sodium.available():
+        pytest.skip("the reference's libsodium not present")
     from sda_tpu.service import SoakProfile as RefProfile
     from sda_tpu.service import run_soak as ref_run_soak
     from sda_tpu_torch.service import SoakProfile, run_soak

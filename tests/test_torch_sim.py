@@ -16,13 +16,8 @@ import torch
 
 from sda_tpu_torch import chaos
 from sda_tpu_torch.cli import sim
-from sda_tpu_torch.crypto import sodium
 
 ROOT = Path(__file__).resolve().parent.parent
-
-needs_sodium = pytest.mark.skipif(not sodium.available(),
-                                  reason="libsodium not present")
-
 
 @pytest.fixture(autouse=True, scope="module")
 def _one_intra_op_thread():
@@ -221,7 +216,6 @@ def test_devscale_profile_on_the_cpu(capsys):
     assert record["platform"] == "cpu"
 
 
-@needs_sodium
 def test_tree_profile_on_the_cpu(capsys):
     rc, report, _ = _run(capsys, ["--tree", "--participants", "12", "--dim",
                                   "4", "--tree-group-size", "4",
@@ -231,7 +225,6 @@ def test_tree_profile_on_the_cpu(capsys):
     assert report["exact"] and report["flat_exact"]
 
 
-@needs_sodium
 def test_fl_profile_on_the_cpu(capsys):
     rc, report, _ = _run(capsys, ["--fl", "--participants", "4",
                                   "--fl-rounds", "1", "--device", "cpu"])
@@ -239,7 +232,6 @@ def test_fl_profile_on_the_cpu(capsys):
     assert rc == (0 if report["reached_target"] else 1)
 
 
-@needs_sodium
 def test_soak_profile_on_the_cpu(capsys):
     rc, report, _ = _run(capsys, ["--soak", "--soak-tenants", "1",
                                   "--soak-epochs", "2", "--device", "cpu"])

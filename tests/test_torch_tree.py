@@ -16,7 +16,6 @@ import numpy as np
 import pytest
 import torch
 
-from sda_tpu_torch.crypto import sodium
 from sda_tpu_torch.obs import regress
 from sda_tpu_torch.protocol import (
     AdditiveSharing,
@@ -33,10 +32,6 @@ from sda_tpu_torch.tree.plan import plan_tree
 
 #: the tree rounds' clients run their field arithmetic on the CPU
 run_tree_round = functools.partial(_run_tree_round, device="cpu")
-
-needs_sodium = pytest.mark.skipif(not sodium.available(),
-                                  reason="libsodium not present")
-
 
 @pytest.fixture(autouse=True, scope="module")
 def _one_intra_op_thread():
@@ -272,7 +267,6 @@ def inputs_for(n, dim=4, seed=0, modulus=433):
     return rng.integers(0, modulus, size=(n, dim), dtype=np.int64)
 
 
-@needs_sodium
 class TestBitExact:
     def test_tree_reveals_flat_sum(self):
         report = run_tree_round(
@@ -311,7 +305,6 @@ class TestBitExact:
         assert report["flat_exact"] is True
 
 
-@needs_sodium
 class TestRelayPrivacy:
     def test_masks_seal_past_the_relay(self):
         """The privacy hinge, mechanically: every leaf mask ciphertext
@@ -377,7 +370,6 @@ class TestRelayPrivacy:
             relay_decryptor.decrypt(mask_ct)
 
 
-@needs_sodium
 class TestRelayResume:
     def test_crashed_relay_replays_byte_identically(self, tmp_path):
         """A relay that dies in the lost-ack window (upload ingested, ack
@@ -469,7 +461,6 @@ class TestRelayResume:
         np.testing.assert_array_equal(out.positive().values, [1, 2, 3, 4])
 
 
-@needs_sodium
 class TestLeafFailureModes:
     def test_dead_clerk_degrades_leaf_root_stays_exact(self):
         """Packed Shamir leaf loses one clerk: the sweeper declares the
@@ -512,7 +503,6 @@ class TestLeafFailureModes:
         assert "additive sharing cannot recover" in report["root_reason"]
 
 
-@needs_sodium
 class TestLinkage:
     def test_round_documents_expose_parent_and_children(self):
         """RoundStatus + the /statusz rounds table carry the tree

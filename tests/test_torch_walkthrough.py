@@ -13,12 +13,9 @@ from pathlib import Path
 
 import pytest
 
-from sda_tpu_torch.crypto import sodium
-
 ROOT = Path(__file__).resolve().parent.parent
 
 
-@pytest.mark.skipif(not sodium.available(), reason="libsodium not present")
 def test_walkthrough_script_through_the_port():
     script = (ROOT / "docs" / "walkthrough.sh").read_text()
     ported, n = re.subn(r"python -m sda_tpu\.cli\.(main|serverd)",
