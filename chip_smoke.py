@@ -86,10 +86,24 @@ the streamed round on K1 and K3 with ChaCha masks, the quorum reveal
 without clerk 6, one multihost worker process over NCCL (its launches
 counted in the worker), and the devscale profile at MobileLite's width,
 each with its K1 and K3 launches; the drill profiles (load, chaos,
-pickup, soak, analytics, tree, fl) at ``ci.sh``'s sizes, each exact; K1 held to its
+pickup, soak, analytics, tree, fl, and the fleet and forensics drills:
+two ``sdad`` worker processes over one sqlite store with chaos on, the
+second with churn and the flight recorder, its round explained from the
+spools alone) at ``ci.sh``'s sizes, each exact and held to ``ci.sh``'s
+assertions; K1 held to its
 plain version at the pod's shard, the streamed round's first tile, the
 worker's last shard and the devscale profile's shard, and K3 at the
 streamed round's windows, each on the rows and seeds its run drew.
+Then the deployment as processes: the port's ``sdad`` over a sqlite
+file and ``sda`` processes for a recipient, 8 clerks and 8 participants,
+each update of MobileLite's width (3,731,890) from a ``.npy`` file
+through ``participate --model --journal`` with ChaCha masks (K3's expand
+in each participant process, its combine in the recipient's) and packed
+Shamir; participant 0 SIGKILLed once journaled and resumed, ``sdad``
+SIGKILLed and restarted on its file, one clerk absent, the mean revealed
+bit for bit equal to the updates' own fixed-point oracle, and K3 held to
+plain on the round's seeds; then a Paillier round through ``sdad
+--premix-paillier`` (K4 in the server process), revealed exactly.
 Prints the card's name and power
 limit, one JSON line of kernel measurements, and as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -156,6 +170,12 @@ DEVSCALE_DIM = 100_000_000
 MH_CHUNK, MH_DIM_CHUNK, MH_STOP = 32, 262_144, 7
 #: the participant chunk of the streamed sim run (phase 22)
 SIM_CHUNK = 50
+#: ``ci.sh``'s fleet drill (phase 22(f)): two ``sdad`` workers over one
+#: sqlite store, chaos on; its forensics drill adds churn
+FLEET_DRILL = ["--load", "--participants", "24", "--dim", "4",
+               "--load-arrivals", "closed", "--load-concurrency", "8",
+               "--load-seed", "20260803", "--load-store", "sqlite",
+               "--load-fleet", "2", "--load-chaos-rate", "0.05"]
 #: FedAvg on the card (phase 21): participants, local SGD steps and
 #: learning rate of each family (MobileLite's SGD diverges at
 #: ``fl.FLProfile``'s 0.1), training examples a participant, batch, eval
@@ -216,6 +236,23 @@ SEAL_BUNDLE, SEAL_REPS, SIGN_REPS = 1_500_000, 20, 200
 #: ciphertexts, above encryption._DEVICE_PREMIX_MIN_MODMULS = 64
 P_PREMIX_SERVER, D_PREMIX_SERVER = 8, 2000
 PREMIX_SERVER_SCHEME = (60, 32, 16, 2048)
+#: the deployment as processes (phase 23): participants (4, cut from 8 so
+#: the whole script keeps a margin under 900 s; the width is never cut)
+#: and their update width (MobileLite's parameters,
+#: ``models/families.py``), the aggregation modulus (about 20 bits: 4
+#: summands of 16 fractional bits clip at ~2.0, far above the updates'
+#: N(0, 0.01) draws, and the packed Shamir prime admits 512 summands),
+#: committee size, the absent clerk, the seed of the updates, and the most
+#: processes run at once
+P_DEPLOY, D_DEPLOY, M_DEPLOY = 4, 3_731_890, 1_048_573
+DEPLOY_CLERKS, DEPLOY_ABSENT, DEPLOY_BITS, DEPLOY_SEED = 8, 3, 16, 2026
+DEPLOY_POOL = 8
+#: its Paillier leg: phase 16b's sizes through ``sdad --premix-paillier``
+#: (3 clerks, CLI-packed 2048-bit keys: 64 windows a plaintext, so each
+#: clerk column is 8 x 32 ciphertexts, above the floor of 64)
+P_DEPLOY_PAILLIER, D_DEPLOY_PAILLIER, DEPLOY_PAILLIER_BITS = 8, 2000, 2048
+#: seconds a role process may take before the phase fails
+ROLE_TIMEOUT_S = 300
 #: the README walkthrough's round: three participants' 10-dim inputs
 WALKTHROUGH = ([0, 0, 0, 1, 1, 1, 2, 2, 2, 3], [0, 1, 1, 1, 1, 2, 2, 3, 3, 3],
                [0, 1, 1, 2, 2, 3, 2, 3, 3, 4])
@@ -1637,6 +1674,80 @@ def _sim(label, argv, smi=""):
     return rec, launches, wall
 
 
+@contextlib.contextmanager
+def _recorder_env(spool):
+    """With a spool directory, ``SDA_FLIGHT_RECORDER`` names it while
+    entered (the in-process sim installs its recorder from it, the fleet
+    workers it spawns inherit it); on exit this process's recorder is
+    sealed and detached and the variable restored."""
+    import os
+
+    from sda_tpu_torch.obs import recorder
+
+    if spool is None:
+        yield
+        return
+    saved = os.environ.get(recorder.RECORDER_DIR_ENV)
+    os.environ[recorder.RECORDER_DIR_ENV] = spool
+    try:
+        yield
+    finally:
+        recorder.uninstall()
+        if saved is None:
+            os.environ.pop(recorder.RECORDER_DIR_ENV)
+        else:
+            os.environ[recorder.RECORDER_DIR_ENV] = saved
+
+
+def _fleet_checks(name, rec, spool=None):
+    """``ci.sh``'s assertions on the fleet drill's report (two ``sdad``
+    workers over one sqlite store, chaos on) or, with its spool, on the
+    forensics drill's: ``forensics.explain`` over the spools alone reaches
+    ``revealed`` with every admitted participation, at least three
+    processes, the chaos faults attributed and the reveal's digest; and
+    ``sda-trace segments`` and ``slo`` exit 0 on the spool. Returns what
+    the phase's record keeps."""
+    _check(rec["ready"] and rec["exact"], f"sim {name}: {rec}")
+    if spool is None:
+        _check(rec["fleet_nodes"] == 2 and rec["client_failures"] == 0
+               and rec["leaked"] == 0 and rec["chaos_rate"] > 0
+               and isinstance(rec["scaling_efficiency"], float)
+               and all(rps > 0 for rps in rec["per_node_load_rps"].values()),
+               f"sim {name}: {rec}")
+        return {key: rec[key] for key in (
+            "fleet_nodes", "value", "baseline_rps", "scaling_efficiency",
+            "per_node_load_rps", "client_failures", "leaked", "host_cores")}
+    from sda_tpu_torch.cli import tracecli
+    from sda_tpu_torch.obs import forensics
+
+    _check(bool(rec["output_sha256"]), f"sim {name}: no output digest")
+    rep = forensics.explain(forensics.load_spool(spool), rec["aggregation"])
+    _check(len(rep["processes"]) >= 3,
+           f"sim {name}: spools of {rep['processes']}")
+    _check(rep["participations"]["created"] == rec["admitted_participations"],
+           f"sim {name}: {rep['participations']} spooled, "
+           f"{rec['admitted_participations']} admitted")
+    _check(rep["final_state"] == "revealed", f"sim {name}: {rep['states']}")
+    _check(bool(rep["faults"]) and all(
+        f["site"] and f["kind"] for f in rep["faults"]),
+        f"sim {name}: faults {rep['faults']}")
+    _check(bool(rep["reveal"]) and rep["reveal"]["output_sha256"]
+           == rec["output_sha256"], f"sim {name}: reveal {rep['reveal']}")
+    for command in ("segments", "slo"):
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = tracecli.main(["--spool", spool, command])
+        _check(rc == 0, f"sda-trace {command} exited {rc}")
+    print(f"  sim {name}: {rep['spans']} spans from "
+          f"{len(rep['processes'])} processes, "
+          f"{rep['participations']['created']} participations, "
+          f"{len(rep['faults'])} faults attributed, states "
+          f"{'->'.join(s['state'] for s in rep['states'])}, reveal digest "
+          "match")
+    return {"spans": rep["spans"], "processes": len(rep["processes"]),
+            "participations": rep["participations"]["created"],
+            "faults": len(rep["faults"]), "final_state": rep["final_state"]}
+
+
 def sim_phase(dev, smi="", P=P_MAIN, D=D_MAIN, chunk=SIM_CHUNK,
               devscale_family="mobilelite"):
     """Phase 22: the port's ``sda-sim`` (``cli/sim.main``) in this process
@@ -1768,7 +1879,9 @@ def sim_phase(dev, smi="", P=P_MAIN, D=D_MAIN, chunk=SIM_CHUNK,
                      "--fl-batch", "32", "--fl-target", "0.8",
                      "--fl-churn", "0.25", "--fl-dead-clerks", "1",
                      "--fl-store", "sqlite", "--fl-http", "--fl-seed",
-                     "20260803"]}
+                     "20260803"],
+              "fleet": FLEET_DRILL,
+              "forensics": [*FLEET_DRILL, "--load-churn", "0.3"]}
     # Their masks cancel inside a round, so an exact reveal cannot see a
     # wrong K3 call: each drill's K3 calls are recorded, counted against
     # its launches and held to plain on the seeds it drew (the first
@@ -1777,8 +1890,13 @@ def sim_phase(dev, smi="", P=P_MAIN, D=D_MAIN, chunk=SIM_CHUNK,
     drill_rec, k3_drill_err = {}, 0
     for name, argv in drills.items():
         replayed = k3.replayed
-        with K3Calls() as k3_calls:
-            rec, n, wall = _sim(name, [*argv, *device], smi)
+        with tempfile.TemporaryDirectory() as tmp:
+            # the forensics drill spools every process's telemetry
+            spool = tmp if name == "forensics" else None
+            with _recorder_env(spool), K3Calls() as k3_calls:
+                rec, n, wall = _sim(name, [*argv, *device], smi)
+            fleet = _fleet_checks(name, rec, spool) \
+                if name in ("fleet", "forensics") else None
         _check(rec.get("exact") is True, f"sim {name}: {rec}")
         ops = collections.Counter(op for op, _, _ in k3_calls.calls)
         # one launch a call, and one expand more for a combine whose
@@ -1799,6 +1917,8 @@ def sim_phase(dev, smi="", P=P_MAIN, D=D_MAIN, chunk=SIM_CHUNK,
         drill_rec[name] = {"exact": rec.get("exact"), "wall_s": wall,
                            "value": rec.get("value"), "k3": n["k3"],
                            "k3_calls": dict(ops), "k3_held": len(held)}
+        if fleet is not None:
+            drill_rec[name]["fleet"] = fleet
     # the tree drill's rounds mask with ChaCha seeds: K3 on a card
     _check(not on_card or drill_rec["tree"]["k3"] > 0,
            f"sim tree: K3 launched no time {drill_rec['tree']}")
@@ -2666,7 +2786,553 @@ def premix_server_phase(dev, P=P_PREMIX_SERVER, D=D_PREMIX_SERVER,
             "wall_s": wall, "phases_s": _phases(utils)}
 
 
+class Processes:
+    """The port's ``sdad`` and ``sda`` run as a deployment runs them, each
+    command a process of its own (``python -m <package>.cli.main
+    --device <device>``) from this checkout, at most ``pool`` at once. With
+    ``main`` given, ``sda`` commands go through ``main(argv)`` in this
+    process instead, one at a time (the CPU twin's roles); ``popen`` and
+    ``sdad`` always start processes. Every wait has a timeout, and a role
+    that exits non-zero fails the phase. Records each process's wall."""
+
+    def __init__(self, root, device, package="sda_tpu_torch", main=None,
+                 env=None):
+        import os
+
+        self.root = Path(root)
+        self.root.mkdir(parents=True, exist_ok=True)
+        self.package, self.main = package, main
+        self.pool = DEPLOY_POOL if main is None else 1
+        self.device = [] if device is None else ["--device", str(device)]
+        here = str(Path(__file__).resolve().parent)
+        self.cwd = here
+        # the role processes share one bytecode cache: torch's modules are
+        # compiled once, not in every process (its install may hold none)
+        self.env = {**os.environ, "PYTHONPATH": here,
+                    "PYTHONPYCACHEPREFIX": str(self.root / "pycache"),
+                    **(env or {})}
+        self.env.pop("PYTHONDONTWRITEBYTECODE", None)
+        self.sdad_proc, self.url, self.walls = None, None, []
+
+    def identity(self, who) -> Path:
+        return self.root / "agents" / who
+
+    def _argv(self, who, args, url=None):
+        return [*self.device, "-s", url or self.url, "-i",
+                str(self.identity(who)), *map(str, args)]
+
+    def sda(self, who, *args, rc=0):
+        """One ``sda`` command as ``who``; returns its stdout, stripped."""
+        argv = self._argv(who, args)
+        t0 = time.perf_counter()
+        if self.main is not None:
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                got = self.main(argv)
+            out = out.getvalue()
+        else:
+            res = subprocess.run(
+                [sys.executable, "-m", f"{self.package}.cli.main", *argv],
+                cwd=self.cwd, env=self.env, capture_output=True, text=True,
+                timeout=ROLE_TIMEOUT_S)
+            got, out = res.returncode, res.stdout
+            if got != rc:
+                print(res.stderr[-4000:], file=sys.stderr)
+        self.walls.append((args[0], time.perf_counter() - t0))
+        _check(got == rc, f"sda {' '.join(map(str, args[:3]))} as {who}: "
+               f"exit {got}, want {rc}")
+        return out.strip()
+
+    def popen(self, who, *args, url=None):
+        """``sda`` as ``who`` in a process of its own, not waited for."""
+        return subprocess.Popen(
+            [sys.executable, "-m", f"{self.package}.cli.main",
+             *self._argv(who, args, url)], cwd=self.cwd, env=self.env,
+            stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL)
+
+    def map(self, fn, items):
+        items = list(items)
+        if self.pool == 1:
+            return [fn(item) for item in items]
+        with ThreadPoolExecutor(min(self.pool, len(items))) as pool:
+            return list(pool.map(fn, items))
+
+    def start_sdad(self, *flags, port=0, env=None, sda_ping=True):
+        """``sdad <flags> httpd`` on 127.0.0.1:``port`` (0: a free one);
+        returns once it listens and answers ``sda ping`` (or, without
+        ``sda_ping``, a ping from this process)."""
+        import threading
+
+        log = open(self.root / "sdad.log", "a")
+        cmd = [sys.executable, "-m", f"{self.package}.cli.serverd",
+               *self.device, *flags, "httpd", "--bind", f"127.0.0.1:{port}"]
+        self.sdad_proc = proc = subprocess.Popen(
+            cmd, cwd=self.cwd, env={**self.env, **(env or {})},
+            stdout=subprocess.PIPE, stderr=log, text=True)
+        log.close()
+        lines = []
+        # the first line is the address; the rest (the drain summary) is
+        # read on as it comes, so the pipe never fills
+        reader = threading.Thread(
+            target=lambda: lines.extend(proc.stdout), daemon=True)
+        reader.start()
+        self._sdad_lines = lines
+        deadline = time.monotonic() + ROLE_TIMEOUT_S
+        while not lines and proc.poll() is None \
+                and time.monotonic() < deadline:
+            time.sleep(0.05)
+        match = re.fullmatch(r"sdad listening on (\S+)\n",
+                             lines[0] if lines else "")
+        if match is None:
+            proc.kill()
+            proc.wait(timeout=60)
+            _fail(f"sdad did not start: {lines[:1]}; log: "
+                  f"{(self.root / 'sdad.log').read_text()[-4000:]}")
+        self.url = match[1]
+        if sda_ping:
+            _check(self.sda("ping", "ping") == '{"running": true}',
+                   "sda ping: sdad not running")
+        else:
+            from sda_tpu_torch.http import SdaHttpClient
+
+            _check(SdaHttpClient(self.url).ping().running,
+                   "ping: sdad not running")
+        return self.url
+
+    def kill_sdad(self):
+        """SIGKILL: the server process dies with no drain."""
+        self.sdad_proc.kill()
+        self.sdad_proc.wait(timeout=60)
+        self.sdad_proc = None
+
+    def stop_sdad(self):
+        """SIGTERM: the daemon drains and prints its summary last."""
+        proc = self.sdad_proc
+        proc.terminate()
+        rc = proc.wait(timeout=120)
+        self.sdad_proc = None
+        time.sleep(0.1)  # the reader thread takes the last line
+        last = self._sdad_lines[-1] if self._sdad_lines else ""
+        _check(rc == 0 and last.startswith("sdad drained {"),
+               f"sdad exited {rc} after SIGTERM: {last!r}")
+        return json.loads(last[len("sdad drained "):])
+
+    def close(self):
+        if self.sdad_proc is not None:
+            self.sdad_proc.kill()
+            self.sdad_proc.wait(timeout=60)
+            self.sdad_proc = None
+
+
+class _Gate:
+    """A TCP relay on 127.0.0.1 to ``target`` ("http://host:port") that
+    drops a connection instead of relaying its client's bytes once
+    ``closed()`` is true: the process behind it can talk to the server
+    until then, and nothing it sends afterwards lands."""
+
+    def __init__(self, target, closed):
+        import socket
+        import threading
+
+        host, port = target.rsplit("//", 1)[1].rsplit(":", 1)
+        self.target, self.closed = (host, int(port)), closed
+        self.sock = socket.create_server(("127.0.0.1", 0))
+        self.url = f"http://127.0.0.1:{self.sock.getsockname()[1]}"
+        self._socket, self._threading = socket, threading
+        threading.Thread(target=self._accept, daemon=True).start()
+
+    def _accept(self):
+        while True:
+            try:
+                conn, _ = self.sock.accept()
+                up = self._socket.create_connection(self.target)
+            except OSError:
+                return
+            for src, dst, gated in ((conn, up, True), (up, conn, False)):
+                self._threading.Thread(target=self._pipe,
+                                       args=(src, dst, gated),
+                                       daemon=True).start()
+
+    def _pipe(self, src, dst, gated):
+        try:
+            while True:
+                data = src.recv(1 << 16)
+                if not data or (gated and self.closed()):
+                    break
+                dst.sendall(data)
+        except OSError:
+            pass
+        finally:
+            for s in (src, dst):
+                try:
+                    s.shutdown(self._socket.SHUT_RDWR)
+                except OSError:
+                    pass
+
+    def close(self):
+        self.sock.close()
+
+
+def _journal_entries(directory):
+    return [p for p in Path(directory).glob("*.json")
+            if not p.name.startswith(".")]
+
+
+def _viewer(roles, dev):
+    """The recipient's identity opened in this process (the port's
+    ``sda`` client), for the phase's own reads of the round."""
+    from argparse import Namespace
+
+    from sda_tpu_torch.cli.main import load_client
+
+    return load_client(Namespace(identity=str(roles.identity("recipient")),
+                                 server=roles.url, device=str(dev)))
+
+
+def _status(viewer, agg):
+    """The aggregation's status as ``sda aggregations status`` prints it."""
+    from sda_tpu_torch.protocol import AggregationId
+
+    return viewer.service.get_aggregation_status(
+        viewer.agent, AggregationId(agg)).to_obj()
+
+
+def _stored_digest(db, agg, participant):
+    """The digest of the participation the server's sqlite file holds for
+    ``participant`` in ``agg``, or None; read-only."""
+    import sqlite3
+
+    conn = sqlite3.connect(f"file:{db}?mode=ro", uri=True, timeout=60)
+    try:
+        row = conn.execute(
+            "SELECT digest FROM participations WHERE aggregation = ? AND "
+            "participant = ?", (agg, participant)).fetchone()
+    finally:
+        conn.close()
+    return row and row[0]
+
+
+def _step(steps, name, t0, smi):
+    steps[name] = time.perf_counter() - t0
+    print(f"  deployment {name}: {steps[name]:.2f} s ({smi})", flush=True)
+
+
+def _walls(roles, command):
+    walls = sorted(w for c, w in roles.walls if c == command)
+    return {"n": len(walls), "min_s": walls[0],
+            "median_s": statistics.median(walls), "max_s": walls[-1]}
+
+
+def deployment_phase(dev, smi="", P=P_DEPLOY, D=D_DEPLOY, root=None,
+                     main=None):
+    """Phase 23 (a): the deployment as processes, every ``sda`` and
+    ``sdad`` on ``dev``. ``sdad`` over a sqlite file; a recipient, 8
+    clerks and P participants (identities made concurrently); a ChaCha
+    aggregation of width D mod M shared by packed Shamir k=3 over the
+    CLI's NTT prime, its committee the 8 clerks; each participant sends a
+    float64 update from a ``.npy`` file (``participate --model --journal``:
+    its fixed-point encode, its mask expand on K3 on a card, its packed
+    shares, its sealed boxes). Participant 0 talks to ``sdad`` through a
+    ``_Gate`` that closes once its journal entry exists, so its upload
+    cannot land; its process is SIGKILLed then, and ``sda resume``
+    re-uploads the journaled bundle; ``sdad`` is SIGKILLed after every
+    participation landed and restarted on the same file and port; clerk
+    ``absent`` never runs, the other 7 and the recipient run ``clerk
+    --once``; ``reveal --fixed-point-bits --mean`` must equal, bit for bit,
+    the mean decoded from the updates' own encodes. Then the recipient's
+    mask seeds, opened in this process with its keystore, hold K3's
+    combine and one expand to the plain version. With ``main``, the roles
+    but participant 0's crash run in this process (the CPU twin). The
+    files stay in ``root`` when given. Returns the phase's JSON record."""
+    import numpy as np
+
+    from sda_tpu_torch.client.journal import ParticipationJournal
+    from sda_tpu_torch.fields import numtheory
+    from sda_tpu_torch.models import FixedPointCodec
+    from sda_tpu_torch.protocol import AggregationId, SnapshotId
+    from sda_tpu_torch.server import new_sqlite_server
+
+    M, clerks, absent, bits = M_DEPLOY, DEPLOY_CLERKS, DEPLOY_ABSENT, \
+        DEPLOY_BITS
+    steps = {}
+    with contextlib.ExitStack() as stack:
+        if root is None:
+            root = stack.enter_context(tempfile.TemporaryDirectory())
+        root = Path(root)
+        roles = Processes(root / "round", dev, main=main)
+        stack.callback(roles.close)
+        db = root / "round" / "sda.db"
+        t_phase = t0 = time.perf_counter()
+        roles.start_sdad("--sqlite", db)
+        port = int(roles.url.rsplit(":", 1)[1])
+        _step(steps, "sdad start", t0, smi)
+
+        t0 = time.perf_counter()
+        names_clerks = [f"clerk-{i}" for i in range(clerks)]
+        names_parts = [f"p-{i}" for i in range(P)]
+
+        def identity(who):
+            agent = roles.sda(who, "agent", "create")
+            if who not in names_parts:
+                roles.sda(who, "agent", "keys", "create")
+            return agent
+
+        names = ["recipient", *names_clerks, *names_parts]
+        ids = dict(zip(names, roles.map(identity, names)))
+        _step(steps, "identities", t0, smi)
+        start_up = _walls(roles, "agent")
+        print(f"  deployment: {start_up['n']} identity processes, at most "
+              f"{roles.pool} at once, {start_up['min_s']:.2f} / "
+              f"{start_up['median_s']:.2f} / {start_up['max_s']:.2f} s "
+              f"(min / median / max) each, start-up included ({smi})")
+
+        t0 = time.perf_counter()
+        agg = roles.sda("recipient", "aggregations", "create", "deployment",
+                        "--dimension", D, "--modulus", M, "--mask", "chacha",
+                        "--sharing", "shamir", "--shares", clerks,
+                        "--secrets-per-batch", 3)
+        viewer = _viewer(roles, dev)
+        roles.sda("recipient", "aggregations", "begin", agg,
+                  *[x for c in names_clerks for x in ("--clerk", ids[c])])
+        _step(steps, "create and begin", t0, smi)
+
+        updates = [np.random.default_rng(DEPLOY_SEED + i).normal(0, 1e-2, D)
+                   for i in range(P)]
+        files = [root / f"update-{i}.npy" for i in range(P)]
+        for f, u in zip(files, updates):
+            np.save(f, u)
+
+        def participate(i):
+            return roles.sda(f"p-{i}", "participate", agg, "--model",
+                             files[i], "--journal", "--max-summands", P)
+
+        crash = {}
+
+        def crash_and_resume(_):
+            """Participant 0 killed once its journal entry exists, then
+            ``sda resume``."""
+            journal = roles.identity("p-0") / "journal"
+            t1 = time.perf_counter()
+            gate = _Gate(roles.url, lambda: bool(_journal_entries(journal)))
+            try:
+                proc = roles.popen("p-0", "participate", agg, "--model",
+                                   files[0], "--journal", "--max-summands",
+                                   P, url=gate.url)
+                deadline = time.monotonic() + ROLE_TIMEOUT_S
+                while not _journal_entries(journal):
+                    _check(proc.poll() is None,
+                           f"participant 0 exited {proc.returncode} before "
+                           "its journal entry was seen")
+                    _check(time.monotonic() < deadline,
+                           "participant 0: no journal entry in time")
+                    time.sleep(0.002)
+                proc.kill()
+                proc.wait(timeout=60)
+            finally:
+                gate.close()
+            crash["journal_s"] = time.perf_counter() - t1
+            [entry] = ParticipationJournal(journal).pending()
+            crash["digest"] = entry.canonical_digest()
+            _check(_stored_digest(db, agg, ids["p-0"]) is None,
+                   "participant 0's upload landed past the closed gate")
+            t1 = time.perf_counter()
+            out = roles.sda("p-0", "resume")
+            crash["resume_s"] = time.perf_counter() - t1
+            _check(out == "resumed 1 of 1 journaled participation(s); 0 "
+                   "still pending", f"sda resume: {out!r}")
+            _check(not _journal_entries(journal),
+                   "participant 0's journal entry not reaped")
+
+        t0 = time.perf_counter()
+        roles.map(lambda i: crash_and_resume(i) if i == 0 else
+                  participate(i), range(P))
+        # each participant counts at most once (the server's exactly-once
+        # key), so P in all means participant 0 counted exactly once
+        counted = _status(viewer, agg)["number_of_participations"]
+        _check(counted == P, f"{counted} participations, want {P}")
+        _step(steps, "participations", t0, smi)
+        for i in range(1, P):
+            _check(not _journal_entries(roles.identity(f"p-{i}") / "journal"),
+                   f"participant {i}'s journal entry not reaped")
+
+        # sdad dies between the participations and the snapshot
+        t0 = time.perf_counter()
+        roles.kill_sdad()
+        roles.start_sdad("--sqlite", db, port=port, sda_ping=False)
+        _step(steps, "sdad kill and restart", t0, smi)
+        status = _status(viewer, agg)
+        _check(status["number_of_participations"] == P,
+               f"after the restart: {status['number_of_participations']} "
+               f"participations, want {P}")
+        t0 = time.perf_counter()
+        roles.sda("recipient", "aggregations", "end", agg)
+        _step(steps, "end (snapshot)", t0, smi)
+
+        # the bundle the server froze for participant 0 is the journaled one
+        store = new_sqlite_server(db)
+        try:
+            snap = _status(viewer, agg)["snapshots"][0]["id"]
+            frozen = {str(p.participant): p.canonical_digest() for p in
+                      store.server.aggregation_store.
+                      iter_snapped_participations(AggregationId(agg),
+                                                  SnapshotId(snap))}
+        finally:
+            store.server.agents_store.db.conn.close()
+        _check(len(frozen) == P and frozen.get(ids["p-0"]) == crash["digest"],
+               "the snapshot does not hold participant 0's journaled bundle")
+
+        t0 = time.perf_counter()
+        present = [c for i, c in enumerate(names_clerks) if i != absent]
+        roles.map(lambda c: roles.sda(c, "clerk", "--once"), present)
+        roles.sda("recipient", "clerk", "--once")
+        _step(steps, "clerks", t0, smi)
+        snap = _status(viewer, agg)["snapshots"][0]
+        _check(snap["number_of_clerking_results"] == clerks - 1
+               and snap["result_ready"], f"snapshot after the clerks: {snap}")
+
+        t0 = time.perf_counter()
+        out = roles.sda("recipient", "aggregations", "reveal", agg,
+                        "--fixed-point-bits", bits, "--mean")
+        got = np.array(out.split(), dtype=np.float64)
+        _step(steps, "reveal", t0, smi)
+
+        # the oracle: each update encoded as `participate --model` does,
+        # summed mod M, the mean decoded as `reveal --mean` does
+        codec = FixedPointCodec(M, bits, P)
+        total = np.zeros(D, dtype=np.int64)
+        for u in updates:
+            total = (total + codec.encode(u)) % M
+        want = codec.decode_mean(total, P)
+        _check(got.shape == want.shape, f"reveal: {got.shape} floats")
+        err = float(np.abs(got - want).max())
+        _check(np.array_equal(got, want),
+               f"reveal != the oracle's mean (max |err| {err})")
+        quant = float(np.abs(got - np.mean(updates, axis=0)).max())
+
+        # K3 on the round's own seeds: the recipient's, opened here
+        t0 = time.perf_counter()
+        client = viewer
+        aggregation = client.service.get_aggregation(client.agent,
+                                                     AggregationId(agg))
+        # the CLI's packed Shamir: k=3 over the generator's NTT prime
+        sharing = aggregation.committee_sharing_scheme
+        t, prime, _, _ = numtheory.generate_packed_params(
+            3, clerks, min(M.bit_length() + 21, 28))
+        _check((sharing.secret_count, sharing.privacy_threshold,
+                sharing.prime_modulus) == (3, t, prime),
+               f"the CLI's sharing: {sharing.to_obj()}")
+        result = client.service.get_snapshot_result(
+            client.agent, aggregation.id,
+            client.service.get_aggregation_status(
+                client.agent, aggregation.id).snapshots[0].id)
+        decryptor = client.crypto.new_share_decryptor(
+            aggregation.recipient_key,
+            aggregation.recipient_encryption_scheme)
+        seeds = [[int(w) for w in decryptor.decrypt(e)]
+                 for e in result.recipient_encryptions]
+        _check(len(seeds) == P, f"{len(seeds)} mask seeds, want {P}")
+        kw = dict(dimension=D, modulus=M, prg=aggregation.masking_scheme.prg,
+                  device=str(dev))
+        k3_err = max(_k3_call_hold("deployment", "combine", seeds, kw),
+                     _k3_call_hold("deployment", "expand", seeds[:1], kw))
+        _step(steps, "K3 hold on the round's seeds", t0, smi)
+        drained = roles.stop_sdad()
+        steps["phase"] = time.perf_counter() - t_phase
+    return {"stage": "deployment", "participants": P, "dim": D,
+            "modulus": M, "prime": sharing.prime_modulus, "clerks": clerks,
+            "absent_clerk": absent, "fixed_point_bits": bits,
+            "exact": True, "max_abs_err": err,
+            "mean_sha256": hashlib.sha256(got.tobytes()).hexdigest(),
+            "max_abs_err_vs_float_mean": quant, "steps_s": steps,
+            "participant_0": {k: v for k, v in crash.items()
+                              if k != "digest"},
+            "start_up_s": start_up,
+            "participate_s": _walls(roles, "participate"),
+            "clerk_s": _walls(roles, "clerk"),
+            "k3_max_abs_err": k3_err, "sdad_drained": drained}
+
+
+def paillier_deployment_phase(dev, smi="", P=P_DEPLOY_PAILLIER,
+                              D=D_DEPLOY_PAILLIER,
+                              key_bits=DEPLOY_PAILLIER_BITS, main=None):
+    """Phase 23 (b): the Paillier leg as processes. ``sdad --premix-paillier
+    --metrics --sqlite`` on ``dev`` with ``SDA_PREMIX_DEVICE=1``; a
+    recipient and 3 clerks with PackedPaillier keys of ``key_bits``; an
+    additive aggregation of P x D values mod 433 with Full masks and
+    ``--encryption paillier``, its committee the 3 clerks. At ``end`` the
+    server premixes each clerk's column (K4 on a card); its ``/metrics``
+    must count the columns, and the reveal must equal the int64 column sum
+    mod 433 (a wrong K4 product decrypts to a wrong sum). Returns the
+    phase's JSON record."""
+    import urllib.request
+
+    import numpy as np
+
+    steps = {}
+    inputs = np.random.default_rng(0).integers(0, 433, size=(P, D))
+    with contextlib.ExitStack() as stack:
+        root = Path(stack.enter_context(tempfile.TemporaryDirectory()))
+        roles = Processes(root, dev, main=main)
+        stack.callback(roles.close)
+        t_phase = t0 = time.perf_counter()
+        roles.start_sdad("--premix-paillier", "--metrics", "--statusz",
+                         "--sqlite", root / "sda.db",
+                         env={"SDA_PREMIX_DEVICE": "1"}, sda_ping=False)
+        _step(steps, "paillier sdad start", t0, smi)
+        t0 = time.perf_counter()
+        names_clerks = [f"clerk-{i}" for i in range(3)]
+
+        def identity(who):
+            agent = roles.sda(who, "agent", "create")
+            roles.sda(who, "agent", "keys", "create", "--encryption",
+                      "paillier", "--paillier-modulus-bits", key_bits)
+            return agent
+
+        # participants register with their first participation
+        names = ["recipient", *names_clerks]
+        ids = dict(zip(names, roles.map(identity, names)))
+        agg = roles.sda("recipient", "aggregations", "create", "premixed",
+                        "--dimension", D, "--modulus", 433, "--shares", 3,
+                        "--mask", "full", "--encryption", "paillier",
+                        "--paillier-modulus-bits", key_bits)
+        roles.sda("recipient", "aggregations", "begin", agg,
+                  *[x for c in names_clerks for x in ("--clerk", ids[c])])
+        _step(steps, "paillier identities, create and begin", t0, smi)
+        t0 = time.perf_counter()
+        roles.map(lambda i: roles.sda(f"p-{i}", "participate", agg,
+                                      *inputs[i]), range(P))
+        _step(steps, "paillier participations", t0, smi)
+        t0 = time.perf_counter()
+        roles.sda("recipient", "aggregations", "end", agg)
+        _step(steps, "paillier end (snapshot, premix)", t0, smi)
+        with urllib.request.urlopen(f"{roles.url}/metrics", timeout=60) as r:
+            metrics = r.read().decode()
+        with urllib.request.urlopen(f"{roles.url}/statusz", timeout=60) as r:
+            statusz = json.loads(r.read().decode())
+        premix = {name: int(value) for name, value in re.findall(
+            r'^sda_events_total\{name="server\.premix\.(\w+)"\} (\d+)$',
+            metrics, re.MULTILINE)}
+        _check(premix.get("inputs") == P * 3 and premix.get("outputs", 0) > 0,
+               f"sdad premixed {premix}, want {P * 3} inputs")
+        t0 = time.perf_counter()
+        roles.map(lambda c: roles.sda(c, "clerk", "--once"),
+                  [*names_clerks, "recipient"])
+        out = roles.sda("recipient", "aggregations", "reveal", agg)
+        _step(steps, "paillier clerks and reveal", t0, smi)
+        want = inputs.sum(axis=0) % 433
+        got = np.array(out.split(), dtype=np.int64)
+        _check(np.array_equal(got, want),
+               "paillier deployment: reveal != column sum mod 433")
+        roles.stop_sdad()
+        steps["phase"] = time.perf_counter() - t_phase
+    return {"stage": "deployment_paillier", "participants": P, "dim": D,
+            "clerks": 3, "key_bits": key_bits, "exact": True,
+            "max_abs_err": 0, "premix_counters": premix,
+            "statusz_store": statusz.get("store"), "steps_s": steps}
+
+
 def main() -> int:
+    t_script = time.perf_counter()
     try:
         import torch
     except ImportError:
@@ -3132,6 +3798,29 @@ def main() -> int:
     k3_launches["sim"] = rec22["k3_launches"]
     k3_launches["sim_drills"] = rec22["k3_launches_drills"]
 
+    # -- 23. the deployment as processes ------------------------------------
+    # K3 and K4 launch in the role processes and in sdad there, where this
+    # script cannot count them; an exact reveal holds K4, and K3 is held
+    # to plain on the round's own seeds
+    print(f"deployment: sdad and sda processes on {DEVICE}, P={P_DEPLOY} x "
+          f"d={D_DEPLOY} (MobileLite's width), ChaCha masks, packed Shamir "
+          f"over 8 clerks with clerk {DEPLOY_ABSENT} absent, participant 0 "
+          f"and sdad killed and resumed ({smi}):")
+    print(f"deployment, Paillier leg beside it: sdad --premix-paillier, "
+          f"P={P_DEPLOY_PAILLIER} x d={D_DEPLOY_PAILLIER}, "
+          f"{DEPLOY_PAILLIER_BITS}-bit clerks ({smi}):")
+    t23 = time.perf_counter()
+    # the two deployments share nothing: the Paillier leg's processes run
+    # while (a)'s single-process steps leave the host's cores idle
+    with ThreadPoolExecutor(1) as pool:
+        leg_b = pool.submit(paillier_deployment_phase, dev, smi)
+        rec23 = deployment_phase(dev, smi)
+        rec23b = leg_b.result()
+    print(json.dumps(rec23), flush=True)
+    print(json.dumps(rec23b), flush=True)
+    print(f"phase 23: {time.perf_counter() - t23:.1f} s; the script "
+          f"{time.perf_counter() - t_script:.1f} s")
+
     # -- 8. the record ------------------------------------------------------
     print(smi)
     print(json.dumps({"kernels": [{
@@ -3192,7 +3881,8 @@ def main() -> int:
                            rec15["k3_window_max_abs_err"],
                            rec18["k3_window_max_abs_err"],
                            rec22["k3_window_max_abs_err"],
-                           rec22["k3_drills_max_abs_err"]),
+                           rec22["k3_drills_max_abs_err"],
+                           rec23["k3_max_abs_err"]),
         "ms": k3_rec["ms"],
         "plain_ms": k3_rec["plain_ms"],
         "bound_ms": k3_rec["bound_ms"],
@@ -3209,7 +3899,9 @@ def main() -> int:
         "replaces": "sda_tpu/crypto/paillier_tpu.py:137",
         "launches": sum(k4_launches.values()),
         "launches_by_phase": k4_launches,
-        "max_abs_err": max(k4_rec["max_abs_err"], rec16b["k4_max_abs_err"]),
+        "max_abs_err": max(k4_rec["max_abs_err"], rec16b["k4_max_abs_err"],
+                           rec23b["max_abs_err"]),
+        "premixed_in_sdad": rec23b["premix_counters"],
         **{key: k4_rec[key] for key in (
             "launches_by_op", "ms", "ms_of",
             "wrapper_ms", "ms_wide", "bound_ms_wide", "ms_wide_of",

@@ -8,10 +8,7 @@ report on the same seed.
 
 import json
 import os
-import re
 import time
-import types
-from pathlib import Path
 
 import pytest
 
@@ -33,21 +30,7 @@ from sda_tpu_torch.server import new_memory_server
 from sda_tpu_torch.utils import metrics
 
 
-
-def _port_of(name):
-    """``tests/<name>.py`` with the package name rewritten to the port's:
-    the reference's shared test helpers, building the port's objects."""
-    path = Path(__file__).with_name(f"{name}.py")
-    module = types.ModuleType(f"torch_{name}")
-    code = re.sub(r"\bsda_tpu\b", "sda_tpu_torch", path.read_text())
-    exec(compile(code, str(path), "exec"), module.__dict__)
-    return module
-
-
-_util = _port_of("util")
-mock_encryption = _util.mock_encryption
-new_agent = _util.new_agent
-new_full_agent = _util.new_full_agent
+from torch_util import mock_encryption, new_agent, new_full_agent
 
 
 @pytest.fixture(autouse=True)

@@ -6,9 +6,6 @@ which spawns the port's ``sdad``, ``-m sda_tpu_torch.cli.serverd``) and
 the ``sda-fleet`` flag mapping (``sda_tpu_torch/cli/fleetd.py``).
 """
 
-import re
-import types
-from pathlib import Path
 
 import threading
 
@@ -37,21 +34,7 @@ from sda_tpu_torch.server.core import SdaServer
 from sda_tpu_torch.server.routing import NODE_HEADER, HashRing
 
 
-
-def _port_of(name):
-    """``tests/<name>.py`` with the package name rewritten to the port's:
-    the reference's shared test helpers, building the port's objects."""
-    path = Path(__file__).with_name(f"{name}.py")
-    module = types.ModuleType(f"torch_{name}")
-    code = re.sub(r"\bsda_tpu\b", "sda_tpu_torch", path.read_text())
-    exec(compile(code, str(path), "exec"), module.__dict__)
-    return module
-
-
-_util = _port_of("util")
-mock_encryption = _util.mock_encryption
-new_agent = _util.new_agent
-new_full_agent = _util.new_full_agent
+from torch_util import mock_encryption, new_agent, new_full_agent
 
 BACKENDS = ["memory", "sqlite", "jsonfs", "fakemongo"]
 

@@ -8,11 +8,8 @@ clients on the CPU). ``sda-sim``'s ``--chaos-spec`` recipe is in
 ``tests/test_torch_sim.py``.
 """
 
-import re
 import threading
 import time
-import types
-from pathlib import Path
 
 import numpy as np
 import pytest
@@ -51,20 +48,7 @@ from sda_tpu_torch.server.breaker import (
 from sda_tpu_torch.server.core import SdaServer
 
 
-def _port_of(name):
-    """``tests/<name>.py`` with the package name rewritten to the port's:
-    the reference's shared test helpers, building the port's objects."""
-    path = Path(__file__).with_name(f"{name}.py")
-    module = types.ModuleType(f"torch_{name}")
-    code = re.sub(r"\bsda_tpu\b", "sda_tpu_torch", path.read_text())
-    exec(compile(code, str(path), "exec"), module.__dict__)
-    return module
-
-
-_util = _port_of("util")
-mock_encryption = _util.mock_encryption
-new_agent = _util.new_agent
-new_full_agent = _util.new_full_agent
+from torch_util import mock_encryption, new_agent, new_full_agent
 
 BACKENDS = ["memory", "sqlite", "jsonfs", "fakemongo"]
 

@@ -399,24 +399,50 @@ def test_latency_report_ms_matches_reference():
 
 @pytest.mark.skipif(not ref_sodium.available(),
                     reason="the reference's libsodium not present")
-def test_run_load_matches_reference_on_the_same_seed():
+def test_run_load_matches_reference_on_the_same_seed(monkeypatch):
     """One closed-loop round through both packages on the same seed: the
-    same revealed sum (its digest), admissions, request mix and server
-    counters; only times and ids differ."""
+    same revealed sum (its digest), admissions, request mix by route and
+    status, and server counters, exactly; only times differ.
+
+    The request mix depends on the agents' ids, which are random: the
+    recipient is a clerk candidate too, and the committee takes the first
+    8 of the 9 candidates by id. When the recipient is elected, a
+    participant's fetch of the recipient's key also serves its clerk key
+    from the client's cache; when its id sorts last and it is left out,
+    every participant fetches that key (its agent and its key) apart, and
+    the round makes 14 more reads, 12 of them in the load window. So the
+    ids are made in order here, rising or falling, and both cases are
+    held."""
+    import itertools
+    import uuid
+
     from sda_tpu.loadgen import LoadProfile as RefProfile
     from sda_tpu.loadgen import run_load as ref_run_load
     from sda_tpu_torch.loadgen import LoadProfile, run_load
 
+    def routes(report):
+        return {route: s["count"] for route, s in report["latency_ms"].items()}
+
     kw = dict(participants=6, dim=4, arrivals="closed", concurrency=3,
               seed=0, timeout_s=60)
-    ref = ref_run_load(RefProfile(**kw))
-    got = run_load(LoadProfile(**kw, device="cpu"))
-    assert got["exact"] and ref["exact"]
-    for key in ("output_sha256", "completed", "admitted_participations",
-                "load_requests", "requests", "status_counts", "counters",
-                "codec", "codec_counters", "errors_5xx", "shed_429"):
-        assert got[key] == ref[key], key
-    assert set(got["latency_ms"]) == set(ref["latency_ms"])
+    load_requests = {}
+    for case, step in (("elected", 1), ("left out", -1)):
+        # the recipient's agent is made first: the lowest id, or the highest
+        counter = itertools.count()
+        monkeypatch.setattr(uuid, "uuid4", lambda: uuid.UUID(
+            int=(1 << 120) + step * next(counter)))
+        ref = ref_run_load(RefProfile(**kw))
+        got = run_load(LoadProfile(**kw, device="cpu"))
+        assert got["exact"] and ref["exact"], case
+        for key in ("output_sha256", "completed", "admitted_participations",
+                    "load_requests", "requests", "status_counts", "counters",
+                    "codec", "codec_counters", "errors_5xx", "shed_429"):
+            assert got[key] == ref[key], (case, key)
+        assert routes(got) == routes(ref), case
+        assert sum(routes(got).values()) == got["requests"], case
+        load_requests[case] = got["load_requests"]
+    assert load_requests["left out"] - load_requests["elected"] \
+        == 2 * kw["participants"]
 
 
 def test_ci_loadgen_smoke_through_the_ports_sim(capsys):
