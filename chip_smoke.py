@@ -95,7 +95,7 @@ plain version at the pod's shard, the streamed round's first tile, the
 worker's last shard and the devscale profile's shard, and K3 at the
 streamed round's windows, each on the rows and seeds its run drew.
 Then the deployment as processes: the port's ``sdad`` over a sqlite
-file and ``sda`` processes for a recipient, 8 clerks and 8 participants,
+file and ``sda`` processes for a recipient, 8 clerks and 4 participants,
 each update of MobileLite's width (3,731,890) from a ``.npy`` file
 through ``participate --model --journal`` with ChaCha masks (K3's expand
 in each participant process, its combine in the recipient's) and packed
@@ -104,6 +104,15 @@ SIGKILLed and restarted on its file, one clerk absent, the mean revealed
 bit for bit equal to the updates' own fixed-point oracle, and K3 held to
 plain on the round's seeds; then a Paillier round through ``sdad
 --premix-paillier`` (K4 in the server process), revealed exactly.
+Then the rest of ``ci.sh``: each section no earlier phase runs, through
+the port's ``sda-sim`` with ``ci.sh``'s arguments and assertions (the
+dead-clerk drill's additive leg beside its Shamir one, the store
+brownout, churn on the threaded and the async planes, 10,000 held
+connections on one ``sdad`` worker, the JSON and binary wire codecs, the
+four poisoning legs, the trace smoke, the device perf plane with and
+without ``--pallas``, and the recorder bench), its records through the
+port's advisory gate; K1 runs in the perf plane's ``--pallas`` run and is
+held to plain at its round's shard.
 Prints the card's name and power
 limit, one JSON line of kernel measurements, and as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -1659,7 +1668,7 @@ def _sim(label, argv, smi=""):
     wall = time.perf_counter() - t0
     lines = [line for line in out.getvalue().splitlines()
              if line.startswith("{")]
-    _check(rc == 0, f"sim {label}: exit code {rc}")
+    _check(rc == 0, f"sim {label}: exit code {rc} {lines[-1:]}")
     _check(len(lines) == 1, f"sim {label}: {len(lines)} JSON lines")
     rec = json.loads(lines[0])
     launches = {"k1": k1.launches, "k1_by_instance": dict(
@@ -1746,6 +1755,17 @@ def _fleet_checks(name, rec, spool=None):
     return {"spans": rep["spans"], "processes": len(rep["processes"]),
             "participations": rep["participations"]["created"],
             "faults": len(rep["faults"]), "final_state": rep["final_state"]}
+
+
+def _sim_shard_hold(case, dev, pod, rows, shape, seed, masked=True):
+    """K1 held to plain (``_k1_shard_hold``) on a sim run's ``rows`` as one
+    shard of ``pod`` saw them: their residues zero-padded to ``shape``."""
+    import torch
+
+    x = torch.zeros(shape, dtype=torch.int64, device=dev)
+    r = rows[:shape[0], :shape[1]]
+    x[:r.shape[0], :r.shape[1]] = pod._field.to_residues(r.to(dev))
+    return _k1_shard_hold(case, dev, pod.scheme, masked, x, seed)
 
 
 def sim_phase(dev, smi="", P=P_MAIN, D=D_MAIN, chunk=SIM_CHUNK,
@@ -1925,14 +1945,9 @@ def sim_phase(dev, smi="", P=P_MAIN, D=D_MAIN, chunk=SIM_CHUNK,
     # the kernels at the shapes the runs launched them with, on the rows
     # and seeds each run drew
     pod = SimulatedPod(scheme, full, mesh=make_mesh(1, 1, devices=[dev]))
-    f = pod._field
 
     def hold(case, rows_of, shape, seed, masked=True):
-        """K1 on ``rows_of`` zero-padded to ``shape``, as the run's shard."""
-        x = torch.zeros(shape, dtype=torch.int64, device=dev)
-        r = rows_of[:shape[0], :shape[1]]
-        x[:r.shape[0], :r.shape[1]] = f.to_residues(r.to(dev))
-        return _k1_shard_hold(case, dev, scheme, masked, x, seed)
+        return _sim_shard_hold(case, dev, pod, rows_of, shape, seed, masked)
 
     inputs = torch.from_numpy(np.random.default_rng(0).integers(
         0, 1 << 20, size=(P, D), dtype=np.int64))
@@ -3331,6 +3346,422 @@ def paillier_deployment_phase(dev, smi="", P=P_DEPLOY_PAILLIER,
             "statusz_store": statusz.get("store"), "steps_s": steps}
 
 
+_CHAOS_SEED = ["--chaos-seed", "20260803", "--chaos-rate", "0.05"]
+_CHURN = ["--chaos", "--churn", "0.35", "--chaos-store", "sqlite",
+          *_CHAOS_SEED]
+_CODEC = ["--load", "--participants", "16", "--dim", "64",
+          "--load-arrivals", "closed", "--load-concurrency", "4",
+          "--load-seed", "20260803", "--load-store", "memory",
+          "--load-codec"]
+_POISON = ["--fl", "--participants", "5", "--fl-rounds", "2",
+           "--fl-seed", "3"]
+#: the device perf plane's round (``ci.sh:688``)
+P_PERF, D_PERF = 16, 96
+_PERF = ["--participants", str(P_PERF), "--dim", str(D_PERF), "--clerks",
+         "8", "--verify"]
+#: ``ci.sh``'s sections that phase 24 runs through the port's ``sda-sim``:
+#: each leg's arguments as ``ci.sh`` passes them (``--device`` is added;
+#: ``{tmp}`` is the section's scratch directory and ``{connections}`` the
+#: storm's count, ``ci.sh``'s 10,000 on the card)
+CI_LEGS = {
+    "dead_clerk": {
+        "shamir": ["--chaos", "--dead-clerks", "1", *_CHAOS_SEED],
+        "additive": ["--chaos", "--dead-clerks", "1", "--chaos-sharing",
+                     "additive", *_CHAOS_SEED]},
+    "brownout": {"brownout": ["--chaos", "--brownout", "1.0",
+                              *_CHAOS_SEED]},
+    "churn": {"threaded": _CHURN, "async": [*_CHURN, "--async-http"]},
+    "storm": {"storm": ["--connstorm", "{connections}", "--connstorm-waves",
+                        "2", "--connstorm-rss-limit", "1024"]},
+    "codec": {"json": [*_CODEC, "json"], "bin": [*_CODEC, "bin"]},
+    "poison": {
+        "clean": _POISON,
+        "undefended": [*_POISON, "--poison", "0.4"],
+        "defended": [*_POISON, "--poison", "0.4", "--fl-norm-clip", "0.5"],
+        "tree": ["--fl", "--participants", "9", "--fl-rounds", "2",
+                 "--fl-seed", "5", "--fl-tree-group", "3", "--poison",
+                 "0.25", "--poison-kind", "signflip", "--fl-tree-robust"]},
+    "trace": {"trace": ["--load", "--participants", "12", "--dim", "4",
+                        "--load-arrivals", "closed", "--load-concurrency",
+                        "4", "--load-seed", "20260803", "--load-store",
+                        "memory", "--trace-out", "{tmp}/trace.json"]},
+    "perf": {"plain": _PERF, "pallas": [*_PERF, "--pallas"]},
+}
+#: the recorder overhead bench, run as ``ci.sh`` runs it (its module)
+RECORDER_BENCH = ["--spans", "20000", "--max-overhead-pct", "400"]
+CI_SECTIONS = (*CI_LEGS, "recorder")
+STORM_CONNECTIONS = 10_000
+
+
+def _gate(tool, record=None):
+    """``ci.sh``'s advisory gate through the port: ``obs.regress
+    --advisory`` (``tool="regress"``) or ``sda-bench --check --advisory``
+    (``"bench"``) over the committed ``BENCH_r*.json`` and, when given,
+    ``record`` tagged ``framework: torch``. It must exit 0."""
+    from sda_tpu_torch.cli import bench as sda_bench
+    from sda_tpu_torch.obs import regress
+
+    paths = sorted(str(f) for f in
+                   Path(__file__).resolve().parent.glob("BENCH_r*.json"))
+    with tempfile.TemporaryDirectory() as tmp:
+        if record is not None:
+            path = Path(tmp) / "record.json"
+            path.write_text(json.dumps({**record, "framework": "torch"}))
+            paths.append(str(path))
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = (regress.main(["--advisory", *paths]) if tool == "regress"
+                  else sda_bench.main(["--check", "--advisory", *paths]))
+    _check(rc == 0, f"the advisory gate ({tool}) exited {rc}")
+
+
+def _ci_dead_clerk(legs, dev, tmp):
+    """``ci.sh:45-67``: Shamir degrades and reveals bit-exactly without
+    the dead clerk; additive fails closed, typed, before the deadline."""
+    shamir, additive = legs["shamir"], legs["additive"]
+    states = [s for s, _ in shamir["round_history"]]
+    _check(shamir["exact"] is True, f"dead clerk, shamir: {shamir}")
+    _check("degraded" in states and states[-1] == "revealed",
+           f"dead clerk, shamir: states {states}")
+    _check(bool(shamir["round_dead_clerks"]) and bool(
+        shamir["time_to_degraded_s"]) and shamir["time_to_degraded_s"] > 0,
+        f"dead clerk, shamir: {shamir}")
+    _check(additive["round_state"] == "failed" and bool(
+        additive["round_reason"]), f"dead clerk, additive: {additive}")
+    _check(bool(additive["failure"])
+           and additive["failure"]["type"] == "RoundFailed",
+           f"dead clerk, additive: failure {additive['failure']}")
+    _check(bool(additive["time_to_failed_s"])
+           and additive["time_to_failed_s"] > 0,
+           f"dead clerk, additive: {additive}")
+    _gate("regress", {
+        "metric": "time to degraded (dead-clerk drill, 8-clerk packed "
+                  "Shamir over HTTP)",
+        "value": shamir["time_to_degraded_s"], "unit": "seconds",
+        "platform": dev.type, "seed": shamir["seed"],
+        "clerking_deadline_s": 1.5})
+    return {"states": states,
+            "time_to_degraded_s": shamir["time_to_degraded_s"],
+            "additive_state": additive["round_state"],
+            "time_to_failed_s": additive["time_to_failed_s"]}
+
+
+def _ci_brownout(legs, dev, tmp):
+    """``ci.sh:83-111``: the round survives a second of store failures
+    bit-exactly; the breaker opened, shed with 503s and closed again."""
+    report = legs["brownout"]
+    _check(report["ready"] and report["exact"], f"brownout: {report}")
+    breaker, counters = report["breaker"], report["counters"]
+    _check(breaker["times_opened"] >= 1 and breaker["state"] == "closed",
+           f"brownout: breaker {breaker}")
+    _check(counters.get("server.store.breaker.shed", 0) >= 1
+           and counters.get("http.status.503", 0) >= 1,
+           f"brownout: counters {counters}")
+    mttr = report["time_to_recover_s"]
+    _check(bool(mttr) and 0 < mttr < 10.0, f"brownout: {report}")
+    _gate("regress", {
+        "metric": "time to recover (store brownout drill, 1s window, "
+                  "breaker threshold 3)",
+        "value": mttr, "unit": "seconds", "platform": dev.type,
+        "seed": report["seed"], "brownout_s": report["brownout_s"],
+        "breaker_recovery_s": breaker["recovery_s"]})
+    return {"time_to_recover_s": mttr,
+            "times_opened": breaker["times_opened"],
+            "shed": counters.get("server.store.breaker.shed")}
+
+
+def _ci_churn(legs, dev, tmp):
+    """``ci.sh:125-149``, the churn drill's exactly-once verdict on the
+    threaded plane; ``ci.sh:162-173``, the async plane's A/B: the same
+    verdicts and ``server.participation.*`` counters on both planes."""
+    threaded, asyncp = legs["threaded"], legs["async"]
+    _check(threaded["exact"] is True
+           and threaded["participants_churned"] >= 1
+           and threaded["participants_resumed"]
+           == threaded["participants_churned"]
+           and threaded["participations_replayed"] >= 1
+           and threaded["equivocations_undetected"] == 0
+           and threaded["equivocations_detected"] >= 1
+           and threaded["double_counted"] == 0, f"churn: {threaded}")
+    _gate("regress", {
+        "metric": "churn drill resume wall (12 participants, ~40% churn, "
+                  "journal resume over HTTP)",
+        "value": threaded["time_to_resume_s"], "unit": "seconds",
+        "platform": dev.type, "seed": threaded["seed"],
+        "churn_rate": threaded["churn_rate"],
+        "participants_resumed": threaded["participants_resumed"]})
+    _check(threaded["http_plane"] == "threaded"
+           and asyncp["http_plane"] == "async",
+           f"churn A/B: planes {threaded['http_plane']}, "
+           f"{asyncp['http_plane']}")
+    for key in ("exact", "ready", "participants_churned",
+                "participants_resumed", "participations_replayed",
+                "equivocations_detected", "equivocations_undetected",
+                "double_counted", "admitted_participations"):
+        _check(threaded[key] == asyncp[key],
+               f"churn A/B: {key} {threaded[key]} vs {asyncp[key]}")
+
+    def part(rep):
+        return {k: v for k, v in rep["counters"].items()
+                if k.startswith("server.participation.")}
+
+    _check(part(threaded) == part(asyncp),
+           f"churn A/B: {part(threaded)} vs {part(asyncp)}")
+    return {"participants_churned": threaded["participants_churned"],
+            "participants_resumed": threaded["participants_resumed"],
+            "time_to_resume_s": threaded["time_to_resume_s"],
+            "participation_counters": part(asyncp)}
+
+
+def _ci_storm(legs, dev, tmp):
+    """``ci.sh:215-232``: every connection held and served on every wave,
+    no 5xx, no transport or connect failure, a clean drain, and the
+    worker's memory under 1024 MiB."""
+    record = legs["storm"]
+    _check(record["ok"] is True, f"storm: {record}")
+    _check(record["errors_5xx"] == 0, f"storm: {record['statuses']}")
+    _check(record["transport_failures"] == 0
+           and record["connect_failures"] == 0, f"storm: {record}")
+    _check(record["leaked"] == 0, f"storm: drain {record['drain']}")
+    _check(record["clamped_by_fd_limit"]
+           or record["value"] == record["requested_connections"],
+           f"storm: {record['value']} of {record['requested_connections']}"
+           " connections")
+    _check(record["rss_bounded"] is True, f"storm: {record}")
+    print(f"  storm: {record['value']} connections held (fd soft limit "
+          f"{record['fd_soft_limit']}, clamped "
+          f"{record['clamped_by_fd_limit']}); sdad RSS "
+          f"{record['rss_baseline_mb']} -> {record['rss_mb']} MiB "
+          f"({record['per_connection_kb']} KiB a connection), bound "
+          f"{record['rss_limit_mb']} MiB")
+    _gate("bench", record)
+    return {key: record[key] for key in (
+        "value", "clamped_by_fd_limit", "fd_soft_limit", "rss_baseline_mb",
+        "rss_mb", "per_connection_kb", "rss_limit_mb", "rss_bounded",
+        "errors_5xx", "leaked", "connect_s", "drain_wall_s")}
+
+
+def _ci_codec(legs, dev, tmp):
+    """``ci.sh:328-338``: both codecs reveal exactly with no client
+    failure, and only the binary swarm spoke binary."""
+    for codec, report in legs.items():
+        _check(report["ready"] and report["exact"]
+               and report["client_failures"] == 0
+               and report["codec"] == codec, f"codec {codec}: {report}")
+    counters = {c: legs[c].get("codec_counters") or {} for c in legs}
+    _check(counters["bin"].get("http.codec.bin.in", 0) > 0,
+           f"codec bin: {counters['bin']}")
+    _check(counters["json"].get("http.codec.bin.in", 0) == 0,
+           f"codec json: {counters['json']}")
+    return {c: {"sustained_rps": legs[c]["sustained_rps"],
+                "codec_counters": counters[c]} for c in legs}
+
+
+def _ci_poison(legs, dev, tmp):
+    """``ci.sh:588-652``: every leg bit-exact; the boosted attack wrecks the
+    undefended model, the norm clip recovers it, both poisoned legs chose
+    the same attackers and the clerks counted every tainted upload; the
+    tree leg's trimmed mean holds the target."""
+    clean, undef, defend, tree = (legs[k] for k in (
+        "clean", "undefended", "defended", "tree"))
+    for name, leg in legs.items():
+        _check(leg["exact"] is True, f"poison {name}: "
+               f"{leg.get('failure_samples')}")
+        _check(leg["rounds_exact"] == leg["rounds_run"]
+               and leg["client_failures"] == 0, f"poison {name}: {leg}")
+    curves = {name: leg["accuracy_by_round"] for name, leg in legs.items()}
+    _check(clean["attack"] is None, f"poison clean: {clean['attack']}")
+    _check(clean["final_accuracy"] >= 0.9, f"poison clean: {curves}")
+    _check(undef["final_accuracy"] <= clean["final_accuracy"] - 0.5,
+           f"poison undefended: {curves}")
+    _check(defend["final_accuracy"] >= 0.9, f"poison defended: {curves}")
+    for name, leg in (("undefended", undef), ("defended", defend)):
+        atk = leg["attack"]
+        _check(atk["attackers_total"] >= 1
+               and atk["shares_tainted"] == atk["attackers_total"]
+               and atk["out_of_range_detections"] >= atk["attackers_total"],
+               f"poison {name}: {atk}")
+    _check(undef["attack"]["attackers_by_round"]
+           == defend["attack"]["attackers_by_round"],
+           f"poison: attackers {undef['attack']} vs {defend['attack']}")
+    _check(undef["attack"]["defended"] is False
+           and defend["attack"]["defended"] is True,
+           f"poison: defended flags {undef['attack']}, {defend['attack']}")
+    _check(defend["quantizer"]["norm_clip"] == 0.5
+           and defend["quantizer"]["headroom_margin"] > 0,
+           f"poison defended: {defend['quantizer']}")
+    _check(tree["reached_target"] is True, f"poison tree: {curves}")
+    t = tree["attack"]
+    _check(t["tree_robust"] is True and t["attackers_total"] >= 1
+           and t["out_of_range_detections"] >= 1, f"poison tree: {t}")
+    _check(all(r["robust_leaves"] == 3 for r in tree["per_round"]),
+           f"poison tree: {tree['per_round']}")
+    record = {
+        "metric": ("defended final accuracy under boost:-8 poisoning "
+                   "(r=0.4, L2 norm clip 0.5, secure FedAvg, 5 devices)"),
+        "value": defend["final_accuracy"], "direction": "higher",
+        "unit": "accuracy", "platform": defend["platform"],
+        "seed": defend["seed"],
+        "attack": {
+            "kind": defend["attack"]["kind"],
+            "rate": defend["attack"]["rate"],
+            "clean_final": clean["final_accuracy"],
+            "undefended_final": undef["final_accuracy"],
+            "defended_final": defend["final_accuracy"],
+            "recovery": round(defend["final_accuracy"]
+                              - undef["final_accuracy"], 4),
+            "detections": defend["attack"]["out_of_range_detections"],
+            "tree_robust_final": tree["final_accuracy"]}}
+    _gate("bench", record)
+    return {"accuracy_by_round": curves, "attack": record["attack"]}
+
+
+def _ci_trace(legs, dev, tmp):
+    """``ci.sh:664-682``: bit-exact with tracing on; the Chrome trace
+    parses and holds a round trace with every role that crossed the HTTP
+    hop (a server span whose parent is a client attempt)."""
+    report = legs["trace"]
+    _check(report["ready"] and report["exact"], f"trace: {report}")
+    trace = json.loads((Path(tmp) / "trace.json").read_text())
+    spans = [e for e in trace["traceEvents"] if e.get("ph") == "X"]
+    by_id = {e["args"]["span_id"]: e for e in spans}
+    traces = {}
+    for e in spans:
+        traces.setdefault(e["args"]["trace_id"], []).append(e)
+    round_traces = 0
+    for members in traces.values():
+        roles = {e["name"].split(" ")[0].split(".")[0] for e in members}
+        crossed = any(
+            e["name"].startswith("http.server")
+            and by_id.get(e["args"].get("parent_id", ""), {}).get("name")
+            == "http.attempt" for e in members)
+        if {"participant", "server", "clerk", "recipient"} <= roles \
+                and crossed:
+            round_traces += 1
+    _check(round_traces >= 1,
+           f"trace: no connected round trace among {len(traces)}")
+    return {"spans": len(spans), "connected_round_traces": round_traces}
+
+
+def _ci_perf(legs, dev, tmp):
+    """``ci.sh:692-698``, ``:702`` and ``:709`` on each run: exact, the
+    roofline block's four fields (the memory peak where the device has
+    one: a card), and the pod round's registry: 2 calls of one signature,
+    no retrace; then the gate over the committed records. Not
+    carried over: ``ci.sh:699-701``'s ``xla.compile.*`` counters, since
+    eager torch compiles nothing (ROADMAP §3's deviations)."""
+    out = {}
+    for name, rec in legs.items():
+        _check(rec["exact"], f"perf {name}: {rec}")
+        roof = rec["roofline"]
+        _check(roof["flops"] > 0 and roof["bytes"] > 0
+               and roof["arithmetic_intensity"] > 0
+               and 0 < roof["utilization"] < 1, f"perf {name}: {roof}")
+        _check(dev.type != "cuda" or roof["hbm_peak_bytes"] > 0,
+               f"perf {name}: no memory peak {roof}")
+        fn = rec["xla"]["functions"]["mesh.simpod.round"]
+        _check(fn["calls"] == 2 and fn["compiled_shapes"] == 1
+               and fn["retraces"] == 0, f"perf {name}: {fn}")
+        out[name] = {"pallas": rec["pallas"], "roofline": {
+            key: roof[key] for key in (
+                "flops", "bytes", "arithmetic_intensity", "utilization",
+                "hbm_peak_bytes", "ops_unit")}, "registry": fn}
+    _gate("regress")
+    return out
+
+
+def _ci_recorder():
+    """``ci.sh:419-420``: the recorder overhead bench as its module, within
+    its 400% bar, its record gated."""
+    proc = subprocess.run(
+        [sys.executable, "-m", "sda_tpu_torch.loadgen.recorderbench",
+         *RECORDER_BENCH], capture_output=True, text=True, timeout=600,
+        cwd=Path(__file__).resolve().parent)
+    _check(proc.returncode == 0, f"recorder bench exited "
+           f"{proc.returncode}: {proc.stderr[-2000:]}")
+    record = json.loads(proc.stdout.strip().splitlines()[-1])
+    _gate("regress", record)
+    return {key: record[key] for key in (
+        "spans_per_sec_on", "spans_per_sec_off", "overhead_pct")}
+
+
+CI_CHECKS = {"dead_clerk": _ci_dead_clerk, "brownout": _ci_brownout,
+             "churn": _ci_churn, "storm": _ci_storm, "codec": _ci_codec,
+             "poison": _ci_poison, "trace": _ci_trace, "perf": _ci_perf}
+
+
+def ci_section(dev, name, smi="", connections=STORM_CONNECTIONS):
+    """One section of phase 24 on ``dev``: each of its legs through the
+    port's ``sda-sim`` in this process with ``ci.sh``'s arguments (the
+    recorder bench as its module), then ``ci.sh``'s assertions on their
+    reports and the advisory gate of its record. The perf plane's
+    ``--pallas`` leg runs only on a card (K1 needs CUDA). Returns the
+    section's record: its wall, what the checks keep, and each leg's K1
+    and K3 launches."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        if name == "recorder":
+            rec = _ci_recorder()
+            launches = {}
+        else:
+            legs, launches = {}, {}
+            for leg, argv in CI_LEGS[name].items():
+                if leg == "pallas" and dev.type != "cuda":
+                    continue
+                argv = [a.format(tmp=tmp, connections=connections)
+                        for a in argv]
+                legs[leg], n, _ = _sim(f"{name} {leg}",
+                                       [*argv, "--device", str(dev)], smi)
+                launches[leg] = {"k1": n["k1"], "k3": n["k3"]}
+            rec = CI_CHECKS[name](legs, dev, tmp)
+    return {"wall_s": time.perf_counter() - t0, **rec,
+            "launches": launches}
+
+
+def ci_phase(dev, smi="", connections=STORM_CONNECTIONS):
+    """Phase 24: the sections of ``ci.sh`` that no other phase runs, each
+    at ``ci.sh``'s sizes and with its assertions (``ci_section``): the
+    dead-clerk drill's two legs, brownout, churn and the async-plane A/B,
+    the connection storm, the wire codec A/B, the poisoning drill, the
+    trace smoke, the device perf plane (with ``--pallas`` on a card: K1 on
+    the pod's round, one launch a round, then held to plain at the round's
+    shard) and the recorder bench. Every section masks with Full, so K3
+    must not launch. Returns the phase's JSON record."""
+    import numpy as np
+    import torch
+
+    from sda_tpu_torch.mesh import SimulatedPod, make_mesh, simpod
+
+    sections = {}
+    for name in CI_SECTIONS:
+        sections[name] = ci_section(dev, name, smi, connections)
+        print(f"  ci {name}: {sections[name]['wall_s']:.1f} s ({smi})")
+    launches = {f"{name} {leg}": n for name, rec in sections.items()
+                for leg, n in rec["launches"].items()}
+    k1_err, on_card = 0, dev.type == "cuda"
+    if on_card:
+        _check(all(n["k3"] == 0 for n in launches.values()),
+               f"ci: K3 launched in {launches}")
+        _check(launches["perf pallas"]["k1"] == 2 and all(
+            n["k1"] == 0 for leg, n in launches.items()
+            if leg != "perf pallas"),
+            f"ci: K1 launched {launches}, want 2 in the perf plane's "
+            "--pallas run (a warm and a timed round) and none elsewhere")
+        # the --pallas run's one shard: its inputs (default_rng(0)) and
+        # the round seed 0's tile (0, 0)
+        scheme, full, _ = _flagship()
+        inputs = torch.from_numpy(np.random.default_rng(0).integers(
+            0, 1 << 20, size=(P_PERF, D_PERF), dtype=np.int64))
+        pod = SimulatedPod(scheme, full, mesh=make_mesh(1, 1, devices=[dev]))
+        k1_err = _sim_shard_hold("ci perf --pallas shard", dev, pod, inputs,
+                                 pod.padded_shape(P_PERF, D_PERF),
+                                 simpod._tile_seed(0, 0, 0))
+    return {"stage": "ci", "sections": sections,
+            "storm_connections": connections,
+            "k1_launches": sum(n["k1"] for n in launches.values()),
+            "k3_launches": sum(n["k3"] for n in launches.values()),
+            "k1_shard_max_abs_err": k1_err}
+
+
 def main() -> int:
     t_script = time.perf_counter()
     try:
@@ -3818,7 +4249,17 @@ def main() -> int:
         rec23b = leg_b.result()
     print(json.dumps(rec23), flush=True)
     print(json.dumps(rec23b), flush=True)
-    print(f"phase 23: {time.perf_counter() - t23:.1f} s; the script "
+    print(f"phase 23: {time.perf_counter() - t23:.1f} s")
+
+    # -- 24. the rest of ci.sh ----------------------------------------------
+    print(f"ci: ci.sh's other sections through the port's sda-sim on "
+          f"{DEVICE}, at ci.sh's sizes and with its assertions ({smi}):")
+    t24 = time.perf_counter()
+    rec24 = ci_phase(dev, smi)
+    rec24["phase_s"] = time.perf_counter() - t24
+    print(json.dumps(rec24), flush=True)
+    k3_launches["ci"] = rec24["k3_launches"]
+    print(f"phase 24: {rec24['phase_s']:.1f} s; the script "
           f"{time.perf_counter() - t_script:.1f} s")
 
     # -- 8. the record ------------------------------------------------------
@@ -3837,17 +4278,20 @@ def main() -> int:
         + rec20["k1_launches_resumed"],
         "launches_fedavg": rec21["k1_launches"],
         "launches_sim": rec22["k1_launches"],
+        "launches_ci": rec24["k1_launches"],
         "launches_by_phase": {
             "pod_round": rec18["k1_launches_phase"],
             "devscale": rec19["k1_launches_phase"],
             "multihost": rec20["k1_launches_phase"],
             "fedavg": rec21["k1_launches_phase"],
-            "sim": rec22["k1_launches"]},
+            "sim": rec22["k1_launches"],
+            "ci": rec24["k1_launches"]},
         "max_abs_err": max(max_err["K1"], rec18["k1_shard_max_abs_err"],
                            rec19["k1_shard_max_abs_err"],
                            rec20["k1_shard_max_abs_err"],
                            rec21["k1_shard_max_abs_err"],
-                           rec22["k1_shard_max_abs_err"]),
+                           rec22["k1_shard_max_abs_err"],
+                           rec24["k1_shard_max_abs_err"]),
         "ms": k1_ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,

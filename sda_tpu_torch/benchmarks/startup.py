@@ -12,7 +12,8 @@ sqlite file. Each is run ``--reps`` times alone; then ``import torch`` and
 ``sda agent create`` run ``--at-once`` at a time. Every process's wall,
 user and system CPU and peak resident memory come from ``os.wait4``. The
 import of ``cli/main.py`` is also split by ``python -X importtime``: torch's
-share of it. Prints one line a measurement and, last, one JSON object;
+share of it (0 where it imports no torch: torch is imported at the first
+device use). Prints one line a measurement and, last, one JSON object;
 exits non-zero when a process fails.
 """
 
@@ -79,8 +80,9 @@ def _print(label, s):
 
 
 def import_split(env) -> dict:
-    """Cumulative microseconds of ``cli/main.py``'s import and of torch's
-    within it, from ``python -X importtime``."""
+    """Cumulative seconds of ``cli/main.py``'s import and of torch's
+    within it (0 when it imports no torch), from ``python -X
+    importtime``."""
     res = subprocess.run(
         [sys.executable, "-X", "importtime", "-c",
          f"import {PACKAGE}.cli.main"], env=env, cwd=ROOT,
@@ -88,7 +90,7 @@ def import_split(env) -> dict:
     cumulative = {m[2].strip(): int(m[1]) for m in re.finditer(
         r"import time:\s+\d+ \|\s+(\d+) \|(.*)", res.stderr)}
     return {"cli_main_s": cumulative[f"{PACKAGE}.cli.main"] / 1e6,
-            "torch_s": cumulative["torch"] / 1e6}
+            "torch_s": cumulative.get("torch", 0) / 1e6}
 
 
 def main(argv=None) -> int:

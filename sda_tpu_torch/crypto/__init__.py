@@ -5,9 +5,11 @@
 scheme-dispatched maskers/generators/encryptors from the scheme values
 carried in Aggregation resources.
 
-Port of ``sda_tpu/crypto/__init__.py``: the module resolves its device once
-(CUDA unless ``device="cpu"``) and hands it to every masker, generator,
-combiner and reconstructor it builds.
+Port of ``sda_tpu/crypto/__init__.py``: the module resolves its device once,
+at its first device use (CUDA unless ``device="cpu"``), and hands it to
+every masker, generator, combiner and reconstructor it builds. Key
+generation, signing and encryption are host work, so a role that does only
+those never imports torch.
 """
 
 from __future__ import annotations
@@ -39,12 +41,21 @@ from .signing import signature_is_valid
 class CryptoModule:
     """Factory for all crypto primitives, bound to a keystore and a device.
 
-    ``device=None`` means CUDA and raises ``RuntimeError`` without it; pass
-    ``device="cpu"`` to run the scheme algebra on the host."""
+    ``device=None`` means CUDA, and its first device use raises
+    ``RuntimeError`` without it; pass ``device="cpu"`` to run the scheme
+    algebra on the host."""
 
     def __init__(self, keystore: Keystore, device=None):
         self.keystore = keystore
-        self.device = resolve_device(device)
+        self._device_spec = device
+        self._device = None
+
+    @property
+    def device(self):
+        """The device of the scheme algebra, resolved on first read."""
+        if self._device is None:
+            self._device = resolve_device(self._device_spec)
+        return self._device
 
     # -- key generation ----------------------------------------------------
     def new_encryption_key(self, scheme=None) -> EncryptionKeyId:

@@ -16,7 +16,7 @@ import abc
 import secrets as _secrets
 from typing import Optional
 
-import torch
+from .._lazy import torch
 
 from ..protocol import (
     B32,

@@ -24,7 +24,7 @@ from __future__ import annotations
 from typing import List, Sequence, Tuple
 
 import numpy as np
-import torch
+from .._lazy import torch
 
 from .. import fields
 from ..fields import chacha, chacha_device

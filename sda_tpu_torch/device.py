@@ -2,7 +2,7 @@
 
 from __future__ import annotations
 
-import torch
+from ._lazy import torch
 
 
 def resolve_device(device=None) -> torch.device:

@@ -36,7 +36,7 @@ import functools
 from typing import Sequence
 
 import numpy as np
-import torch
+from .._lazy import torch
 
 from . import _build, chacha
 from .modular import modsum

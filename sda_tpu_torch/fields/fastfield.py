@@ -20,7 +20,7 @@ from __future__ import annotations
 from typing import Optional
 
 import numpy as np
-import torch
+from .._lazy import torch
 
 from .modular import _random_words
 

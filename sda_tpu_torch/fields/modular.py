@@ -14,7 +14,7 @@ reductions, so partial sums stay < 2^63.
 from __future__ import annotations
 
 import numpy as np
-import torch
+from .._lazy import torch
 
 #: Largest supported modulus (exclusive): residues must fit 31 bits so
 #: products fit s64 and at least two terms accumulate between reductions.

@@ -17,7 +17,7 @@ one integer pipe operation on the card).
 
 from __future__ import annotations
 
-import torch
+from .._lazy import torch
 
 from . import fastfield
 from ..obs import devprof

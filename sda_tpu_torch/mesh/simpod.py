@@ -49,6 +49,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ..benchmarks import bounds
 from ..device import resolve_device
 from ..fields import (chacha_device, fastfield, fused_round, modular,
                       numtheory, sharing)
@@ -609,6 +610,45 @@ def _reveal(scheme, f: FieldOps, L_host, survivors, gathered, mask_total,
     return f.to_int64(f.sub(total, mask_total))
 
 
+def _fold_ops(pod, rows: int, width: int) -> int:
+    """Integer operations of one fold of [rows, width] inputs into their
+    participant-summed shares and mask sum (``_fold_stage``), counted from
+    the algorithm: K1's (``bounds.k1_pipe_ops``) and K3's
+    (``bounds.k3_pipe_ops``) where they run, and one operation an element
+    for each plain-torch modular pass (residues, Full-mask and share-row
+    draws, sums, the share contraction's multiply-adds). ``pod``: the
+    round's driver (scheme, masking, share matrix, lane)."""
+    s, masking = pod.scheme, pod.masking
+    k, n = s.input_size, s.output_size
+    B = width // k
+    ops = rows * width                              # residues
+    if isinstance(masking, ChaChaMasking):
+        ops += bounds.k3_pipe_ops(rows, width, False) + 2 * rows * width
+    elif isinstance(masking, FullMasking) and not pod.pallas_active:
+        ops += 3 * rows * width                     # draw, add, sum
+    if pod.pallas_active:
+        t = s.privacy_threshold
+        draws = t + (k if isinstance(masking, FullMasking) else 0)
+        return ops + bounds.k1_pipe_ops(rows, B, k, draws, True)
+    if pod._M_host is not None:
+        t = s.privacy_threshold
+        return ops + 2 * rows * t * B + rows * width + n * (1 + k + t) * B
+    return ops + 3 * rows * (n - 1) * width + rows * width
+
+
+def _reveal_ops(pod, p_shards: int, B: int, width: int) -> int:
+    """Integer operations of one reveal of ``width`` columns ([n, B] clerk
+    rows): the collectives' adds over ``p_shards`` partials (0 on one
+    device), the reconstruction's multiply-adds (a share sum for additive
+    sharing) and the unmask."""
+    n = pod.scheme.output_size
+    ops = p_shards * (n * B + width) + width
+    if pod._L_host is None:
+        return ops + n * B
+    k, r = pod._L_host.shape
+    return ops + k * r * B
+
+
 def _as_inputs(inputs) -> torch.Tensor:
     """[P, d] integers as a tensor (numpy arrays and lists by value)."""
     if isinstance(inputs, torch.Tensor):
@@ -674,7 +714,8 @@ class SimulatedPod:
             sharing_scheme, self.masking, self._field, use_pallas, "local"
         )
         # one registry entry for every round, whatever its shape
-        self._round = devprof.instrument("mesh.simpod.round", self._run)
+        self._round = devprof.instrument("mesh.simpod.round", self._run,
+                                         cost=self._round_ops)
 
     @property
     def _sp(self):
@@ -726,6 +767,17 @@ class SimulatedPod:
                     gathered[di], totals[di], d_loc).to(home)
             for di in range(d_shards)])
 
+    def _round_ops(self, inputs, _round_seed, comm) -> int:
+        """Integer operations of one round (``_run``'s arguments), counted
+        from the algorithm: each shard's fold, then each ``d`` column's
+        clerk combine, reconstruct and unmask."""
+        p_shards, d_shards = self.mesh.devices.shape
+        rows, d_pad = inputs.shape
+        P_loc, d_loc = rows // len(comm.p_rows), d_pad // d_shards
+        B_loc = d_loc // self.scheme.input_size
+        return (len(comm.p_rows) * d_shards * _fold_ops(self, P_loc, d_loc)
+                + d_shards * _reveal_ops(self, p_shards, B_loc, d_loc))
+
     def _check_shape(self, P_total: int, d_total: int) -> None:
         p_shards, d_shards = self.mesh.devices.shape
         if P_total % p_shards:
@@ -748,9 +800,10 @@ class SimulatedPod:
 
     def aggregate(self, inputs, seed: Optional[int] = None) -> torch.Tensor:
         """[P, d] participant inputs -> [d] int64 aggregate (one full
-        round) on the mesh's first device. ``seed``: the round seed (an
-        int; None draws a fresh one)."""
-        inputs = _as_inputs(inputs)
+        round) on the mesh's first device, where the inputs land first
+        (so the round's memory peak is that device's). ``seed``: the round
+        seed (an int; None draws a fresh one)."""
+        inputs = _as_inputs(inputs).to(self.mesh.devices[0, 0])
         if seed is None:
             seed = secrets.randbits(62)
         P_total, d_total = inputs.shape

@@ -40,7 +40,6 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from ..benchmarks import bounds
 from ..device import resolve_device
 from ..fields.ops import FieldOps
 from ..obs import devprof
@@ -54,12 +53,14 @@ from .simpod import (
     _check_mask_modulus,
     _check_masking_supported,
     _dim_grain,
+    _fold_ops,
     _fold_stage,
     _normalize_survivors,
     _pod_mesh,
     _reconstruct_stage,
     _resolve_pallas,
     _reveal,
+    _reveal_ops,
     _scheme_modulus,
     _sync,
     _tile_seed,
@@ -499,39 +500,17 @@ class StreamingAggregator:
     # -- counted costs (obs.devprof) ---------------------------------------
     def _step_ops(self, block, *_args) -> int:
         """Integer operations of one accumulate step, counted from the
-        algorithm: K1's (``bounds.k1_pipe_ops``) and K3's
-        (``bounds.k3_pipe_ops``) where they run, and one operation an
-        element for each plain-torch modular pass (residues, Full-mask and
-        share-row draws, sums, the share contraction's multiply-adds, the
-        accumulates)."""
-        s = self.scheme
+        algorithm: the fold's (``simpod._fold_ops``) and the accumulates."""
         rows, width = block.shape
-        k, n = s.input_size, s.output_size
-        B = width // k
-        ops = rows * width + n * B + width          # residues, accumulates
-        if isinstance(self.masking, ChaChaMasking):
-            ops += bounds.k3_pipe_ops(rows, width, False) + 2 * rows * width
-        elif isinstance(self.masking, FullMasking) and not self.pallas_active:
-            ops += 3 * rows * width                 # draw, add, sum
-        if self.pallas_active:
-            t = s.privacy_threshold
-            draws = t + (k if isinstance(self.masking, FullMasking) else 0)
-            return ops + bounds.k1_pipe_ops(rows, B, k, draws, True)
-        if self._M_host is not None:
-            t = s.privacy_threshold
-            return (ops + 2 * rows * t * B + rows * width
-                    + n * (1 + k + t) * B)
-        return ops + 3 * rows * (n - 1) * width + rows * width
+        n = self.scheme.output_size
+        return (_fold_ops(self, rows, width)
+                + n * (width // self.scheme.input_size) + width)
 
     def _final_ops(self, acc_shares, acc_mask) -> int:
         """Integer operations of one finale: the reconstruction's
         multiply-adds (a plain share sum for additive sharing) and the
         unmask."""
-        width = acc_mask.shape[0]
-        if self._L_host is None:
-            return acc_shares.numel() + width
-        k, r = self._L_host.shape
-        return k * r * acc_shares.shape[-1] + width
+        return _reveal_ops(self, 0, acc_shares.shape[-1], acc_mask.shape[0])
 
     # -- checkpoint/resume -----------------------------------------------
     # A flagship streamed round is minutes of accumulate steps, so the
@@ -735,18 +714,12 @@ class StreamedPod:
     _step_ops = StreamingAggregator._step_ops
 
     def _final_ops(self, acc_shares, acc_mask) -> int:
-        """Integer operations of one finale: the collectives' adds, the
-        reconstruction's multiply-adds (a share sum for additive sharing)
-        and the unmask."""
-        p_shards = self.mesh.devices.shape[0]
-        n = self.scheme.output_size
-        width = sum(t.shape[0] for t in acc_mask[0])
-        B = sum(t.shape[-1] for t in acc_shares[0])
-        ops = p_shards * (n * B + width) + width
-        if self._L_host is None:
-            return ops + n * B
-        k, r = self._L_host.shape
-        return ops + k * r * B
+        """Integer operations of one finale (``simpod._reveal_ops``): the
+        collectives' adds, the reconstruction's multiply-adds and the
+        unmask."""
+        return _reveal_ops(self, self.mesh.devices.shape[0],
+                           sum(t.shape[-1] for t in acc_shares[0]),
+                           sum(t.shape[0] for t in acc_mask[0]))
 
     # -- checkpoint/resume -----------------------------------------------
     def _checkpoint_fingerprint(self, participants, dimension, seed):

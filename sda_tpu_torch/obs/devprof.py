@@ -37,8 +37,7 @@ import os
 import threading
 from typing import Dict, Optional, Tuple
 
-import torch
-
+from .._lazy import torch
 from ..benchmarks import bounds
 from ..device import resolve_device
 from ..utils import metrics
@@ -173,26 +172,22 @@ def _sig_entry(value, out) -> None:
             out.append(("k", str(key)))
             _sig_entry(value[key], out)
         return
-    if isinstance(value, (int, float)) and not isinstance(value, bool):
-        # numbers by type: eager torch keys no program on them, and a seed
-        # or a tile offset is a new value every call (the reference passes
-        # those as traced arrays, keyed by shape)
-        out.append(("t", type(value).__name__))
+    if value is None or isinstance(value, (bool, str, bytes)):
+        out.append(("s", value))  # flags and names, by value
         return
-    try:
-        hash(value)
-        out.append(("s", value))
-    except TypeError:
-        # unhashable non-container leaf: record the TYPE only — embedding
-        # repr(value) would make every distinct VALUE a distinct shape
-        # (unbounded registry growth, parameter dumps in reports)
-        out.append(("t", type(value).__name__))
+    # numbers and every other object by type: eager torch keys no program
+    # on them, a seed or a tile offset is a new value every call (the
+    # reference passes those as traced arrays, keyed by shape), and an
+    # object's value is most often its identity (a pod's collectives, a
+    # generator), a new one every round: keyed so, the registry would grow
+    # a "shape" a call
+    out.append(("t", type(value).__name__))
 
 
 def _signature(args, kwargs) -> Tuple:
     """Hashable signature of a call: tensor and array leaves by (shape,
-    dtype) — containers flattened structurally — numbers by type, and
-    other static values (flags, names) by value."""
+    dtype) — containers flattened structurally — flags and names by
+    value, and numbers and other objects by type."""
     entries = []
     items = list(enumerate(args)) + sorted(
         kwargs.items(), key=lambda kv: str(kv[0]))

@@ -9,7 +9,9 @@ steps) runs under ``timed_phase``, which
   (``phase_report()`` returns them; smoke runs and tests read it), and
 - opens a ``torch.profiler.record_function`` range so the phase shows up
   as a named span on the trace timeline when a profiler session is active
-  (``profile_trace`` context manager, which exports a Chrome trace).
+  (``profile_trace`` context manager, which exports a Chrome trace). A
+  process that has not imported torch has no such session, and the phase
+  does not import it.
 
 Timing costs one ``perf_counter`` pair + dict update per phase — noise next
 to any device math, safe to leave on permanently.
@@ -19,13 +21,13 @@ from __future__ import annotations
 
 import contextlib
 import os
+import sys
 import threading
 import time
 from dataclasses import dataclass, field
 from typing import Dict, Iterator
 
-import torch
-import torch.profiler
+from .._lazy import torch
 
 
 @dataclass
@@ -68,9 +70,12 @@ def timed_phase(name: str) -> Iterator[None]:
     span, a client role span, ...)."""
     from .. import obs
 
+    # a process that never imported torch runs no profiler session
+    loaded = sys.modules.get("torch")
     start = time.perf_counter()
     try:
-        with torch.profiler.record_function(name):
+        with (loaded.profiler.record_function(name) if loaded is not None
+              else contextlib.nullcontext()):
             with obs.span(name):
                 yield
     finally:

@@ -138,6 +138,77 @@ def test_streaming_at_most_two_shapes_per_axis():
     assert len({s[-1] for s in finales}) <= 2
 
 
+def _registry(profile):
+    obj = profile.to_obj()
+    return {key: obj[key] for key in ("calls", "compiled_shapes",
+                                      "block_shapes", "retraces")}
+
+
+def _ref_scheme(scheme):
+    from sda_tpu import protocol as ref_protocol
+
+    return ref_protocol.LinearSecretSharingScheme.from_obj(scheme.to_obj())
+
+
+def test_pod_round_one_signature_a_shape_as_the_reference():
+    """Two ``SimulatedPod`` rounds of one shape are one signature of
+    ``mesh.simpod.round`` in both packages: the pod's collectives, a new
+    object every round, key no signature of their own."""
+    from sda_tpu import mesh as ref_mesh
+    from sda_tpu import obs as ref_obs
+    from sda_tpu.protocol import FullMasking as RefFull
+    from sda_tpu_torch.mesh import SimulatedPod, make_mesh
+
+    scheme, p = _scheme()
+    x = np.random.default_rng(0).integers(0, 1 << 20, size=(8, 48),
+                                          dtype=np.int64)
+    pod = SimulatedPod(scheme, FullMasking(p),
+                       mesh=make_mesh(4, 2, devices=["cpu"] * 8))
+    ref_pod = ref_mesh.SimulatedPod(_ref_scheme(scheme), RefFull(p),
+                                    mesh=ref_mesh.make_mesh(4, 2))
+    ref_obs.reset_all()
+    try:
+        for seed in range(2):
+            pod.aggregate(x, seed=seed)
+            ref_pod.aggregate(x)
+        want = _registry(ref_devprof.profile("mesh.simpod.round"))
+    finally:
+        ref_obs.reset_all()
+    assert want["compiled_shapes"] == 1
+    assert _registry(devprof.profile("mesh.simpod.round")) == want
+
+
+def test_devscale_round_one_signature_a_shape_as_the_reference():
+    """Three ``ModelScaleRound`` rounds of one shape are one signature of
+    ``devscale.round`` in both packages."""
+    import jax
+
+    from sda_tpu import mesh as ref_mesh
+    from sda_tpu import obs as ref_obs
+    from sda_tpu.mesh import devscale as ref_devscale
+    from sda_tpu.protocol import FullMasking as RefFull
+    from sda_tpu_torch.mesh import ModelScaleRound, make_mesh
+
+    scheme, p = _scheme()
+    x = np.random.default_rng(1).integers(0, 1 << 20, size=(16, 288),
+                                          dtype=np.int64)
+    rnd = ModelScaleRound(scheme, FullMasking(p), dim_tile=96,
+                          mesh=make_mesh(4, 2, devices=["cpu"] * 8))
+    ref_rnd = ref_devscale.ModelScaleRound(
+        _ref_scheme(scheme), RefFull(p), mesh=ref_mesh.make_mesh(4, 2),
+        dim_tile=96)
+    ref_obs.reset_all()
+    try:
+        for seed in range(3):
+            rnd.aggregate(x, seed)
+            ref_rnd.aggregate(x, jax.random.PRNGKey(seed))
+        want = _registry(ref_devprof.profile("devscale.round"))
+    finally:
+        ref_obs.reset_all()
+    assert want["compiled_shapes"] == 1
+    assert _registry(devprof.profile("devscale.round")) == want
+
+
 # -- counted costs and the roofline -------------------------------------------
 
 def test_cost_analysis_off_by_default_records_no_costs():
@@ -169,6 +240,83 @@ def test_cost_capture_feeds_roofline_block():
     assert 0 < block["utilization"] < 1
     assert set(block["phases"]) == {"stream.step", "stream.finale"}
     assert devprof.hbm_peak_recorded() == 0
+
+
+@pytest.mark.parametrize("lane", ["plain", "k1"])
+def test_pod_round_counts_its_operations(lane):
+    """With cost capture on, ``mesh.simpod.round`` records the operations
+    ``_round_ops`` counts for its shapes (K1's from ``bounds.k1_pipe_ops``
+    on the K1 lane) and its tensors' bytes, once a signature."""
+    from sda_tpu_torch.mesh import SimulatedPod, make_mesh
+
+    devprof.enable_cost_analysis()
+    scheme, p = _scheme()
+    pod = SimulatedPod(scheme, FullMasking(p), use_pallas=lane == "k1",
+                       mesh=make_mesh(4, 2, devices=["cpu"] * 8))
+    x = np.random.default_rng(2).integers(0, 1 << 20, size=(8, 48),
+                                          dtype=np.int64)
+    for seed in range(2):
+        np.testing.assert_array_equal(pod.aggregate(x, seed=seed).numpy(),
+                                      x.sum(axis=0) % p)
+    (cost,) = devprof.profile("mesh.simpod.round").costs.values()
+    # 4 x 2 shards of [2, 24] (B = 8 columns of k = 3), each folded, then
+    # two d columns of 8 clerk rows gathered over 4 partials, reconstructed
+    # by the [k, r] matrix and unmasked
+    fold = 2 * 24 + (bounds.k1_pipe_ops(2, 8, 3, 3 + 4, True) if lane == "k1"
+                     else 3 * 2 * 24 + 2 * 2 * 4 * 8 + 2 * 24
+                     + 8 * (1 + 3 + 4) * 8)
+    k, r = pod._L_host.shape
+    reveal = 4 * (8 * 8 + 24) + 24 + k * r * 8
+    assert cost["flops"] == 8 * fold + 2 * reveal
+    assert cost["bytes_accessed"] == 8 * 48 * 8 + 48 * 8
+    block = devprof.roofline(seconds=0.25)
+    assert block["flops"] == 2 * cost["flops"]
+    assert set(block["phases"]) == {"mesh.simpod.round"}
+    assert 0 < block["utilization"] < 1
+
+
+def test_sim_perf_plane_at_ci_argv(monkeypatch):
+    """``ci.sh:688``'s run through the port's ``sda-sim`` on the CPU: a
+    roofline of counted operations and bytes with a utilization in (0, 1),
+    and ``mesh.simpod.round`` registered as the reference's sim registers
+    it (two calls of one signature, the same block shape, no retrace)."""
+    import contextlib
+    import io
+    import json
+
+    from sda_tpu import obs as ref_obs
+    from sda_tpu.cli import sim as ref_sim
+    from sda_tpu_torch.cli import sim
+
+    monkeypatch.setenv("SDA_SIM_PLATFORM", "cpu")   # as ci.sh runs it
+    argv = ["--participants", "16", "--dim", "96", "--clerks", "8",
+            "--verify"]
+    reports = []
+    try:
+        for main, extra in ((sim.main, ["--device", "cpu"]),
+                            (ref_sim.main, [])):
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                assert main([*argv, *extra]) == 0
+            reports.append(json.loads(out.getvalue().splitlines()[-1]))
+    finally:
+        ref_obs.reset_all()
+        ref_devprof.enable_cost_analysis(False)
+    port, ref = reports
+    assert port["exact"] and ref["exact"]
+    roof = port["roofline"]
+    assert roof["flops"] > 0 and roof["bytes"] > 0
+    assert roof["arithmetic_intensity"] > 0
+    assert 0 < roof["utilization"] < 1
+    assert roof["ops_unit"] == devprof.OPS_UNIT
+    assert roof["hbm_peak_bytes"] == 0      # no card: no memory peak
+    assert set(roof["phases"]) == {"mesh.simpod.round"}
+    fn = port["xla"]["functions"]["mesh.simpod.round"]
+    ref_fn = ref["xla"]["functions"]["mesh.simpod.round"]
+    assert fn["calls"] == ref_fn["calls"] == 2
+    assert fn["compiled_shapes"] == ref_fn["compiled_shapes"] == 1
+    assert fn["block_shapes"] == ref_fn["block_shapes"]
+    assert fn["retraces"] == ref_fn["retraces"] == 0
 
 
 @pytest.mark.parametrize("flops,nbytes,seconds", [

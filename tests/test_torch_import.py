@@ -97,13 +97,18 @@ def _entry_points():
 
     import tempfile
 
-    from sda_tpu_torch.cli.main import main as sda_main
+    from sda_tpu_torch.cli.main import build_parser as sda_parser
+    from sda_tpu_torch.cli.main import load_client
     from sda_tpu_torch.crypto.paillier_tpu import MontgomeryContext
     from sda_tpu_torch.models import FixedPointCodec
 
-    def sda_show(**kw):
+    def sda_device(**kw):
+        """The device of an ``sda`` process's field arithmetic, read where
+        its first device command reads it (``agent show`` needs none)."""
         device = ["--device", kw["device"]] if "device" in kw else []
-        return sda_main(["-i", tempfile.mkdtemp(), *device, "agent", "show"])
+        args = sda_parser().parse_args(["-i", tempfile.mkdtemp(), *device,
+                                        "agent", "show"])
+        return load_client(args).crypto.device
 
     from sda_tpu_torch.benchmarks import bench
 
@@ -173,7 +178,7 @@ def _entry_points():
             p).premix([[1, 2], [3, 4]], **kw),
         "FixedPointCodec.encode_device": lambda **kw: FixedPointCodec(
             433, 2, 4).encode_device([0.5, -1.0], **kw),
-        "sda": sda_show,
+        "sda": sda_device,
         "chacha_device.expand_mask": lambda **kw: chacha_device.expand_mask(
             [1, 2], 16, p, prg=v1, **kw),
         "chacha_device.combine_masks":
@@ -195,9 +200,12 @@ def _entry_points():
             s, FullMasking(p), **kw),
         "matrices_from_numpy": lambda **kw: matrices_from_numpy(
             m, l_, scheme=s, **kw),
-        "CryptoModule": lambda **kw: CryptoModule(MemoryKeystore(), **kw),
+        # the first device use: construction and key work need none
+        "CryptoModule": lambda **kw: CryptoModule(
+            MemoryKeystore(), **kw).new_share_generator(s),
         "SdaClient": lambda **kw: SdaClient(
-            SdaClient.new_agent(keystore), keystore, new_memory_server(), **kw),
+            SdaClient.new_agent(keystore), keystore, new_memory_server(),
+            **kw).crypto.new_secret_masker(FullMasking(p)),
     }
 
 
@@ -357,3 +365,141 @@ def test_entry_module_leaves_jax_out(module):
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
+
+
+# -- no torch where no device is used ----------------------------------------
+
+#: a server over ``backend`` (memory or sqlite, threaded or async plane) in
+#: this process, then ``sda`` commands that do no device work through
+#: ``cli/main.py``; torch must stay out of ``sys.modules`` throughout
+_HOST_ROLES = r"""
+import contextlib, io, os, sys, tempfile
+from sda_tpu_torch.cli import main as sda, serverd  # noqa: F401
+from sda_tpu_torch.http import server_class
+from sda_tpu_torch.server import new_memory_server, new_sqlite_server
+
+backend, async_http = sys.argv[1], sys.argv[2] == "async"
+tmp = tempfile.mkdtemp()
+service = (new_memory_server() if backend == "memory"
+           else new_sqlite_server(os.path.join(tmp, "sda.db")))
+server = server_class(async_http)(service, bind="127.0.0.1:0")
+server.start_background()
+
+def run(who, *argv):
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = sda.main(["-s", server.address, "-i", os.path.join(tmp, who),
+                       *map(str, argv)])
+    assert rc == 0, (argv, rc)
+    assert "torch" not in sys.modules, argv
+    return out.getvalue().split()[-1] if out.getvalue().split() else ""
+
+ids = {who: run(who, "agent", "create") for who in ["r", "c0", "c1", "c2"]}
+for who in ids:
+    run(who, "agent", "keys", "create")
+agg = run("r", "aggregations", "create", "t", "--dimension", 4,
+          "--modulus", 433, "--shares", 3)
+run("r", "aggregations", "begin", agg,
+    *[x for c in ("c0", "c1", "c2") for x in ("--clerk", ids[c])])
+run("r", "aggregations", "end", agg)
+run("r", "ping")
+server.shutdown()
+print("torch" in sys.modules)
+"""
+
+
+@pytest.mark.parametrize("backend,plane", [("memory", "threaded"),
+                                           ("sqlite", "threaded"),
+                                           ("sqlite", "async")])
+def test_host_roles_never_import_torch(backend, plane):
+    """``sdad``'s server and ``sda``'s identity, create, begin, end and ping
+    commands do no device work, and never import torch."""
+    res = subprocess.run([sys.executable, "-c", _HOST_ROLES, backend, plane],
+                         cwd=ROOT, capture_output=True, text=True,
+                         timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert res.stdout.split()[-1] == "False"
+
+
+def test_sdad_process_never_loads_torch(tmp_path):
+    """The ``sdad`` process serves requests without loading torch's
+    library (the connection storm holds its memory to 1024 MiB)."""
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "sda_tpu_torch.cli.serverd", "--sqlite",
+         str(tmp_path / "sda.db"), "--async", "--statusz", "httpd",
+         "--bind", "127.0.0.1:0"], cwd=ROOT, stdout=subprocess.PIPE,
+        stderr=subprocess.DEVNULL, text=True)
+    try:
+        line = proc.stdout.readline()
+        assert "listening on" in line, line
+        address = line.rsplit(" ", 1)[-1].strip()
+        import urllib.request
+
+        for path in ("/v1/ping", "/statusz"):
+            with urllib.request.urlopen(address + path, timeout=60) as r:
+                assert r.status == 200
+        maps = Path(f"/proc/{proc.pid}/maps").read_text()
+        assert "libtorch" not in maps
+    finally:
+        proc.terminate()
+        proc.wait(timeout=60)
+
+
+_DEVICE_ROLE = r"""
+import os, sys, tempfile
+from sda_tpu_torch.cli import main as sda
+from sda_tpu_torch.http import server_class
+from sda_tpu_torch.server import new_memory_server
+
+server = server_class(False)(new_memory_server(), bind="127.0.0.1:0")
+server.start_background()
+tmp = tempfile.mkdtemp()
+device = sys.argv[1:]
+
+def run(who, *argv):
+    return sda.main(["-s", server.address, "-i", os.path.join(tmp, who),
+                     *device, *map(str, argv)])
+
+import contextlib, io
+ids = {}
+for who in ["r", "c0", "c1", "c2"]:
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        assert run(who, "agent", "create") == 0
+        assert run(who, "agent", "keys", "create") == 0
+    ids[who] = out.getvalue().split()[0]
+out = io.StringIO()
+with contextlib.redirect_stdout(out):
+    assert run("r", "aggregations", "create", "t", "--dimension", 4,
+               "--modulus", 433, "--shares", 3) == 0
+agg = out.getvalue().split()[-1]
+assert run("r", "aggregations", "begin", agg, *[
+    x for c in ("c0", "c1", "c2") for x in ("--clerk", ids[c])]) == 0
+assert "torch" not in sys.modules
+try:
+    rc = run("p", "participate", agg, 1, 2, 3, 4)
+except RuntimeError as e:
+    print("raised:", e)
+    rc = None
+print("rc", rc, "torch", "torch" in sys.modules)
+server.shutdown()
+"""
+
+
+@pytest.mark.parametrize("device", ["cpu", None])
+def test_device_role_still_runs_on_its_device(device):
+    """``participate`` does device work: on ``--device cpu`` it runs there
+    (and imports torch); without CUDA the default raises, with no CPU
+    fallback."""
+    if device is None and torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default does not raise")
+    argv = ["--device", device] if device else []
+    res = subprocess.run([sys.executable, "-c", _DEVICE_ROLE, *argv],
+                         cwd=ROOT, capture_output=True, text=True,
+                         timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr
+    if device == "cpu":
+        assert res.stdout.split()[-4:] == ["rc", "0", "torch", "True"]
+    else:
+        assert "raised: CUDA is not available" in res.stdout
+        assert res.stdout.split()[-2:] == ["torch", "True"]

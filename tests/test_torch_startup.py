@@ -1,6 +1,7 @@
 """``python -m sda_tpu_torch.benchmarks.startup`` on the CPU: every
-measurement runs, the record holds each one, and torch's share of the
-``sda`` command line's import is part of that import."""
+measurement runs, the record holds each one, and the ``sda`` command
+line's import holds no torch (it imports torch at its first device
+use)."""
 
 import json
 
@@ -23,4 +24,4 @@ def test_startup_probe_records_every_measurement(capsys):
             assert s["user_s_median"] > 0, label
     assert record["at_once_runs"]["sda agent create"]["n"] == 2
     split = record["import_split"]
-    assert 0 < split["torch_s"] < split["cli_main_s"]
+    assert split["torch_s"] == 0 < split["cli_main_s"]
