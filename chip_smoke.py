@@ -112,7 +112,14 @@ connections on one ``sdad`` worker, the JSON and binary wire codecs, the
 four poisoning legs, the trace smoke, the device perf plane with and
 without ``--pallas``, and the recorder bench), its records through the
 port's advisory gate; K1 runs in the perf plane's ``--pallas`` run and is
-held to plain at its round's shard.
+held to plain at its round's shard. Last, the repo's four ``examples/``
+as the port's modules (``sda_tpu_torch/examples/``) at their own sizes:
+each ``run`` on the card in this process (the REST FedAvg round's mean
+equal to its quantized oracle, the streamed round killed and resumed bit
+for bit, the embedded C-core participant's round with K3's expand and
+combine held to plain on its seeds, LeNet's secure FedAvg rounds each
+equal to the host encode's oracle), and all four as ``python -m``
+processes at once, each exiting 0 with its script's last line.
 Prints the card's name and power
 limit, one JSON line of kernel measurements, and as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -126,6 +133,7 @@ import collections
 import contextlib
 import gc
 import hashlib
+import importlib
 import io
 import json
 import re
@@ -3762,6 +3770,165 @@ def ci_phase(dev, smi="", connections=STORM_CONNECTIONS):
             "k1_shard_max_abs_err": k1_err}
 
 
+#: the repo's ``examples/`` scripts as the port's modules (phase 25), each
+#: with the last line its script prints (``fedavg_lenet``'s loss is the
+#: port's own: its weights are not the script's)
+EXAMPLE_LAST_LINES = {
+    "federated_http": r"exact vs plaintext quantized oracle: OK",
+    "streamed_checkpoint": r"resumed aggregate == uninterrupted aggregate: "
+                           r"OK \(bit-identical\)",
+    "embedded_participant": r"C-core participation revealed exactly "
+                            r"alongside the Python one: OK",
+    "fedavg_lenet": r"round 3: loss \d+\.\d{4} \(secure mesh round over 4 "
+                    r"encoded deltas\)",
+}
+
+
+def _example_checks(name, rec, k3_calls, dev):
+    """Phase 25 (a)'s checks of one example's ``run`` record; returns what
+    the phase keeps of it and the max |error| of its K3 holds."""
+    import numpy as np
+    import torch
+
+    from sda_tpu_torch.examples import fedavg_lenet, streamed_checkpoint
+    from sda_tpu_torch.models import FixedPointCodec
+
+    ops = collections.Counter(op for op, _, _ in k3_calls.calls)
+    on_card, err = dev.type == "cuda", 0
+    if name != "embedded_participant":
+        _check(not ops, f"{name}: K3 asked for {dict(ops)}")
+    if name == "federated_http":
+        _check(rec["exact"], "federated_http: mean != quantized oracle")
+        return {"exact": True}, err
+    if name == "streamed_checkpoint":
+        sc = streamed_checkpoint
+        _check(rec["calls"] == sc.DIE_AFTER + 1,
+               f"streamed_checkpoint: died at call {rec['calls']}, want "
+               f"{sc.DIE_AFTER + 1}")
+        _check(rec["resumed"] == 20 and rec["blocks"] == 24,
+               f"streamed_checkpoint: resumed {rec['resumed']} of "
+               f"{rec['blocks']} blocks, want 20 of 24")
+        _check(np.array_equal(rec["out"], rec["fresh"]) and np.array_equal(
+            rec["out"], rec["column_sum"]),
+            "streamed_checkpoint: resumed != fresh or != column sum mod 433")
+        return {"exact": True, "died_at_call": rec["calls"],
+                "resumed_blocks": rec["resumed"],
+                "fresh_blocks": rec["blocks"]}, err
+    if name == "embedded_participant":
+        _check(rec["exact"], f"embedded_participant: {rec['out']} != "
+               f"{rec['expected']}")
+        if on_card:
+            _check(ops == {"expand": 1, "combine": 1},
+                   f"embedded_participant: K3 calls {dict(ops)}, want one "
+                   "expand and one combine")
+            err = max(_k3_call_hold(f"examples {name}", *c)
+                      for c in k3_calls.calls)
+        return {"exact": True, "out": [int(v) for v in rec["out"]]}, err
+    fl = fedavg_lenet
+    codec = FixedPointCodec(fl.M31, fl.FRACTIONAL_BITS, fl.N_CLIENTS,
+                            clip=fl.CLIP)
+    for r, cohort in enumerate(rec["cohorts"]):
+        gvec = rec["globals"][r]
+        want = gvec + codec.decode_mean(_fedavg_oracle(
+            codec, torch.from_numpy(cohort), torch.from_numpy(gvec),
+            fl.M31), fl.N_CLIENTS)
+        _check(np.array_equal(rec["globals"][r + 1], want),
+               f"fedavg_lenet: round {r + 1}'s global != the oracle's")
+    _check(all(np.isfinite(rec["losses"])),
+           f"fedavg_lenet: losses {rec['losses']}")
+    _check(rec["params_device"].split(":")[0] == dev.type,
+           f"fedavg_lenet: params on {rec['params_device']}, not {dev}")
+    return {"exact": True, "param_count": rec["param_count"],
+            "losses": rec["losses"],
+            "params_device": rec["params_device"]}, err
+
+
+def examples_phase(dev, smi=""):
+    """Phase 25: the repo's four ``examples/`` as the port runs them
+    (``sda_tpu_torch/examples/``), at their own sizes. (b) starts
+    ``python -m sda_tpu_torch.examples.<name> --device <dev>`` for all
+    four at once, as processes that share a bytecode cache; each must exit
+    0 with its script's last line. (a) calls each ``run(dev)`` in this
+    process meanwhile, under ``DeviceCounts`` and ``K3Calls``:
+    ``federated_http``'s mean equals its quantized oracle bit for bit (its
+    d=32 keeps every field op on the host); ``streamed_checkpoint`` dies
+    at the 6th provider call, resumes in 20 blocks, and equals a fresh run
+    and the column sum mod 433; ``embedded_participant`` reveals exactly,
+    and on a card K3 launches once for the Python participant's expand and
+    once for the recipient's combine, each held to plain on its seeds;
+    ``fedavg_lenet``'s every new global equals the host encode's oracle
+    bit for bit, its losses are finite and its weights on ``dev``. K1
+    never launches. Returns the phase's JSON record."""
+    from sda_tpu_torch import examples
+
+    on_card = dev.type == "cuda"
+    records, k3_err, k3_total = {}, 0, 0
+    with tempfile.TemporaryDirectory() as tmp, ThreadPoolExecutor(
+            len(examples.EXAMPLES)) as pool:
+        env = Processes(tmp, None)
+        t_b = time.perf_counter()
+
+        def example_process(name):
+            proc = subprocess.Popen(
+                [sys.executable, "-m", f"sda_tpu_torch.examples.{name}",
+                 "--device", str(dev)], cwd=env.cwd, env=env.env,
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            try:
+                out, err_text = proc.communicate(timeout=ROLE_TIMEOUT_S)
+            finally:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait(timeout=60)
+            return proc.returncode, out, err_text, time.perf_counter() - t_b
+
+        procs = {name: pool.submit(example_process, name)
+                 for name in examples.EXAMPLES}
+        t_a = time.perf_counter()
+        for name in examples.EXAMPLES:
+            module = importlib.import_module(f"sda_tpu_torch.examples.{name}")
+            k3, k1 = _k3_reset(), _k1_reset()
+            with DeviceCounts() as counts, K3Calls() as k3_calls:
+                t0 = time.perf_counter()
+                rec = module.run(dev)
+                _sync(dev)
+                wall = time.perf_counter() - t0
+            launches = dict(k3.op_launches)
+            _check(k1.launches == 0, f"{name}: K1 launched {k1.launches}")
+            one = int(name == "embedded_participant")
+            _check(not on_card or launches == {
+                "blocks": 0, "expand": one, "combine": one},
+                f"{name}: K3 launches {launches}")
+            kept, err = _example_checks(name, rec, k3_calls, dev)
+            calls = {op: dict(c) for op, c in counts.calls.items() if c}
+            if name == "federated_http":
+                _check(not calls, f"federated_http: device calls {calls}, "
+                       "want none under HOST_PATH_MAX")
+            k3_err = max(k3_err, err)
+            k3_total += sum(launches.values())
+            records[name] = {"wall_s": wall, "device_calls": calls,
+                             "k3_launches": launches, **kept}
+            print(f"  examples {name} in process: {wall:.2f} s ({smi})")
+        wall_a = time.perf_counter() - t_a
+        outs = {name: fut.result() for name, fut in procs.items()}
+    wall_b = max(o[3] for o in outs.values())
+    for name, (rc, out, err_text, wall) in outs.items():
+        lines = out.strip().splitlines()
+        if rc != 0:
+            print(err_text[-4000:], file=sys.stderr)
+        _check(rc == 0, f"python -m sda_tpu_torch.examples.{name}: exit {rc}")
+        want = EXAMPLE_LAST_LINES[name]
+        _check(bool(lines) and re.fullmatch(want, lines[-1]),
+               f"{name}: last line {lines[-1:]}, want /{want}/")
+        records[name]["process"] = {"rc": rc, "wall_s": wall,
+                                    "last_line": lines[-1]}
+    print(f"  examples as processes: {wall_b:.1f} s for the four at once "
+          f"({smi})")
+    return {"stage": "examples", "examples": records,
+            "in_process_s": wall_a, "processes_s": wall_b,
+            "k3_launches": k3_total, "k3_max_abs_err": k3_err,
+            "device": str(dev)}
+
+
 def main() -> int:
     t_script = time.perf_counter()
     try:
@@ -4259,7 +4426,17 @@ def main() -> int:
     rec24["phase_s"] = time.perf_counter() - t24
     print(json.dumps(rec24), flush=True)
     k3_launches["ci"] = rec24["k3_launches"]
-    print(f"phase 24: {rec24['phase_s']:.1f} s; the script "
+    print(f"phase 24: {rec24['phase_s']:.1f} s")
+
+    # -- 25. the examples ----------------------------------------------------
+    print(f"examples: the repo's four examples/ as the port's modules on "
+          f"{DEVICE}, in this process and as python -m processes ({smi}):")
+    t25 = time.perf_counter()
+    rec25 = examples_phase(dev, smi)
+    rec25["phase_s"] = time.perf_counter() - t25
+    print(json.dumps(rec25), flush=True)
+    k3_launches["examples"] = rec25["k3_launches"]
+    print(f"phase 25: {rec25['phase_s']:.1f} s; the script "
           f"{time.perf_counter() - t_script:.1f} s")
 
     # -- 8. the record ------------------------------------------------------
@@ -4326,7 +4503,8 @@ def main() -> int:
                            rec18["k3_window_max_abs_err"],
                            rec22["k3_window_max_abs_err"],
                            rec22["k3_drills_max_abs_err"],
-                           rec23["k3_max_abs_err"]),
+                           rec23["k3_max_abs_err"],
+                           rec25["k3_max_abs_err"]),
         "ms": k3_rec["ms"],
         "plain_ms": k3_rec["plain_ms"],
         "bound_ms": k3_rec["bound_ms"],

@@ -367,6 +367,32 @@ def test_entry_module_leaves_jax_out(module):
     assert res.returncode == 0, res.stdout + res.stderr
 
 
+def test_examples_import_runs_nothing():
+    """Importing every module of ``sda_tpu_torch.examples`` pulls in no
+    jax and starts nothing: no torch, no thread, no process, no output
+    (the scripts they port run at module level; the modules run in
+    ``main``)."""
+    code = (
+        "import importlib, multiprocessing, sys, threading\n"
+        "from sda_tpu_torch import examples\n"
+        "for name in examples.EXAMPLES:\n"
+        "    importlib.import_module(f'sda_tpu_torch.examples.{name}')\n"
+        f"bad = [m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN + ('torch',)!r}]\n"
+        "assert not bad, bad\n"
+        "assert threading.active_count() == 1, threading.enumerate()\n"
+        "assert not multiprocessing.active_children()\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert res.stdout == "" and res.stderr == ""
+    from sda_tpu_torch.examples import EXAMPLES
+
+    assert sorted(p.stem for p in (PORT / "examples").glob("*.py")
+                  if p.stem != "__init__") == sorted(EXAMPLES)
+
+
 # -- no torch where no device is used ----------------------------------------
 
 #: a server over ``backend`` (memory or sqlite, threaded or async plane) in
