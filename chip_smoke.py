@@ -11,15 +11,19 @@ uint32 inputs below 2^20) through the port's entry points, checks every
 output exactly, and times the fused kernel K1 and both rounds. Then it
 runs the kernel probe's entry point (``sda_tpu_torch.benchmarks.
 kernel_probe``) at the same width: K5's variants of K1, timed, with the
-component budget of K1. K1 has three instances, the main path's (the
-``batch_columns`` layout, internal draws, k=3, t=4), masked and unmasked,
-and the generic one (every other call); each is held to the plain version
-and its registers, spills and resident warps an SM are printed. Each kernel's
+component budget of K1. K1's instances (``fused_round.INSTANCES``): the
+column instances of the ``batch_columns`` layout with internal draws, with
+(k, t) compiled in (the main path's k=3, t=4, BasicShamir's k=1, t=3, the
+26-clerk committee's k=7, t=8) or set at run time under k + t <= 8 or 16,
+masked and unmasked; the external-bits one; the generic one (any other
+layout). Each is held to the plain version (the column instances of other
+schemes at the main path's sizes too, and timed beside their bounds) and
+its registers, spills and resident warps an SM are printed. Each kernel's
 operation bound is counted from the algorithm's work
 (``sda_tpu_torch/benchmarks/bounds.py``), beside the count K1's first
 CUDA version used; the participant loop's SASS opcode mix (``cuobjdump
 -sass``) is printed as a diagnostic. Then the protocol path: the role
-crypto (``CryptoModule`` on the card) at the flagship width, P=100,
+crypto (``CryptoModule`` on the card) at the flagship width, P=50,
 without transport; the port's host crypto (``crypto/csrc/sodium.c``,
 built by the host compiler: sealed boxes and Ed25519 in place of
 libsodium) against known answers from libsodium, with sealed-box round
@@ -34,7 +38,7 @@ Then ChaCha seed masks on K3 (``csrc/chacha.cu``): K3 held
 to its plain version and to the host spec (``fields.chacha``) for both
 PRGs, four moduli (one that forces the host replay), several widths and
 stream windows, and timed beside its bound; the role crypto with ChaCha
-masks (P=100 x 1,000,008); ``single_chip_round`` with ChaCha masks; the
+masks (P=50 x 1,000,008); ``single_chip_round`` with ChaCha masks; the
 streamed round (``StreamingAggregator(use_pallas=True)``, P=10,000 x
 10,000,008 from the device block provider) on K1 and K3, and the
 device-tile clerk fold, each exact, with K3's windows at the shapes and
@@ -83,8 +87,10 @@ to its plain version at those rounds' shard shapes. Then the port's
 ``sda-sim`` (``sda_tpu_torch.cli.sim.main``) in this process at the
 flagship width, each run exact by its own ``--verify``: the pod on K1,
 the streamed round on K1 and K3 with ChaCha masks, the quorum reveal
-without clerk 6, one multihost worker process over NCCL (its launches
-counted in the worker), and the devscale profile at MobileLite's width,
+without clerk 6, BasicShamir at 8 clerks and packed Shamir at 26 clerks
+with 7 secrets a batch (each on its own column instance of K1), one
+multihost worker process over NCCL (its launches counted in the worker),
+and the devscale profile at MobileLite's width,
 each with its K1 and K3 launches; the drill profiles (load, chaos,
 pickup, soak, analytics, tree, fl, and the fleet and forensics drills:
 two ``sdad`` worker processes over one sqlite store with chaos on, the
@@ -92,7 +98,8 @@ second with churn and the flight recorder, its round explained from the
 spools alone) at ``ci.sh``'s sizes, each exact and held to ``ci.sh``'s
 assertions; K1 held to its
 plain version at the pod's shard, the streamed round's first tile, the
-worker's last shard and the devscale profile's shard, and K3 at the
+BasicShamir and 26-clerk rounds' shards, the worker's last shard and the
+devscale profile's shard, and K3 at the
 streamed round's windows, each on the rows and seeds its run drew.
 Then the deployment as processes: the port's ``sdad`` over a sqlite
 file and ``sda`` processes for a recipient, 8 clerks and 4 participants,
@@ -145,11 +152,32 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
-#: K1's instances in the SASS: the main path's, masked and unmasked, and
-#: the generic one with internal draws and at most 8 value rows
+#: K1's instances in the SASS (``fused_round.INSTANCES``): the column
+#: instances with (k, t) compiled in (the main path's k=3, t=4, BasicShamir's
+#: k=1, t=3, the 26-clerk committee's k=7, t=8) and at run time (k + t <= 8
+#: or 16), masked and unmasked; the external-bits and the generic ones at
+#: k + t <= 8
 K1_KERNELS = {"columns": "fused_round_columnsILi3ELi4ELb1EE",
               "columns_unmasked": "fused_round_columnsILi3ELi4ELb0EE",
-              "generic": "fused_round_kernelILi8ELb0EE"}
+              "columns_k1t3": "fused_round_columnsILi1ELi3ELb1EE",
+              "columns_k1t3_unmasked": "fused_round_columnsILi1ELi3ELb0EE",
+              "columns_k7t8": "fused_round_columnsILi7ELi8ELb1EE",
+              "columns_k7t8_unmasked": "fused_round_columnsILi7ELi8ELb0EE",
+              "columns_r8": "fused_round_boundedILi8ELb1EE",
+              "columns_r8_unmasked": "fused_round_boundedILi8ELb0EE",
+              "columns_r16": "fused_round_boundedILi16ELb1EE",
+              "columns_r16_unmasked": "fused_round_boundedILi16ELb0EE",
+              "external": "fused_round_externalILi8EE",
+              "generic": "fused_round_kernelILi8EE"}
+#: the column instances this script holds beside the main path's (phase 4):
+#: instance -> (k, t, clerks, sharing of ``sda-sim``'s argv that makes the
+#: scheme): BasicShamir at 8 clerks (``--sharing basic``), the 26-clerk
+#: committee (``--secrets-per-batch 7``), and at 26 clerks k=5, t=2 on the
+#: run-time shape and k=8, t=7 on the wider one
+K1_SCHEMES = {"columns_k1t3": (1, 3, 8, "basic"),
+              "columns_k7t8": (7, 8, 26, "packed"),
+              "columns_r8": (5, 2, 26, "packed"),
+              "columns_r16": (8, 7, 26, "packed")}
 #: participants a loop iteration of the main path's instances and of K5
 #: (fields/csrc/columns.cuh)
 UNROLL = 2
@@ -161,6 +189,10 @@ DIM_TILE = 262_144
 #: 10): cut from P_MAIN for time only, since the host's sealing and ChaCha
 #: draws cost about a second a participant at D_MAIN
 P_PROTOCOL = 20
+#: participants of the role crypto (phases 9 and 13): cut from P_MAIN for
+#: the script's time budget only (each participant's host draws cost
+#: 0.2-0.4 s at D_MAIN; the width is never cut)
+P_ROLE = 50
 #: the port's field ops that the role crypto calls (sda_tpu_torch.fields,
 #: looked up there at each call), counted by the device of their inputs
 ROLE_OPS = ("combine", "packed_share_from_randomness", "packed_reconstruct",
@@ -394,6 +426,20 @@ def _flagship():
 
     t, p, w2, w3 = numtheory.generate_packed_params(3, 8, 28)
     return PackedShamirSharing(3, 8, t, p, w2, w3), FullMasking(p), p
+
+
+def _sim_scheme(secrets, clerks, sharing):
+    """The scheme ``sda-sim`` runs with ``--sharing SHARING --clerks
+    CLERKS`` (and ``--secrets-per-batch SECRETS`` when packed) at its
+    default ``--modulus-bits 28``."""
+    from sda_tpu_torch.fields import numtheory
+    from sda_tpu_torch.protocol import BasicShamirSharing, PackedShamirSharing
+
+    if sharing == "basic":
+        return BasicShamirSharing(clerks, max(1, (clerks - 1) // 2),
+                                  numtheory.find_prime_with_orders(1, 1, 28))
+    t, p, w2, w3 = numtheory.generate_packed_params(secrets, clerks, 28)
+    return PackedShamirSharing(secrets, clerks, t, p, w2, w3)
 
 
 def _phases(utils):
@@ -1784,25 +1830,31 @@ def sim_phase(dev, smi="", P=P_MAIN, D=D_MAIN, chunk=SIM_CHUNK,
     card); (b) the streamed round on K1 and K3 (ChaCha masks, participant
     chunks of ``chunk``: one K1 launch and one K3 window a tile, the tiling
     as the sim reports it); (c) the quorum reveal without clerk 6 on K1;
-    (d) one multihost worker process (NCCL on a card, gloo on the CPU,
-    world size 1, a mesh of 8 entries of its device), whose one JSON line
+    (g) BasicShamir at 8 clerks and (h) packed Shamir at 26 clerks with 7
+    secrets a batch (k=7, t=8), full masks, each on its (k, t)'s column
+    instance of K1 (2 launches on a card); (d) one multihost worker
+    process (NCCL on a card, gloo on the CPU, world size 1, a mesh of 8
+    entries of its device), whose one JSON line
     the coordinator forwards, with the launches the worker counted (one
     K1 launch a shard a round: 16); (e) the devscale profile at
     ``devscale_family``'s width on K1, exact on the device oracle; (f) the
     drill profiles at ``ci.sh``'s sizes, each exact, with the K3 calls
     of each counted against its launches and held to the plain version on
     the seeds it drew. Then K1 held to its plain version at (a)'s shard,
-    (b)'s first tile, (d)'s last shard and (e)'s last shard of its first
-    tile, and K3 at (b)'s windows, each on the rows and seeds its run
-    drew.
+    (b)'s first tile, (g)'s and (h)'s shards, (d)'s last shard and (e)'s
+    last shard of its first tile, and K3 at (b)'s windows, each on the
+    rows and seeds its run drew.
     Returns the phase's JSON record."""
     import numpy as np
     import torch
 
     from sda_tpu_torch.mesh import SimulatedPod, make_mesh, simpod
     from sda_tpu_torch.mesh.streaming import synthetic_device_block_provider32
+    from sda_tpu_torch.protocol import FullMasking
 
     scheme, full, p = _flagship()
+    sim_schemes = {"basic": _sim_scheme(1, 8, "basic"),
+                   "packed26": _sim_scheme(7, 26, "packed")}
     on_card = dev.type == "cuda"
     device = ["--device", str(dev)]
     base = ["--participants", str(P), "--dim", str(D), "--verify", *device]
@@ -1850,6 +1902,21 @@ def sim_phase(dev, smi="", P=P_MAIN, D=D_MAIN, chunk=SIM_CHUNK,
     _check(rec["dropped_clerks"] == [6], f"sim quorum: {rec}")
     _check(not on_card or n["k1"] == 2,
            f"sim quorum: K1 launched {n['k1']} times, want 2")
+    # (g) BasicShamir at 8 clerks and (h) the 26-clerk committee (k=7,
+    # t=8): K1's column instances of their (k, t), a warm and a timed round
+    t_gh = time.perf_counter()
+    for name, argv, instance in (
+            ("basic", ["--sharing", "basic"], "columns_k1t3"),
+            ("packed26", ["--secrets-per-batch", "7", "--clerks", "26"],
+             "columns_k7t8")):
+        rec, n = run(name, [*base, *argv, "--mask", "full", *pallas])
+        _check(rec["mode"] == "simpod mesh (1, 1)" and rec["pallas"] == on_card
+               and rec["prime"] == sim_schemes[name].prime_modulus,
+               f"sim {name}: {rec}")
+        _check(not on_card or (n["k1"] == 2 and n["k1_by_instance"][
+            instance] == 2), f"sim {name}: K1 {n['k1_by_instance']}, want 2 "
+            f"on {instance}")
+    gh_s = time.perf_counter() - t_gh
     # (d) one multihost worker process
     _empty_cache(dev)
     rec, n = run("multihost", [*base, "--multihost", "1",
@@ -1967,8 +2034,19 @@ def sim_phase(dev, smi="", P=P_MAIN, D=D_MAIN, chunk=SIM_CHUNK,
     # are K3's, so K1 runs unmasked
     k1_err = max(k1_err, hold("sim streamed tile 0", inputs, (rows, width),
                               simpod._tile_seed(0, 0, 0), masked=False))
-    del inputs
     _empty_cache(dev)
+    # (g), (h): their one shard, the round seed 0's tile (0, 0)
+    t_gh = time.perf_counter()
+    for name, s_scheme in sim_schemes.items():
+        s_pod = SimulatedPod(s_scheme, FullMasking(s_scheme.prime_modulus),
+                             mesh=make_mesh(1, 1, devices=[dev]))
+        k1_err = max(k1_err, _sim_shard_hold(
+            f"sim {name} shard", dev, s_pod, inputs,
+            s_pod.padded_shape(P, D), simpod._tile_seed(0, 0, 0)))
+        _empty_cache(dev)
+    gh_s += time.perf_counter() - t_gh
+    print(f"  sim (g), (h): the runs and their holds in {gh_s:.1f} s")
+    del inputs
     k3_err = max(_k3_window("sim streamed", dev, 0, p0, min(rows, P - p0),
                             0, width, p)
                  for p0 in sorted({0, (P - 1) // rows * rows}))
@@ -3953,6 +4031,7 @@ def main() -> int:
                                                  WHOLE_ROUND_MULS,
                                                  WHOLE_ROUND_XORS)
     from sda_tpu_torch.benchmarks.bounds import k1_bound as _bound
+    from sda_tpu_torch.benchmarks.bounds import philox_ops
     from sda_tpu_torch.fields import _build, fused_round, numtheory
     from sda_tpu_torch.fields.dimtile import tile_plan
     from sda_tpu_torch.fields.sharing import batch_columns
@@ -4003,11 +4082,14 @@ def main() -> int:
 
     lib_path, log = built["fused_round"]
     k1_ptxas = sass.ptxas_info(log)
-    k1_mix = {}
+    for kernel, ptx in k1_ptxas.items():  # the R = 16 variants too
+        _check(not sass.spills(ptx), f"{kernel} spills: {'; '.join(ptx)}")
+    k1_mix, k1_warps = {}, {}
     for instance, kernel in K1_KERNELS.items():
         k1_mix[instance], muls = report(f"K1 {instance}", lib_path,
                                         k1_ptxas, kernel)
-        warps = fused_round.resident_blocks(instance) * 256 // 32
+        warps = k1_warps[instance] = (
+            fused_round.resident_blocks(instance) * 256 // 32)
         print(f"    resident warps an SM: {warps} (256-thread blocks, "
               "cudaOccupancyMaxActiveBlocksPerMultiprocessor)")
         if instance == "columns":
@@ -4074,11 +4156,18 @@ def main() -> int:
         return batch_columns(words((P, d)).view(torch.int32), 3)
 
     # -- 3. K1 vs its plain version, external bits --------------------------
+    # the external instance at k + t <= 8 and, with the 26-clerk committee's
+    # k=7, t=8, at 16; a ragged B that is not a multiple of 4
     print("K1 vs plain, external bits (tolerance: exact, torch.equal):")
-    for scheme in (flagship, basic):
+    packed26 = _sim_scheme(7, 26, "packed")
+    for scheme, sizes in (
+            (flagship, ((7, 1000, False), (P_MAIN, D_MAIN // 3, True))),
+            (basic, ((7, 1000, False), (P_MAIN, D_MAIN // 3, True))),
+            (packed26, ((7, 1000, False), (33, 3003 // 7, True)))):
         k, ts = scheme.secret_count, scheme.privacy_threshold
         m_host = numtheory.share_matrix_for(scheme)
-        for P, B, strided in ((7, 1000, False), (P_MAIN, D_MAIN // 3, True)):
+        s_sp = SolinasPrime.try_from(scheme.prime_modulus)
+        for P, B, strided in sizes:
             for masked in (True, False):
                 draws = (k + ts) if masked else ts
                 if strided:  # the main path's layout: a view of [P, d]
@@ -4086,9 +4175,9 @@ def main() -> int:
                 else:
                     x_cols = words((P, k, B))
                 bits = words((P, 2 * draws, B))
-                k1_hold(f"{type(scheme).__name__} P={P} B={B} "
-                        f"masked={masked}", "generic",
-                        (x_cols, 0, sp, m_host, ts, masked),
+                k1_hold(f"{type(scheme).__name__}(k={k}, t={ts}) P={P} B={B} "
+                        f"masked={masked}", "external",
+                        (x_cols, 0, s_sp, m_host, ts, masked),
                         external_bits=bits)
                 del x_cols, bits
                 torch.cuda.synchronize()
@@ -4114,6 +4203,70 @@ def main() -> int:
                 (x_cols, 12345 + P, sp, m_flag, t, masked))
         del x_cols
         torch.cuda.synchronize()
+    # the column instances of the other schemes, at the main path's sizes
+    # (P=33 x d=3003 ragged), each on the batch_columns view, masked and
+    # not, held to plain; at P_MAIN x D_MAIN each is timed beside its bound
+    # (the Philox blocks its loop draws, bounds.philox_ops)
+    k1_instances = {}
+    t_others = time.perf_counter()
+    big = words((P_MAIN, D_MAIN)).view(torch.int32)
+    for name, (k, ts, n_clerks, sharing) in K1_SCHEMES.items():
+        scheme = _sim_scheme(k, n_clerks, sharing)
+        _check((scheme.secret_count, scheme.privacy_threshold) == (k, ts),
+               f"{name}: sda-sim's scheme is {scheme}")
+        s_sp = SolinasPrime.try_from(scheme.prime_modulus)
+        m_host = numtheory.share_matrix_for(scheme)
+        for P, d in ((7, 3000), (33, 3003), (P_MAIN, D_MAIN)):
+            x_cols = batch_columns(
+                big if P == P_MAIN else words((P, d)).view(torch.int32), k)
+            for masked in (True, False):
+                instance = name if masked else f"{name}_unmasked"
+                args = (x_cols, 4242 + P, s_sp, m_host, ts, masked)
+                k1_hold(f"{type(scheme).__name__}(k={k}, t={ts}, "
+                        f"n={n_clerks}) P={P} d={d} masked={masked}",
+                        instance, args)
+                if P == P_MAIN:
+                    B = x_cols.shape[-1]
+                    inst_ms = median_ms(lambda: K1(*args), dev, reps=20)
+                    inst_bound = _bound(P, B, k, (k if masked else 0) + ts,
+                                        True, n_clerks + (k if masked else 0),
+                                        *philox_ops(k, ts, masked))
+                    k1_instances[instance] = {
+                        "k": k, "t": ts, "n": n_clerks, "P": P, "B": B,
+                        "ms": inst_ms, "bound_ms": inst_bound[0],
+                        "bound_by": inst_bound[1],
+                        "resident_warps": k1_warps[instance]}
+                    print(f"  {instance} at P={P} B={B}: {inst_ms:.4f} ms "
+                          f"median of 20; bound {inst_bound[0]:.4f} ms "
+                          f"({inst_bound[2]})")
+            del x_cols
+            torch.cuda.synchronize()
+    del big
+    # the run-time shapes beyond one scheme each: k=1, t=2 and k=2, t=1 at
+    # 8 clerks (sda-sim --secrets-per-batch 1 or 2), BasicShamir at 26
+    # clerks (k=1, t=12), and k=10, t=6 (k + t = 16) on a random 32 x 17
+    # matrix
+    wide_m = rng.integers(0, p, size=(32, 17))
+    for case, k, ts, n_clerks, sharing in (
+            ("--secrets-per-batch 1", 1, 2, 8, "packed"),
+            ("--secrets-per-batch 2", 2, 1, 8, "packed"),
+            ("--sharing basic --clerks 26", 1, 12, 26, "basic"),
+            ("k=10, t=6, random matrix", 10, 6, 32, None)):
+        if sharing is None:
+            m_host, s_sp = wide_m, sp
+        else:
+            scheme = _sim_scheme(k, n_clerks, sharing)
+            _check(scheme.privacy_threshold == ts, f"{case}: {scheme}")
+            m_host = numtheory.share_matrix_for(scheme)
+            s_sp = SolinasPrime.try_from(scheme.prime_modulus)
+        x_cols = batch_columns(words((33, 3003)).view(torch.int32), k)
+        for masked in (True, False):
+            instance = ("columns_r8" if k + ts <= 8 else "columns_r16") + (
+                "" if masked else "_unmasked")
+            k1_hold(f"{case} P=33 d=3003 masked={masked}", instance,
+                    (x_cols, 99, s_sp, m_host, ts, masked))
+    print(f"  the other schemes' instances: 32 holds and 8 timings in "
+          f"{time.perf_counter() - t_others:.1f} s")
     small = torch.from_numpy(
         rng.integers(0, 1 << 20, size=(7, 3001), dtype=np.uint32)).to(dev)
     small_fn = fused_round.single_chip_round_pallas(flagship, FullMasking(p),
@@ -4267,9 +4420,9 @@ def main() -> int:
           f"(CUDA events); fold_only kernel {k5['fold_only']['ms']:.4f} ms")
 
     # -- 9. the role crypto at the flagship width, no transport -----------
-    print(f"role crypto: flagship scheme, Full masking, P={P_MAIN} x "
+    print(f"role crypto: flagship scheme, Full masking, P={P_ROLE} x "
           f"d={D_MAIN} ({smi}):")
-    print(json.dumps(role_crypto(dev, P_MAIN, D_MAIN)), flush=True)
+    print(json.dumps(role_crypto(dev, P_ROLE, D_MAIN)), flush=True)
 
     # -- 9b. the port's host crypto, built from the checkout --------------
     from sda_tpu_torch.crypto import sharing
@@ -4298,9 +4451,9 @@ def main() -> int:
     k3_rec = chacha_kernels(dev, p, *built["chacha"], cuobjdump)
 
     # -- 13. the role crypto with ChaCha masks through K3 ------------------
-    print(f"role crypto: flagship scheme, ChaCha masking, P={P_MAIN} x "
+    print(f"role crypto: flagship scheme, ChaCha masking, P={P_ROLE} x "
           f"d={D_CHACHA} ({smi}):")
-    rec13 = role_crypto(dev, P_MAIN, D_CHACHA,
+    rec13 = role_crypto(dev, P_ROLE, D_CHACHA,
                         masking=ChaChaMasking(p, D_CHACHA, 128))
     print(json.dumps(rec13), flush=True)
 
@@ -4475,6 +4628,7 @@ def main() -> int:
         "bound_by": bound_by,
         "library_ms": None,
         "bound_ms_whole_rounds": whole_ms,
+        "instances": k1_instances,
     }, {
         "name": "probe_call",
         "route": "cuda",

@@ -31,11 +31,14 @@ MULS, XORS, ACCUMULATES = 60, 68, 17
 WHOLE_ROUND_MULS, WHOLE_ROUND_XORS = 70, 70
 
 
-def philox_ops(rows: int):
-    """Wide multiplies and xors a participant and column needs to draw
-    ``rows`` 64-bit rows: a Philox block (two rows) costs what a block of
-    the main path's count does, 60 / 4 multiplies and 68 / 4 xors."""
-    blocks = -(-rows // 2)
+def philox_ops(k: int, t: int, masked: bool):
+    """Wide multiplies and xors a participant and column needs to draw its
+    value rows as the column loop does (``fields/csrc/columns.cuh``): the
+    Philox blocks from pair 0 when masked, else from pair k // 2 (the one
+    holding row k, the first share-randomness row), to the pair of the
+    last row k + t - 1. A block costs what a block of the main path's count
+    does, 60 / 4 multiplies and 68 / 4 xors."""
+    blocks = -(-(k + t) // 2) - (0 if masked else k // 2)
     return MULS * blocks // 4, XORS * blocks // 4
 
 

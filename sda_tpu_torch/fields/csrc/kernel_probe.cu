@@ -79,11 +79,11 @@ template <bool DO_X, bool DO_PRNG, bool DO_MATMUL, bool SPLIT>
 __global__ void __launch_bounds__(kThreads, columns::kMinBlocks)
 probe_kernel(const ProbeArgs a) {
   constexpr int S = SPLIT ? kGroup : 1;  // threads a column
-  using F = columns::Fold<K, T, true, DO_X, DO_PRNG, S>;
+  using F = columns::Fold<columns::Fixed<K, T, true>, DO_X, DO_PRNG, S>;
   const int s = (int)threadIdx.x % S;
   const long long b = (blockIdx.x * (long long)kThreads + threadIdx.x) / S;
   const bool active = b < a.B;
-  F f;
+  F f(columns::Fixed<K, T, true>{});
   f.run(a.x, a.sx_p, a.P, (uint32_t)b, active, (uint32_t)(a.B - 1), s,
         a.key);
   f.reduce_split();

@@ -21,9 +21,10 @@ inputs. Here that kernel is hand-written CUDA for Hopper
   columns, the kernel, Lagrange reconstruct, unmask).
 
 The TPU block knobs (``tile``, ``p_block``, ``p_tile``, ``tree_fold``) have
-no counterpart: each CUDA thread owns one column and folds every
-participant, and mod-p sums are order-free, so the output is the one the
-Pallas kernel gives for any of those settings, from every instance.
+no counterpart: one CUDA thread owns a column and folds every participant
+(at k=7, t=8 two threads, each drawing half of the column's rows), and
+mod-p sums are order-free, so the output is the one the Pallas kernel
+gives for any of those settings, from every instance.
 
 Randomness: with ``external_bits`` ([P, 2*draws, B] words, 2 per drawn
 residue, the reference's row layout) the output is bit-identical to the
@@ -264,16 +265,27 @@ def bind_library(lib: ctypes.CDLL) -> ctypes.CDLL:
     return lib
 
 
-#: K1's instances (``csrc/fused_round.cu``), in the kernel's numbering:
-#: the generic one (every call below), and the main path's for internal
-#: draws, k=3, t=4 and the ``batch_columns`` layout, masked and unmasked
-INSTANCES = ("generic", "columns", "columns_unmasked")
+#: K1's instances (``csrc/fused_round.cu``), in the kernel's numbering.
+#: Internal draws on the ``batch_columns`` layout (B <= 2^32) take the
+#: column skeleton (``csrc/columns.cuh``), masked or unmasked: with the
+#: (k, t) compiled in for the flagship's k=3, t=4 (``columns``),
+#: BasicShamir's k=1, t=3 and the 26-clerk committee's k=7, t=8, and at
+#: run time under k + t <= 8 or 16 for any other (``columns_r8``,
+#: ``columns_r16``). ``external``: external bits, any layout. ``generic``:
+#: internal draws on any other layout.
+INSTANCES = ("generic", "columns", "columns_unmasked", "external",
+             "columns_k1t3", "columns_k1t3_unmasked",
+             "columns_k7t8", "columns_k7t8_unmasked",
+             "columns_r8", "columns_r8_unmasked",
+             "columns_r16", "columns_r16_unmasked")
 
 
 def resident_blocks(instance: str) -> int:
     """Blocks of 256 threads an SM holds at once of K1's ``instance``
-    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``; the generic one
-    with internal draws and at most 8 value rows). Needs the card."""
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``; the generic and
+    external ones at k + t <= 8, the external one with the shared memory
+    of the flagship's masked call, 17 words a participant). Needs the
+    card."""
     blocks = ctypes.c_int()
     err = _library().sda_fused_round_occupancy(
         INSTANCES.index(instance), ctypes.byref(blocks))

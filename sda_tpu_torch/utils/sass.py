@@ -7,6 +7,7 @@ not from this.
 
 from __future__ import annotations
 
+import functools
 import re
 import subprocess
 from pathlib import Path
@@ -36,6 +37,15 @@ def spills(lines) -> bool:
     return any(re.search(r"[1-9]\d* bytes spill", ln) for ln in lines)
 
 
+@functools.lru_cache(maxsize=None)
+def _sass(lib_path: Path, cuobjdump: Path) -> str:
+    """``cuobjdump -sass`` of a built library (libraries are keyed by their
+    sources, so one dump serves every kernel in it)."""
+    return subprocess.run([str(cuobjdump), "-sass", str(lib_path)],
+                          capture_output=True, text=True, timeout=120,
+                          check=True).stdout
+
+
 def loop_instructions(lib_path: Path, cuobjdump: Path, kernel: str):
     """The SASS lines (opcode and operands) of the participant loop of
     ``kernel`` (a substring of its mangled name) in a built library: the
@@ -43,11 +53,8 @@ def loop_instructions(lib_path: Path, cuobjdump: Path, kernel: str):
     whose body holds the most global loads and wide multiplies (the inputs
     and Philox), the longest among equals. Raises LookupError without such
     a kernel."""
-    sass = subprocess.run([str(cuobjdump), "-sass", str(lib_path)],
-                          capture_output=True, text=True, timeout=120,
-                          check=True).stdout
     body = None
-    for chunk in sass.split("Function : ")[1:]:
+    for chunk in _sass(lib_path, cuobjdump).split("Function : ")[1:]:
         if kernel in chunk.split("\n", 1)[0]:
             body = chunk
     if body is None:

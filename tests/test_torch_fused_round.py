@@ -26,9 +26,12 @@ from sda_tpu_torch.fields import _build, fused_round
 from sda_tpu_torch.fields.fastfield import SolinasPrime
 
 T, P29, W2, W3 = ref_nt.generate_packed_params(3, 8, 28)
+#: sda-sim --secrets-per-batch 7 --clerks 26: k=7, t=8 over 2^29 - 2479
+T26, P26, W2_26, W3_26 = ref_nt.generate_packed_params(7, 26, 28)
 SCHEMES = {
     "packed": ref_proto.PackedShamirSharing(3, 8, T, P29, W2, W3),
     "basic": ref_proto.BasicShamirSharing(8, 3, P29),
+    "packed26": ref_proto.PackedShamirSharing(7, 26, T26, P26, W2_26, W3_26),
 }
 #: the Pallas kernel's fold settings; every one gives the same output
 SETTINGS = [dict(p_block=16), dict(p_block=2, tree_fold=True),
@@ -171,7 +174,8 @@ def test_philox_bits_layout():
 
 
 @pytest.mark.parametrize("scheme,masked", [("packed", True), ("packed", False),
-                                           ("basic", True)])
+                                           ("basic", True), ("packed26", True),
+                                           ("packed26", False)])
 def test_internal_mode_draws_philox_bits(scheme, masked):
     s = SCHEMES[scheme]
     k, t = s.secret_count, s.privacy_threshold

@@ -1,4 +1,4 @@
-"""The arithmetic K1's main-path instance moved into the kernel
+"""The arithmetic K1's column instances moved into the kernel
 (``sda_tpu_torch/fields/csrc/columns.cuh``, ``philox.cuh``), mirrored in
 torch and held to the port's existing functions on the CPU:
 
@@ -9,9 +9,11 @@ torch and held to the port's existing functions on the CPU:
   ``philox_bits``' words;
 - the Solinas reduction that replaces ``%`` in the kernels' epilogue equals
   ``%`` up to the largest values the kernels reduce;
-- the main-path instances' whole column (raw sums of the input words and
-  of the drawn rows' words, one reduction a column, the contraction),
-  masked and unmasked, gives ``fused_mask_share_combine_plain``'s output.
+- the column instances' whole column (raw sums of the input words and of
+  the drawn rows' words, one reduction a column, the contraction), masked
+  and unmasked, for the flagship, BasicShamir and the 26-clerk committee
+  (its pairs split between two threads as the kernel splits them) and the
+  run-time shapes, gives ``fused_mask_share_combine_plain``'s output.
 
 The CUDA kernels run only on the card, where ``chip_smoke.py`` holds them
 to their plain versions bit for bit.
@@ -200,29 +202,43 @@ def test_kernel_scalars_match_the_prime():
     assert np.array_equal(keys, fused_round.philox_round_keys(2**40 + 9))
 
 
-# -- the main-path instances' column ------------------------------------------
+# -- the column instances' column -------------------------------------------
 
-def fold_columns(x, seed, sp: SolinasPrime, m_host, t: int, masked: bool):
-    """K1's main-path instances (``Fold`` in columns.cuh, driven by
-    ``fused_round_columns`` in fused_round.cu) in torch: over the
-    participants, raw sums of the input words and of the hi and lo words of
-    every drawn row (the factored Philox; the first drawn pair is k // 2
-    when unmasked), one reduction a column, masks added, the share matrix
-    minus its zero column contracted."""
+def fold_columns(x, seed, sp: SolinasPrime, m_host, t: int, masked: bool,
+                 groups: int = 1):
+    """K1's column instances (``Fold`` in columns.cuh, driven by
+    ``fused_round_columns`` and ``fused_round_bounded`` in fused_round.cu)
+    in torch: over the participants, raw sums of the input words and of the
+    hi and lo words of every drawn row (the factored Philox; the drawn pairs
+    run from 0 when masked, else from k // 2, to the pair of row k + t - 1),
+    one reduction a column, masks added, the share matrix minus its zero
+    column contracted. With ``groups`` > 1 the drawn pairs are split as
+    ``split_round`` splits them between the threads of a column (group g
+    draws [FIRST + (END - FIRST) * g // G, FIRST + (END - FIRST) * (g + 1)
+    // G)), each group's rows summed on their own."""
     P, k, B = x.shape
     keys = fused_round.philox_round_keys(seed)
     b = torch.arange(B, dtype=torch.int64)[None, :].expand(P, B)
     q = torch.arange(P, dtype=torch.int64)[:, None].expand(P, B)
     rows = k + t
+    first, end = (0 if masked else k // 2), (rows + 1) // 2
     vd = torch.zeros((rows, B), dtype=torch.int64)
-    for pair in range(0 if masked else k // 2, (rows + 1) // 2):
-        w = philox_factored(b, q, pair, keys)
-        for h in range(2):
-            row = 2 * pair + h
-            if row < rows and (masked or row >= k):
-                hi = mod_solinas(w[2 * h].sum(0), sp)
-                lo = mod_solinas(w[2 * h + 1].sum(0), sp)
-                vd[row] = mod_solinas(hi * ((1 << 32) % sp.p) + lo, sp)
+    seen = set()
+    for g in range(groups):
+        lo = first + (end - first) * g // groups
+        hi = first + (end - first) * (g + 1) // groups
+        for pair in range(lo, hi):
+            w = philox_factored(b, q, pair, keys)
+            for h in range(2):
+                row = 2 * pair + h
+                if row < rows and (masked or row >= k):
+                    assert row not in seen  # each row drawn by one group
+                    seen.add(row)
+                    hi_sum = mod_solinas(w[2 * h].sum(0), sp)
+                    lo_sum = mod_solinas(w[2 * h + 1].sum(0), sp)
+                    vd[row] = mod_solinas(
+                        hi_sum * ((1 << 32) % sp.p) + lo_sum, sp)
+    assert seen == {r for r in range(rows) if masked or r >= k}
     vx = mod_solinas((x.to(torch.int64) & M32).sum(0), sp)
     mask = vd[:k] if masked else torch.zeros_like(vx)
     v = torch.cat([mod_solinas(vx + mask, sp), vd[k:]])
@@ -230,19 +246,46 @@ def fold_columns(x, seed, sp: SolinasPrime, m_host, t: int, masked: bool):
     return mod_solinas((m[:, :, None] * v[None]).sum(1), sp), mask
 
 
-@pytest.mark.parametrize("masked", [True, False])
-@pytest.mark.parametrize("P", [1, 2, 5, 8])
-def test_column_fold_is_the_plain_version(P, masked):
-    """Odd and even P: the loop's pairs of participants and its tail."""
-    t, p, w2, w3 = numtheory.generate_packed_params(3, 8, 28)
-    scheme = PackedShamirSharing(3, 8, t, p, w2, w3)
-    m_host = numtheory.share_matrix_for(scheme)
-    words = np.random.default_rng(P).integers(0, 1 << 32, size=(P, 3 * 41),
+def _scheme(name):
+    """The schemes whose (k, t) K1 compiles in or runs at run time:
+    (scheme, threads a column of its instance, fused_round.cu's Tuning)."""
+    from sda_tpu_torch.protocol import BasicShamirSharing
+
+    if name == "basic8":  # sda-sim --sharing basic: p = 2^29 - 3
+        return BasicShamirSharing(
+            8, 3, numtheory.find_prime_with_orders(1, 1, 28)), 1
+    k, n = {"flagship": (3, 8), "packed26": (7, 26), "k5n26": (5, 26),
+            "k1n8": (1, 8)}[name]
+    t, p, w2, w3 = numtheory.generate_packed_params(k, n, 28)
+    groups = 2 if (k, t) == (7, 8) else 1
+    return PackedShamirSharing(k, n, t, p, w2, w3), groups
+
+
+FOLD_CASES = [(s, P, m) for s in ("flagship", "basic8", "packed26", "k5n26",
+                                  "k1n8")
+              for m in (True, False) for P in (1, 2, 5, 8)]
+
+
+@pytest.mark.parametrize(
+    "scheme,P,masked", FOLD_CASES,
+    ids=[f"{P}-{m}" if s == "flagship" else f"{s}-{P}-{m}"
+         for s, P, m in FOLD_CASES])
+def test_column_fold_is_the_plain_version(scheme, P, masked):
+    """Odd and even P: the loop's pairs of participants and its tail; the
+    flagship's k=3, t=4, BasicShamir at 8 clerks (k=1, t=3), the 26-clerk
+    committee (k=7, t=8, two threads a column), k=5, t=2 at 26 clerks and
+    k=1, t=2 at 8 (the run-time shapes)."""
+    s, groups = _scheme(scheme)
+    k, t = s.secret_count, s.privacy_threshold
+    sp = SolinasPrime.try_from(s.prime_modulus)
+    m_host = numtheory.share_matrix_for(s)
+    words = np.random.default_rng(P).integers(0, 1 << 32, size=(P, k * 41),
                                               dtype=np.uint32)
-    x = batch_columns(torch.from_numpy(words).view(torch.int32), 3)
+    x = batch_columns(torch.from_numpy(words).view(torch.int32), k)
     seed = 2**40 + P
-    got = fold_columns(x, seed, SP, m_host, t, masked)
-    want = fused_round.fused_mask_share_combine_plain(x, seed, SP, m_host, t,
+    want = fused_round.fused_mask_share_combine_plain(x, seed, sp, m_host, t,
                                                       masked)
-    for g, w in zip(got, want):
-        assert torch.equal(g, w)
+    for g in sorted({1, groups}):
+        got = fold_columns(x, seed, sp, m_host, t, masked, groups=g)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)

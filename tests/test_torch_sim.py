@@ -137,6 +137,50 @@ def test_mesh_modes_match_reference(capsys, monkeypatch, flags):
     assert got["mode"].split(" mesh")[0] == ref["mode"].split(" mesh")[0]
 
 
+@pytest.mark.parametrize("flags,k,t", [
+    (["--sharing", "basic", "--clerks", "8"], 1, 3),
+    (["--secrets-per-batch", "7", "--clerks", "26"], 7, 8),
+], ids=["basic-8", "packed-26"])
+def test_sim_runs_of_the_other_column_instances(capsys, monkeypatch, flags, k,
+                                                t):
+    """``chip_smoke.py`` phase 22's (g) and (h), full masks, at a small
+    size: BasicShamir at 8 clerks and the 26-clerk committee with 7
+    secrets a batch (K1's k=1, t=3 and k=7, t=8 column instances on a
+    card), exact and on the reference's prime and committee; their pod on
+    K1's lane (the plain version on the CPU) is exact too."""
+    import numpy as np
+
+    from sda_tpu.cli import sim as ref_sim
+    from sda_tpu_torch.fields import numtheory
+    from sda_tpu_torch.mesh import SimulatedPod, make_mesh
+    from sda_tpu_torch.protocol import (BasicShamirSharing, FullMasking,
+                                        PackedShamirSharing)
+
+    monkeypatch.setenv("SDA_SIM_PLATFORM", "cpu")
+    argv = ["--participants", "10", "--dim", "61", "--mask", "full",
+            "--verify", *flags]
+    rc, got, _ = _run(capsys, [*argv, "--device", "cpu"])
+    ref_rc, ref, _ = _run(capsys, argv, main=ref_sim.main)
+    assert rc == ref_rc == 0
+    assert got["exact"] is True and got["launches"] == {"k1": 0, "k3": 0}
+    for key in ("exact", "prime", "dim", "participants", "clerks",
+                "fast_path"):
+        assert got[key] == ref[key], key
+    p = got["prime"]
+    if k == 1:
+        scheme = BasicShamirSharing(8, t, p)
+    else:
+        tt, pp, w2, w3 = numtheory.generate_packed_params(k, 26, 28)
+        assert (tt, pp) == (t, p)
+        scheme = PackedShamirSharing(k, 26, t, p, w2, w3)
+    inputs = np.random.default_rng(0).integers(0, 1 << 20, size=(10, 61),
+                                               dtype=np.int64)
+    pod = SimulatedPod(scheme, FullMasking(p), use_pallas=True,
+                       mesh=make_mesh(1, 1, devices=["cpu"]))
+    out = pod.aggregate(torch.from_numpy(inputs), seed=0)
+    assert np.array_equal(out.cpu().numpy(), inputs.sum(0) % p)
+
+
 def test_parser_keeps_the_references_flags():
     """Every flag of the reference's parser, with its default, choices
     and type; the port adds ``--device`` (default cuda)."""
