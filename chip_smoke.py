@@ -34,15 +34,20 @@ with ChaCha masks on K3 (one expand a participant, the recipient's
 combine, both held to the plain version on the round's own seeds), and
 the README walkthrough's round over the HTTP server, each revealed
 exactly, with the port's field ops counted by the device they ran on.
-Then ChaCha seed masks on K3 (``csrc/chacha.cu``): K3 held
-to its plain version and to the host spec (``fields.chacha``) for both
+Then ChaCha seed masks on K3 (``csrc/chacha.cu``): every K3 instance's
+ptxas line (a spill fails) and the seed loops' SASS by pipe; K3 held to
+its plain version and to the host spec (``fields.chacha``) for both
 PRGs, four moduli (one that forces the host replay), several widths and
-stream windows, and timed beside its bound; the role crypto with ChaCha
-masks (P=50 x 1,000,008); ``single_chip_round`` with ChaCha masks; the
-streamed round (``StreamingAggregator(use_pallas=True)``, P=10,000 x
-10,000,008 from the device block provider) on K1 and K3, and the
-device-tile clerk fold, each exact, with K3's windows at the shapes and
-block counters the two ChaCha rounds launched it with held to the plain
+stream windows, its mask op (the round's ChaCha mask stage in one pass)
+at 1, 5 and 250 seeds of 8, 1,000,008 and 3,145,728 columns from three
+block counters (one wraps), int32 and int64 out; each operation timed
+beside its bound at the main path's shapes; the role crypto with ChaCha
+masks (P=50 x 1,000,008); ``single_chip_round`` with ChaCha masks (one
+mask op); the streamed round (``StreamingAggregator(use_pallas=True)``,
+P=10,000 x 10,000,008 from the device block provider) on K1 and K3's
+mask op (160 launches, no expand), its device peak, and the device-tile
+clerk fold, each exact, with K3's mask op at the shapes, block counters
+and rows the two ChaCha rounds launched it with held to the plain
 version (their masks cancel, so the rounds' sums cannot show them). Then
 the Paillier premix on K4 (``csrc/montgomery.cu``): each instance's
 ptxas line and resident warps (a spill fails), K4 held to its plain
@@ -65,8 +70,9 @@ the bench's trace beside the CUDA-event time, the regression gate over the
 repo's ``BENCH_r*.json`` with the bench's line as the newest record (a
 torch record with no comparable history), the instrumented round against
 the bare one with cost capture off and on, and the streamed round once
-more with cost capture and the profiler on for its peak device memory and
-busy share. Then the multi-device modes: ``SimulatedPod`` at the flagship
+more with cost capture and the profiler on for its peak device memory,
+busy share and device time by part (K3, K1, the block provider, the
+rest). Then the multi-device modes: ``SimulatedPod`` at the flagship
 width on the card's 1x1 mesh and on a virtual 4x2 mesh (``[cuda:0] * 8``)
 with Full, ChaCha and no masks, on K1 and on the plain lane, and a quorum
 reveal without clerk 5, each exact with its K1 and K3 launches a round,
@@ -82,8 +88,11 @@ adapters of ``LoRAMLP()`` (11,782,400) through ``LocalTrainer`` on the
 card, and ``pod_fedavg_round`` aggregates them on K1 over
 ``SimulatedPod`` (1x1 and virtual 4x2 meshes) and ``StreamedPod``
 (virtual 4x2), each round exact over every coordinate against the host
-encode of each delta; ``run_devscale`` at each family's width; K1 held
-to its plain version at those rounds' shard shapes. Then the port's
+encode of each delta; two MobileLite participants' first SGD steps
+held to the same steps on this machine's CPU in the stated float32
+setting (``models.precision``), with cuDNN's TF32 beside it;
+``run_devscale`` at each family's width; K1 held to its plain version at
+those rounds' shard shapes. Then the port's
 ``sda-sim`` (``sda_tpu_torch.cli.sim.main``) in this process at the
 flagship width, each run exact by its own ``--verify``: the pod on K1,
 the streamed round on K1 and K3 with ChaCha masks, the quorum reveal
@@ -125,7 +134,8 @@ each ``run`` on the card in this process (the REST FedAvg round's mean
 equal to its quantized oracle, the streamed round killed and resumed bit
 for bit, the embedded C-core participant's round with K3's expand and
 combine held to plain on its seeds, LeNet's secure FedAvg rounds each
-equal to the host encode's oracle), and all four as ``python -m``
+equal to the host encode's oracle and its losses to the same run on this
+machine's CPU, with cuDNN's TF32 beside them), and all four as ``python -m
 processes at once, each exiting 0 with its script's last line.
 Prints the card's name and power
 limit, one JSON line of kernel measurements, and as its last line
@@ -203,11 +213,28 @@ ROLE_OPS = ("combine", "packed_share_from_randomness", "packed_reconstruct",
 K3_MODULI = (433, (1 << 61) - 1, 3 * (1 << 60) + 1)
 K3_DIMS = (1, 7, 9, 1000, 1_000_008)
 S_COMBINE, S_BIG = 100, 10_000
+#: K3's kernels in the SASS, by operation: the instances the main path
+#: and the flagship run (the V1 layout; 32-bit residues, m < 2^30; the
+#: mask op's int32 out), the mask op's int64 out, and the fold of the
+#: chunks' sums. Phase 12 checks every instance for spills.
+K3_KERNELS = {"blocks": "chacha_blocks_kernel",
+              "expand": "chacha_expand_kernelILb0ELb1EE",
+              "combine": "chacha_combine_kernelILb0ELb1EE",
+              "mask": "chacha_mask_kernelILb1ELb1EE",
+              "mask_int64": "chacha_mask_kernelILb0ELb1EE",
+              "fold": "chacha_fold_kernel"}
+#: the mask op's checks (phase 12): seeds, widths (one block, the ChaCha
+#: phases' and the streamed round's tile) and block counters (one wraps)
+K3_MASK_SEEDS = (1, 5, 250)
+K3_MASK_DIMS = (8, 1_000_008, 3_145_728)
+K3_MASK_COUNTERS = (0, 12_345, (1 << 32) - 2)
 #: the ChaCha phases' width (13-14): a whole number of ChaCha blocks
 D_CHACHA = 1_000_008
 #: the streamed round (phase 15): participants, dimension, participant
 #: chunk, from the device block provider (values below 2^20)
 P_STREAM, D_STREAM, STREAM_CHUNK = 10_000, 10_000_008, 250
+#: its dim tile on an 80 GB card (``StreamingAggregator``'s watermark)
+D_TILE = 3_145_728
 #: rows and bundles of the device-tile clerk fold (phase 15)
 FOLD_ROWS, FOLD_BUNDLES = 100, 4
 #: timed rounds of the pod phase (18)
@@ -234,6 +261,15 @@ FEDAVG_STEPS = {"mobilelite": 4, "lora": 2}
 FEDAVG_LR = {"mobilelite": 0.01, "lora": 0.1}
 FEDAVG_SHARD, FEDAVG_BATCH, FEDAVG_EVAL = 64, 16, 256
 FEDAVG_CLIP = 1.0
+#: the card's float32 training held to this machine's CPU from the same
+#: weights (``models.precision``: no TF32): LeNet's FedAvg losses (phase
+#: 25) and the losses of two MobileLite participants' first SGD steps
+#: (phase 21). Both sides run float32; only the order of their sums
+#: differs (LeNet's losses agreed within 2e-7 on the card's machine), so
+#: the tolerances are far below TF32's ~1e-3. Turns of each TF32 A/B.
+LENET_LOSS_TOL = 1e-5
+MOBILELITE_LOSS_TOL = 1e-4
+PRECISION_TURNS = 3
 #: K4's checks (phase 16): Paillier key sizes (n^2 of 32, 128 and 192
 #: limbs, each filling a group instance), premix row counts (at 256 lanes
 #: the larger ones split a lane's rows) and lanes; the split path of a small
@@ -539,41 +575,131 @@ def _host_window(seed, counter0, d, m):
 
 
 def _k3_window(case, dev, round_seed, p0, rows, counter0, width, modulus,
-               seed_bits=128):
-    """K3's windowed stream at a shape and block counter a round launched
-    it with, on the seed words that round derived (``simpod``'s, from
-    ``round_seed`` and participant ids ``p0 ..``), held to the plain
-    version with ``torch.equal``. ChaCha masks cancel inside a round, so
-    the round's exact sum cannot see a wrong window; this check can.
-    Returns the max |error| (0 when equal)."""
+               seed_bits=128, x=None, out_dtype=None):
+    """K3's mask op at a shape and block counter a round launched it with,
+    on the seed words that round derived (``simpod``'s, from
+    ``round_seed`` and participant ids ``p0 ..``) and on ``x`` (the
+    round's residues there; random ones below the modulus when None),
+    held to the plain version with ``torch.equal``: the masked rows as
+    ``out_dtype`` (int64 when None) and the mask sum. ChaCha masks cancel
+    inside a round, so the round's exact sum cannot see a wrong window;
+    this check can. Returns the max |error| (0 when equal)."""
     import torch
 
-    from sda_tpu_torch.fields import chacha, chacha_device as cd
+    from sda_tpu_torch.fields import chacha_device as cd
     from sda_tpu_torch.mesh import simpod
 
     ids = p0 + torch.arange(rows, dtype=torch.int64, device=dev)
     sw = simpod._chacha_seed_words(round_seed, ids, seed_bits)
-    got = cd.stream_residues_at(sw, counter0, dimension=width,
-                                modulus=modulus)
-    want = cd.expand_plain(sw, counter0, width, modulus,
-                           chacha.CHACHA_PRG_V1)[0]
-    _check(got.shape == want.shape,
-           f"{case}: K3 window {tuple(got.shape)} vs {tuple(want.shape)}")
-    equal = torch.equal(got, want)
-    err = 0 if equal else int((got - want).abs().max())
-    _check(equal, f"{case}: K3 window [{rows}, {width}] of participants "
+    if x is None:
+        x = torch.randint(0, modulus, (rows, width), dtype=torch.int64,
+                          device=dev, generator=torch.Generator(
+                              device=dev).manual_seed(p0 + counter0))
+    dtype = torch.int64 if out_dtype is None else out_dtype
+    got = cd.mask_residues_at(sw, counter0, x, modulus=modulus,
+                              out_dtype=dtype)
+    want = cd.mask_plain(sw, counter0, x, modulus, dtype)
+    err = 0
+    for g, w, what in zip(got, want, ("masked rows", "mask sum")):
+        _check(g.shape == w.shape and g.dtype == w.dtype,
+               f"{case}: K3 mask {what} {g.dtype}{tuple(g.shape)} vs "
+               f"{w.dtype}{tuple(w.shape)}")
+        if not torch.equal(g, w):
+            err = max(err, int((g.to(torch.int64) - w).abs().max()))
+    _check(err == 0, f"{case}: K3 mask [{rows}, {width}] of participants "
            f"{p0}.. at counter0={counter0} != plain (max |err| {err})")
-    print(f"  {case}: K3 window [{rows}, {width}] of participants {p0}.. "
-          f"at counter0={counter0}: equal to plain")
+    print(f"  {case}: K3 mask [{rows}, {width}] {dtype} of participants "
+          f"{p0}.. at counter0={counter0}: equal to plain")
     return err
 
 
+def _k3_sass(lib_path, cuobjdump):
+    """Phase 12: each strip kernel's seed loop (one ChaCha block a seed)
+    in SASS: its instruction count, its opcodes, the quarter-round's
+    rotates (SHF, PRMT), xors (LOP3) and adds (IADD3 on the ALU pipe,
+    IMAD on the FMA pipe) and its instructions by pipe. Returns {op: the
+    record}."""
+    from sda_tpu_torch.utils import sass
+
+    out = {}
+    for op in ("expand", "combine", "mask"):
+        kernel = K3_KERNELS[op]
+        try:
+            lines = sass.loop_instructions(lib_path, cuobjdump, kernel,
+                                           innermost=True)
+        except (LookupError, ValueError) as exc:
+            print(f"  K3 {op} seed loop: not found ({exc})")
+            continue
+        mix = collections.Counter(op_ for op_, _ in lines)
+        heads = collections.Counter(o.split(".")[0] for o in mix.elements())
+        rec = out[op] = {
+            "instructions": sum(mix.values()),
+            "pipes": sass.pipe_mix(lines),
+            **{h: heads[h] for h in ("SHF", "PRMT", "LOP3", "IADD3",
+                                     "IMAD")},
+            "IMAD.IADD": mix["IMAD.IADD"],
+            "opcodes": dict(mix.most_common(16))}
+        print(f"  K3 {op} seed loop ({kernel}), a block a seed: "
+              f"{rec['instructions']} instructions; pipes {rec['pipes']}; "
+              f"SHF {rec['SHF']}, PRMT {rec['PRMT']}, LOP3 {rec['LOP3']}, "
+              f"IADD3 {rec['IADD3']}, IMAD {rec['IMAD']} (IMAD.IADD "
+              f"{rec['IMAD.IADD']}); "
+              + ", ".join(f"{o} {c}" for o, c in mix.most_common(12)))
+    return out
+
+
+def _k3_mask_holds(dev, p, equal, seeds=K3_MASK_SEEDS, dims=K3_MASK_DIMS,
+                   counters=K3_MASK_COUNTERS, timed=(250, 3_145_728,
+                                                     12_345)):
+    """Phase 12: K3's mask op against its plain version with
+    ``torch.equal`` at every (seeds, width, block counter), int32 and
+    int64 out, on canonical residues below p. Returns the plain version's
+    time (ms, one call) at ``timed``."""
+    import torch
+
+    from sda_tpu_torch.fields import chacha_device as cd
+
+    gen = torch.Generator(device=dev).manual_seed(12)
+    plain_ms = None
+    for S in seeds:
+        for d in dims:
+            sw = torch.randint(0, 1 << 32, (S, 8), dtype=torch.int64,
+                               device=dev, generator=gen)
+            x = torch.randint(0, p, (S, d), dtype=torch.int64, device=dev,
+                              generator=gen)
+            for c0 in counters:
+                t0 = time.perf_counter()
+                want = cd.mask_plain(sw, c0, x, p, torch.int64)
+                _sync(dev)
+                if (S, d, c0) == timed:
+                    plain_ms = (time.perf_counter() - t0) * 1e3
+                for dtype in (torch.int32, torch.int64):
+                    got = cd.chacha_kernel("mask", sw, counter0=c0, x=x,
+                                           modulus=p, out_dtype=dtype)
+                    case = f"mask S={S} d={d} counter0={c0} {dtype}"
+                    _check(got[0].dtype == dtype,
+                           f"{case}: masked {got[0].dtype}")
+                    equal(f"{case} masked", got[0], want[0])
+                    equal(f"{case} sum", got[1], want[1])
+                    del got
+                del want
+            del sw, x
+            _empty_cache(dev)
+        print(f"  mask S={S}: d in {list(dims)} at counter0 in "
+              f"{list(counters)}, int32 and int64 out: equal to plain")
+    return plain_ms
+
+
 def chacha_kernels(dev, p, lib_path, ptxas_log, cuobjdump, dims=K3_DIMS,
-                   s_combine=S_COMBINE, s_big=S_BIG, d_big=D_CHACHA):
+                   s_combine=S_COMBINE, s_big=S_BIG, d_big=D_CHACHA,
+                   mask_seeds=K3_MASK_SEEDS, mask_dims=K3_MASK_DIMS,
+                   tile=(STREAM_CHUNK, D_TILE)):
     """Phase 12: K3 against its plain version (on the same device) and the
     host spec (numpy ``fields.chacha``, or the native C++ for the combine
-    at full width), exactly, for both PRGs; then K3's times beside its
-    bound. Returns the kernel's record and the max abs error."""
+    at full width), exactly, for both PRGs, and its mask op against its
+    plain version at the main path's shapes; then each operation's time
+    beside its bound, its ptxas line and its seed loop's SASS. Returns
+    {"ops": {op: its record}, "max_abs_err", "check_launches", ...}."""
     import numpy as np
     import torch
 
@@ -584,38 +710,33 @@ def chacha_kernels(dev, p, lib_path, ptxas_log, cuobjdump, dims=K3_DIMS,
     from sda_tpu_torch.utils.benchtime import median_ms
 
     on_card = dev.type == "cuda"
+    ptxas, loops = {}, {}
     if on_card:
         info = sass.ptxas_info(ptxas_log)
-        for kernel in ("chacha_blocks_kernel", "chacha_expand_kernelILb0EE",
-                       "chacha_expand_kernelILb1EE",
-                       "chacha_combine_kernelILb0EE",
-                       "chacha_combine_kernelILb1EE"):
+        for key, ptx in info.items():  # every instance, both layouts
+            _check(not sass.spills(ptx), f"{key} spills: {'; '.join(ptx)}")
+        _check(len(info) == 14, f"K3: {len(info)} kernels in ptxas's log, "
+               "want 14 (blocks, fold, 4 instances of each strip kernel)")
+        for name, kernel in K3_KERNELS.items():
             ptx = next((v for key, v in info.items() if kernel in key), None)
             _check(ptx is not None, f"{kernel}: no ptxas line")
-            _check(not sass.spills(ptx), f"{kernel} spills: {'; '.join(ptx)}")
-            print(f"  K3 {kernel}: {'; '.join(ptx)}")
-        try:
-            lines = sass.loop_instructions(lib_path, cuobjdump,
-                                           "chacha_combine_kernelILb0EE")
-            mix = collections.Counter(op for op, _ in lines)
-            print(f"  K3 combine seed loop (one block a seed): "
-                  f"{sum(mix.values())} instructions: "
-                  + ", ".join(f"{op} {c}" for op, c in mix.most_common(12)))
-        except (LookupError, ValueError) as exc:
-            print(f"  K3 combine seed loop: not found ({exc})")
+            ptxas[name] = ptx
+            print(f"  K3 {name} ({kernel}): {'; '.join(ptx)}")
+        print(f"  K3: {len(info)} kernels, none spills")
+        loops = _k3_sass(lib_path, cuobjdump)
     rng = np.random.default_rng(12)
     max_err = 0
     k3 = _k3_reset()
 
     def equal(case, got, want):
         nonlocal max_err
-        got = torch.as_tensor(got).cpu().to(torch.int64)
-        want = torch.as_tensor(want).cpu().to(torch.int64)
+        got = torch.as_tensor(got).to(torch.int64)
+        want = torch.as_tensor(want).to(got.device, torch.int64)
         _check(got.shape == want.shape, f"{case}: {tuple(got.shape)} vs "
                f"{tuple(want.shape)}")
-        if got.numel():
+        if not torch.equal(got, want):
             max_err = max(max_err, int((got - want).abs().max()))
-        _check(torch.equal(got, want), f"{case}: not equal")
+            _fail(f"{case}: not equal (max |err| {max_err})")
 
     def seed_words(S):
         return [list(map(int, r)) for r in rng.integers(0, 1 << 32, (S, 4))]
@@ -660,6 +781,14 @@ def chacha_kernels(dev, p, lib_path, ptxas_log, cuobjdump, dims=K3_DIMS,
               _host_window(seeds[0], c0, d_big, p))
     print(f"  windows S=5 x d={d_big} at counter0 1, 12345, 2^32 - 2: "
           "equal to plain and host spec")
+    # the keystream of one key, the blocks of a window that wraps
+    nblocks = -(-d_big // 8)
+    for c0 in (0, (1 << 32) - 2):
+        equal(f"blocks counter0={c0} x {nblocks}",
+              cd.chacha_block_words(sw[0], c0, nblocks=nblocks),
+              cd.block_words_plain(sw[:1], c0, nblocks)[0])
+    print(f"  blocks of one key x {nblocks} at counter0 0, 2^32 - 2: equal "
+          "to plain")
     # the recipient's combine at the flagship width
     seeds = seed_words(s_combine)
     sw = cd._seed_matrix(seeds, dev)
@@ -675,17 +804,75 @@ def chacha_kernels(dev, p, lib_path, ptxas_log, cuobjdump, dims=K3_DIMS,
                                     p, prg=prg))
     print(f"  combine_masks S={s_combine} x d={d_big}, both PRGs: equal to "
           f"plain{' and native host' if host_combine else ''}")
+    # the main path's: the mask op at the streamed round's tile, and the
+    # expand at the same window
+    t_mask = time.perf_counter()
+    mask_plain_ms = _k3_mask_holds(dev, p, equal, mask_seeds, mask_dims,
+                                   timed=(*tile, 12_345))
+    gen = torch.Generator(device=dev)
+    tile_words = torch.randint(0, 1 << 32, (tile[0], 8), dtype=torch.int64,
+                               device=dev, generator=gen.manual_seed(13))
+    t0 = time.perf_counter()
+    want = cd.expand_plain(tile_words, 12_345, tile[1], p,
+                           chacha.CHACHA_PRG_V1)[0]
+    _sync(dev)
+    expand_plain_ms = (time.perf_counter() - t0) * 1e3
+    equal(f"window [{tile[0]}, {tile[1]}] counter0=12345 vs plain",
+          cd.stream_residues_at(tile_words, 12_345, dimension=tile[1],
+                                modulus=p), want)
+    del want
+    _empty_cache(dev)
+    print(f"  window [{tile[0]}, {tile[1]}] at counter0 12345: equal to "
+          f"plain; the mask holds and this window in "
+          f"{time.perf_counter() - t_mask:.1f} s")
     launches = dict(k3.op_launches)
     print(f"  K3 launches in phase 12: {launches}")
 
     prg = chacha.CHACHA_PRG_V1
-    ms = median_ms(lambda: cd.chacha_kernel(
-        "combine", sw, dimension=d_big, modulus=p, prg=prg), dev)
+    ops = {}
+
+    def record(op, ms, plain_ms, bound, shape, **kw):
+        ops[op] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
+                   "bound_by": bound[1],
+                   "share": None if not ms else bound[0] / ms,
+                   "shape": shape, "ptxas": ptxas.get(op),
+                   "seed_loop": loops.get(op), **kw}
+        print(f"K3 {op} at {shape}: "
+              + ("not timed (no card)" if ms is None else
+                 f"{ms:.4f} ms median of 20 (CUDA events), "
+                 f"{bound[0] / ms:.1%} of its bound")
+              + "; plain " + ("not timed" if plain_ms is None
+                              else f"{plain_ms:.3f} ms")
+              + f"; bound {bound[0]:.4f} ms ({bound[2]})")
+
+    def timed(fn, reps=20, warmup=2):
+        return median_ms(fn, dev, reps=reps, warmup=warmup) if on_card \
+            else None
+
+    record("blocks", timed(lambda: cd.chacha_block_words(
+        sw[0], 0, nblocks=nblocks)),
+        median_ms(lambda: cd.block_words_plain(sw[:1], 0, nblocks), dev,
+                  reps=3, warmup=1),
+        k3_bound(1, 8 * nblocks, "blocks"), f"[{nblocks}] blocks")
+    record("expand", timed(lambda: cd.stream_residues_at(
+        tile_words, 12_345, dimension=tile[1], modulus=p)), expand_plain_ms,
+        k3_bound(tile[0], tile[1], "expand"), f"[{tile[0]}, {tile[1]}]")
+    x = torch.randint(0, p, (tile[0], tile[1]), dtype=torch.int64,
+                      device=dev, generator=gen.manual_seed(14))
+    for dtype, size in ((torch.int32, 4), (torch.int64, 8)):
+        record("mask" if size == 4 else "mask_int64", timed(
+            lambda: cd.mask_residues_at(tile_words, 12_345, x, modulus=p,
+                                        out_dtype=dtype)),
+            mask_plain_ms if size == 4 else None,
+            k3_bound(tile[0], tile[1], "mask", size),
+            f"[{tile[0]}, {tile[1]}] {dtype}")
+    del x, tile_words
+    _empty_cache(dev)
     plain_ms = median_ms(lambda: cd.combine_plain(sw, d_big, p, prg), dev,
                          reps=3, warmup=1)
     big = cd._seed_matrix(seed_words(s_big), dev)
-    big_ms = median_ms(lambda: cd.chacha_kernel(
-        "combine", big, dimension=d_big, modulus=p, prg=prg), dev, reps=5,
+    big_ms = timed(lambda: cd.chacha_kernel(
+        "combine", big, dimension=d_big, modulus=p, prg=prg), reps=5,
         warmup=1)
     del big
     host_ms = None
@@ -694,18 +881,18 @@ def chacha_kernels(dev, p, lib_path, ptxas_log, cuobjdump, dims=K3_DIMS,
         t0 = time.perf_counter()
         host_combine(stacked, d_big, p, prg=prg)
         host_ms = (time.perf_counter() - t0) * 1e3
-    bound_ms, bound_by, detail = k3_bound(s_combine, d_big, True)
-    big_bound, _, big_detail = k3_bound(s_big, d_big, True)
-    print(f"K3 combine at S={s_combine} x d={d_big}: {ms:.4f} ms median of 20 "
-          f"(CUDA events); plain {plain_ms:.3f} ms; native host "
-          f"{'not available' if host_ms is None else f'{host_ms:.3f} ms'}; "
-          f"bound {bound_ms:.4f} ms ({detail})")
-    print(f"K3 combine at S={s_big} x d={d_big}: {big_ms:.4f} ms median of 5; "
-          f"bound {big_bound:.4f} ms ({big_detail})")
-    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "ms_s_big": big_ms,
-            "bound_ms_s_big": big_bound, "host_ms": host_ms,
-            "max_abs_err": max_err, "check_launches": launches}
+    big_bound = k3_bound(s_big, d_big, "combine")
+    record("combine", timed(lambda: cd.chacha_kernel(
+        "combine", sw, dimension=d_big, modulus=p, prg=prg)), plain_ms,
+        k3_bound(s_combine, d_big, "combine"), f"S={s_combine} x d={d_big}",
+        **{f"ms_s{s_big}": big_ms, f"bound_ms_s{s_big}": big_bound[0],
+           "host_ms": host_ms})
+    print(f"K3 combine at S={s_big} x d={d_big}: "
+          f"{big_ms if big_ms is None else round(big_ms, 4)} ms median of 5;"
+          f" bound {big_bound[0]:.4f} ms ({big_bound[2]}); native host "
+          f"combine at S={s_combine}: "
+          f"{'not available' if host_ms is None else f'{host_ms:.3f} ms'}")
+    return {"ops": ops, "max_abs_err": max_err, "check_launches": launches}
 
 
 def chacha_round(dev, P, D, seed=0):
@@ -731,15 +918,17 @@ def chacha_round(dev, P, D, seed=0):
            f"ChaCha round: output {out.dtype}{tuple(out.shape)}")
     _check(torch.equal(out, expect), "ChaCha round: != column sum mod p")
     on_card = dev.type == "cuda"
-    _check(not on_card or launches["expand"] > 0,
-           f"ChaCha round: K3 launches {launches}")
-    # the window the round expanded: its round seed is the generator's
-    # first draw, its participants 0..P-1, its counter 0
+    _check(not on_card or (launches["mask"] == 1 and
+                           launches["expand"] == 0),
+           f"ChaCha round: K3 launches {launches}, want one mask op")
+    # the mask op the round ran: its round seed is the generator's first
+    # draw, its participants 0..P-1, its counter 0, its x the inputs
     from sda_tpu_torch.mesh import simpod
 
     round_seed = simpod._round_seed(
         torch.Generator(device=dev).manual_seed(seed))
-    err = _k3_window("ChaCha round", dev, round_seed, 0, P, 0, D, p)
+    err = _k3_window("ChaCha round", dev, round_seed, 0, P, 0, D, p,
+                     x=inputs.to(torch.int64))
     ms = _median_ms(lambda: fn(inputs, gen), reps=5, warmup=1) \
         if on_card else None
     return {"stage": "chacha_round", "participants": P, "dim": D,
@@ -778,9 +967,15 @@ def streamed_round(dev, P, D, chunk, fold_rows=FOLD_ROWS,
     K1.launches = 0
     K1.instance_launches.update(dict.fromkeys(fused_round.INSTANCES, 0))
     utils.reset_phase_report()
+    on_card = dev.type == "cuda"
+    if on_card:
+        torch.cuda.synchronize(dev)
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     out = agg.aggregate_blocks(prov, P, D, seed=round_seed)
     wall = time.perf_counter() - t0
+    peak = (torch.cuda.max_memory_allocated(dev) - base) if on_card else None
     phases = _phases(utils)
     k1_launches, k3_launches = dict(K1.instance_launches), dict(k3.op_launches)
     dc = agg.dim_chunk
@@ -794,27 +989,37 @@ def streamed_round(dev, P, D, chunk, fold_rows=FOLD_ROWS,
             want += prov(p0, min(p0 + chunk, P), d0, d1).sum(0)
         _check(torch.equal(torch.from_numpy(out[d0:d1]).to(dev), want % p),
                f"streamed round: dims [{d0}, {d1}) != column sum mod p")
-    on_card = dev.type == "cuda"
     if on_card:
         unmasked = k1_launches["columns_unmasked"]
         _check(K1.launches == tiles and unmasked == tiles,
                f"streamed round: K1 instances {k1_launches}, want {tiles} "
                "on columns_unmasked")
-        _check(k3_launches["expand"] == tiles,
-               f"streamed round: K3 launches {k3_launches}, want {tiles}")
+        _check(k3_launches["mask"] == tiles and k3_launches["expand"] == 0,
+               f"streamed round: K3 launches {k3_launches}, want {tiles} "
+               "mask ops and no expand")
     print(f"streamed round: P={P} x d={D}, chunks {chunk} x {dc}, {tiles} "
           f"tiles: exact, wall {wall:.3f} s, {P * D / wall:.4e} "
-          f"shared-elements/s; K1 {k1_launches}, K3 {k3_launches}")
-    # K3 at the round's own window shapes: the first participant chunk of
-    # dim tile 0, the last chunk of dim tile 1, and the ragged dim tail
+          f"shared-elements/s; device peak "
+          f"{'not measured' if peak is None else f'{peak} bytes'} above "
+          f"the phase's start; K1 {k1_launches}, K3 {k3_launches}")
+    # K3's mask op at the round's own tiles, on the provider's rows there
+    # (zero-padded to the ChaCha grain, as the round pads them): the first
+    # participant chunk of dim tile 0, the last chunk of dim tile 1, and
+    # the ragged dim tail
     d_starts = range(0, D, dc)
     last_p0 = (P - 1) // chunk * chunk
     err = 0
     for p0, d0 in sorted({(0, d_starts[0]), (0, d_starts[-1]),
                           (last_p0, d_starts[min(1, len(d_starts) - 1)])}):
-        width = -(-(min(d0 + dc, D) - d0) // agg._grain) * agg._grain
+        d1, rows = min(d0 + dc, D), min(chunk, P - p0)
+        width = -(-(d1 - d0) // agg._grain) * agg._grain
+        x = torch.zeros((rows, width), dtype=torch.int64, device=dev)
+        x[:, :d1 - d0] = torch.remainder(prov(p0, p0 + rows, d0, d1), p)
         err = max(err, _k3_window("streamed round", dev, round_seed, p0,
-                                  min(chunk, P - p0), d0 // 8, width, p))
+                                  rows, d0 // 8, width, p, x=x,
+                                  out_dtype=torch.int32))
+        del x
+        _empty_cache(dev)
     # the device-tile clerk fold
     rng = np.random.default_rng(15)
     rows = rng.integers(0, p, size=(fold_rows, fold_dim))
@@ -833,6 +1038,7 @@ def streamed_round(dev, P, D, chunk, fold_rows=FOLD_ROWS,
     return {"stage": "streamed_round", "participants": P, "dim": D,
             "participants_chunk": chunk, "dim_chunk": dc, "tiles": tiles,
             "exact": True, "wall_s": wall, "elements_per_s": P * D / wall,
+            "device_peak_bytes": peak,
             "out_sha256": hashlib.sha256(out.tobytes()).hexdigest(),
             "phases_s": phases,
             "k1_launches": k1_launches, "k3_launches": k3_launches,
@@ -1036,15 +1242,23 @@ def streamed_profile(dev, P, D, chunk, out_sha256):
     busy = traceparse.busy_share(trace)
     stats = traceparse.device_module_stats(trace)
     top = sorted(stats.items(), key=lambda kv: -kv[1]["total_us"])[:6]
+    # the device time by part: K3's and K1's kernels, the block provider's
+    # (launched inside ``stream.feed``) and the rest
+    split = {k: v / 1e3 for k, v in traceparse.device_split(
+        trace, {"K3": "chacha_", "K1": "fused_round"},
+        {"block provider": "stream.feed"}).items()}
     print(f"streamed round under the profiler: wall {wall:.3f} s (trace "
           f"export and parse {trace_s:.1f} s), busy share {busy}, peak "
           f"device memory {hbm['hbm_peak_bytes']} bytes of a watermark of "
-          f"{hbm['watermark_bytes']} ({hbm.get('hbm_watermark_ratio')})")
+          f"{hbm['watermark_bytes']} ({hbm.get('hbm_watermark_ratio')}); "
+          "device time, ms: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in split.items()))
     for name, st in top:
         print(f"    {st['total_us'] / 1e3:10.3f} ms {st['count']:6d} calls"
               f"  {name[:100]}")
     return {"stage": "streamed_profile", "participants": P, "dim": D,
             "exact": True, "wall_s": wall, "busy_share": busy, "hbm": hbm,
+            "device_ms_by_part": split,
             "device_events": sum(st["count"] for st in stats.values()),
             "functions": devprof.report()}
 
@@ -1170,7 +1384,8 @@ def pod_phase(dev, P=P_MAIN, D=D_MAIN, reps=POD_REPS):
                                 simpod._tile_seed(18, pi, di))
                  for masked in (True, False))
     k3_err = _k3_window("pod shard (3, 1)", dev, 18, pi * P_loc, P_loc,
-                        di * (d_loc // 8), d_loc, p)
+                        di * (d_loc // 8), d_loc, p, x=x,
+                        out_dtype=torch.int32)
     return {"stage": "pod_round", "participants": P, "dim": D,
             "rounds": rounds, "k1_launches_phase": k1_total,
             "k1_shard_max_abs_err": k1_err,
@@ -1386,23 +1601,41 @@ def multihost_phase(dev, P=P_MAIN, D=D_MAIN, chunk=MH_CHUNK,
             "resume_s": resume_s}
 
 
-def _fedavg_cohort(dev, model, params, data, P, steps, lr):
-    """Each of ``P`` participants trains ``params`` (a dict of ``model``'s
-    tensors, the rest of the module frozen) ``steps`` SGD steps (learning
-    rate ``lr``) at batch
-    ``FEDAVG_BATCH`` from its shard of ``data`` through ``LocalTrainer`` on
-    ``dev``, from the same global params. Returns the [P, d] float64 cohort
-    on ``dev``, the global vector, its ``unravel``, each participant's
-    ``local_fit`` time (ms) and the cohort's training wall (s)."""
+def _fedavg_batches(data, P, steps):
+    """ix -> participant ix's [steps, batch] local batches (numpy) from its
+    shard of ``data`` cut in ``P`` shards: ``run_fl``'s draw, (seed, 0x7A,
+    round, participant)."""
+    import numpy as np
+
+    from sda_tpu_torch.fl.data import shard_dataset
+
+    shards = shard_dataset(data[0], data[1], P, seed=0)
+
+    def batches(ix):
+        shard_x, shard_y = shards[ix]
+        idx = np.random.default_rng([0, 0x7A, 0, ix]).integers(
+            0, len(shard_x), size=(steps, min(FEDAVG_BATCH, len(shard_x))))
+        return shard_x[idx], shard_y[idx]
+
+    return batches
+
+
+def _fedavg_cohort(dev, model, params, data, P, steps, lr, only=None):
+    """Each of ``P`` participants (or those of ``only``, ids below ``P``)
+    trains ``params`` (a dict of ``model``'s tensors, the rest of the
+    module frozen) ``steps`` SGD steps (learning rate ``lr``) at batch
+    ``FEDAVG_BATCH`` from its shard of ``data`` (``data`` cut in ``P``
+    shards) through ``LocalTrainer`` on ``dev``, from the same global
+    params. Returns the [P, d] float64 cohort on ``dev``, the global
+    vector, its ``unravel``, each participant's ``local_fit`` time (ms),
+    the cohort's training wall (s) and each one's mean loss."""
     import numpy as np
     import torch
     import torch.nn.functional as F
 
-    from sda_tpu_torch.fl.data import shard_dataset
     from sda_tpu_torch.models import LocalTrainer, ravel_pytree, sgd
 
-    train_x, train_y = data[:2]
-    shards = shard_dataset(train_x, train_y, P, seed=0)
+    batches = _fedavg_batches(data, P, steps)
 
     def loss_fn(p, batch):
         x, y = batch
@@ -1411,27 +1644,24 @@ def _fedavg_cohort(dev, model, params, data, P, steps, lr):
 
     trainer = LocalTrainer(loss_fn, sgd(lr), device=dev)
     gvec, unravel = ravel_pytree(params)
-    cohort = torch.empty((P, gvec.numel()), dtype=torch.float64,
+    ids = range(P) if only is None else only
+    cohort = torch.empty((len(ids), gvec.numel()), dtype=torch.float64,
                          device=dev)
 
     def fit(ix):
-        shard_x, shard_y = shards[ix]
-        # run_fl's batch draw: (seed, 0x7A, round, device)
-        idx = np.random.default_rng([0, 0x7A, 0, ix]).integers(
-            0, len(shard_x), size=(steps, min(FEDAVG_BATCH, len(shard_x))))
-        batches = (torch.as_tensor(shard_x[idx], device=dev),
-                   torch.as_tensor(shard_y[idx], device=dev))
-        out, _, loss = trainer.fit(unravel(gvec), (), batches)
+        xs, ys = batches(ix)
+        out, _, loss = trainer.fit(unravel(gvec), (), (
+            torch.as_tensor(xs, device=dev), torch.as_tensor(ys, device=dev)))
         return ravel_pytree(out)[0], float(loss)
 
     fit(0)  # warm: cuDNN's first calls, the allocator
     _sync(dev)
     times, losses = [], []
     t0 = time.perf_counter()
-    for ix in range(P):
+    for row, ix in enumerate(ids):
         t1 = time.perf_counter()
         vec, loss = fit(ix)
-        cohort[ix] = vec
+        cohort[row] = vec
         _sync(dev)
         times.append((time.perf_counter() - t1) * 1e3)
         losses.append(loss)
@@ -1440,6 +1670,138 @@ def _fedavg_cohort(dev, model, params, data, P, steps, lr):
     _check(bool(torch.isfinite(cohort).all()), "a trained vector is not "
            "finite")
     return cohort, gvec, unravel, times, wall, losses
+
+
+def _precision_turns(fn, turns=PRECISION_TURNS):
+    """``fn()`` with cuDNN's TF32 off (``models.precision``'s stated
+    setting) and on (torch's default), in turns, each first in turn:
+    {"float32": [results], "tf32": [results]}."""
+    from sda_tpu_torch.models import precision
+
+    out = {"float32": [], "tf32": []}
+    for i in range(turns):
+        for tf32 in ((False, True) if i % 2 == 0 else (True, False)):
+            precision.CUDNN_TF32 = tf32
+            try:
+                out["tf32" if tf32 else "float32"].append(fn())
+            finally:
+                precision.CUDNN_TF32 = False
+    return out
+
+
+def _mobilelite_precision(dev, model, params, data, P, kw, ids=(0, 1),
+                          steps=2):
+    """Phase 21: MobileLite's float32 training on ``dev`` against this
+    machine's CPU from the same weights and batches. For participants
+    ``ids``, ``steps`` SGD steps through ``LocalTrainer`` one at a time
+    (their first batches of phase 21's draw): each step's loss is held
+    within ``MOBILELITE_LOSS_TOL`` of the CPU's in the stated float32
+    setting, and recorded with cuDNN's TF32 on beside it. A step at a
+    time, because phase 21's 4-step mean losses part chaotically where a
+    participant's SGD diverges (participant 1 by 3.1e-3, participant 0 by
+    1e-5, in float32 on the card). Also the TF32 flags the scope sets, and
+    participant 0's ``local_fit`` with TF32 off and on, in turns. Returns
+    the record."""
+    import torch
+    import torch.nn.functional as F
+
+    from sda_tpu_torch.models import LocalTrainer, MobileLite, precision, sgd
+
+    lr = FEDAVG_LR["mobilelite"]
+    cpu = torch.device("cpu")
+    cpu_model = MobileLite(device=cpu, generator=torch.Generator(
+        ).manual_seed(0), **(kw or {}))
+    cpu_params = {k: v.detach() for k, v in cpu_model.state_dict().items()}
+    _check(all(torch.equal(cpu_params[k], v.cpu()) for k, v in params.items()),
+           "MobileLite: the CPU's initial weights are not the card's")
+    batches = _fedavg_batches(data, P, FEDAVG_STEPS["mobilelite"])
+
+    def step_losses(device, mdl, prm):
+        def loss_fn(p, batch):
+            x, y = batch
+            return F.cross_entropy(torch.func.functional_call(mdl, p, (x,)),
+                                   y.long())
+
+        trainer = LocalTrainer(loss_fn, sgd(lr), device=device)
+        out = []
+        for ix in ids:
+            xs, ys = batches(ix)
+            p_ = prm
+            for k in range(steps):
+                p_, _, loss = trainer.fit(p_, (), (
+                    torch.as_tensor(xs[k:k + 1], device=device),
+                    torch.as_tensor(ys[k:k + 1], device=device)))
+                out.append(float(loss))
+        return out
+
+    t0 = time.perf_counter()
+    want = step_losses(cpu, cpu_model, cpu_params)
+    cpu_s = time.perf_counter() - t0
+    runs = _precision_turns(lambda: step_losses(dev, model, params), 1)
+    diff = {k: max(abs(a - b) for a, b in zip(v[0], want))
+            for k, v in runs.items()}
+    _check(diff["float32"] <= MOBILELITE_LOSS_TOL,
+           f"MobileLite step losses on {dev} {runs['float32'][0]} vs the "
+           f"CPU's {want}: |diff| {diff['float32']} > {MOBILELITE_LOSS_TOL}")
+    cudnn = torch.backends.cudnn
+    with precision.float32_scope():
+        matmul = torch.backends.cuda.matmul
+        flags = {"cudnn.allow_tf32": cudnn.allow_tf32,
+                 "cuda.matmul.allow_tf32": matmul.allow_tf32,
+                 "cudnn.conv.fp32_precision": str(getattr(getattr(
+                     cudnn, "conv", None), "fp32_precision", None))}
+    fit = _precision_turns(lambda: _fedavg_cohort(
+        dev, model, params, data, P, FEDAVG_STEPS["mobilelite"], lr,
+        only=(0,))[3][0])
+    ab = {k: statistics.median(v) for k, v in fit.items()}
+    print(f"  MobileLite, {steps} single SGD steps of participants "
+          f"{list(ids)}: losses on {dev} within {diff['float32']:.3g} of the "
+          f"CPU's in float32 (tolerance {MOBILELITE_LOSS_TOL}; with cuDNN "
+          f"TF32 {diff['tf32']:.3g}; CPU {cpu_s:.1f} s); in the scope "
+          f"{flags}; local_fit median of {PRECISION_TURNS}: float32 "
+          f"{ab['float32']:.2f} ms, cuDNN TF32 {ab['tf32']:.2f} ms")
+    return {"cpu_losses": want, "float32_losses": runs["float32"][0],
+            "tf32_losses": runs["tf32"][0], "max_abs_diff": diff,
+            "tolerance": MOBILELITE_LOSS_TOL, "flags_in_scope": flags,
+            "local_fit_ms": fit, "local_fit_ms_median": ab}
+
+
+def _lenet_precision(dev, losses):
+    """Phase 25: ``fedavg_lenet``'s losses on ``dev`` (``losses``, its run
+    in the stated float32 setting) against the same run on this machine's
+    CPU, held within ``LENET_LOSS_TOL``; and its run on ``dev`` with
+    cuDNN's TF32 on and off once more, in turns, beside them (torch's
+    default, which the port ran with before it stated one). Returns the
+    record."""
+    import torch
+
+    from sda_tpu_torch.examples import fedavg_lenet
+
+    cpu = fedavg_lenet.run(torch.device("cpu"))["losses"]
+    diff = max(abs(a - b) for a, b in zip(losses, cpu))
+    _check(diff <= LENET_LOSS_TOL,
+           f"fedavg_lenet: losses on {dev} {losses} vs the CPU's {cpu}: "
+           f"|diff| {diff} > {LENET_LOSS_TOL}")
+
+    def timed():
+        t0 = time.perf_counter()
+        run = fedavg_lenet.run(dev)["losses"]
+        return run, time.perf_counter() - t0
+
+    turns = _precision_turns(timed, 1)
+    rec = {"cpu": cpu, "float32": losses, "max_abs_diff": diff,
+           "tolerance": LENET_LOSS_TOL}
+    for k, ((run, wall),) in turns.items():
+        rec[f"{k}_again"] = run
+        rec[f"{k}_wall_s"] = wall
+        rec[f"{k}_max_abs_diff"] = max(abs(a - b) for a, b in zip(run, cpu))
+    print(f"  fedavg_lenet: losses on {dev} in float32 within {diff:.3g} of "
+          f"the CPU's {[round(v, 7) for v in cpu]} (tolerance "
+          f"{LENET_LOSS_TOL}); once more, float32 within "
+          f"{rec['float32_max_abs_diff']:.3g} ({rec['float32_wall_s']:.2f} s),"
+          f" cuDNN TF32 within {rec['tf32_max_abs_diff']:.3g} "
+          f"({rec['tf32_wall_s']:.2f} s)")
+    return rec
 
 
 def _sync(dev):
@@ -1573,6 +1935,8 @@ def fedavg_phase(dev, P=P_FEDAVG, mobilelite_kw=None, lora_kw=None,
           f"{FEDAVG_STEPS['mobilelite']} steps, local_fit median "
           f"{statistics.median(fit_ms):.1f} ms, cohort {fit_wall:.2f} s, "
           f"mean loss {statistics.mean(mob_losses):.4f}")
+    mob_precision = _mobilelite_precision(dev, mob, mob_params, data, P,
+                                          mobilelite_kw)
     meshes = {"1x1": make_mesh(1, 1, devices=[dev]),
               "4x2": make_mesh(4, 2, devices=[dev] * 8)}
     pods = {name: SimulatedPod(scheme, full, mesh=mesh, use_pallas=True)
@@ -1695,7 +2059,8 @@ def fedavg_phase(dev, P=P_FEDAVG, mobilelite_kw=None, lora_kw=None,
                            "local_fit_ms_median": statistics.median(fit_ms),
                            "training_wall_s": fit_wall,
                            "mean_loss": statistics.mean(mob_losses),
-                           "eval_accuracy": accuracy},
+                           "eval_accuracy": accuracy,
+                           "precision": mob_precision},
             "lora": {"dim": d_lora, "steps": FEDAVG_STEPS["lora"],
                      "lr": FEDAVG_LR["lora"],
                      "local_fit_ms_median": statistics.median(lora_ms),
@@ -1895,8 +2260,9 @@ def sim_phase(dev, smi="", P=P_MAIN, D=D_MAIN, chunk=SIM_CHUNK,
             "columns_unmasked"] == tiles,
             f"sim streamed: K1 {n['k1_by_instance']}, want {tiles} on "
             "columns_unmasked")
-        _check(n["k3_by_op"]["expand"] == tiles,
-               f"sim streamed: K3 {n['k3_by_op']}, want {tiles} windows")
+        _check(n["k3_by_op"]["mask"] == tiles and
+               n["k3_by_op"]["expand"] == 0,
+               f"sim streamed: K3 {n['k3_by_op']}, want {tiles} mask ops")
     # (c) the quorum reveal
     rec, n = run("quorum", [*base, "--drop-clerks", "6", *pallas])
     _check(rec["dropped_clerks"] == [6], f"sim quorum: {rec}")
@@ -2048,7 +2414,7 @@ def sim_phase(dev, smi="", P=P_MAIN, D=D_MAIN, chunk=SIM_CHUNK,
     print(f"  sim (g), (h): the runs and their holds in {gh_s:.1f} s")
     del inputs
     k3_err = max(_k3_window("sim streamed", dev, 0, p0, min(rows, P - p0),
-                            0, width, p)
+                            0, width, p, out_dtype=torch.int32)
                  for p0 in sorted({0, (P - 1) // rows * rows}))
     # (d) the worker's last shard of the (8, 1) mesh: rank 0's rows
     # (default_rng(1000)), padded to 8 row shards, and its padding rows
@@ -2695,7 +3061,8 @@ def protocol_round(dev, P, D, seed=0, masking=None):
         ops = collections.Counter(op for op, _, _ in k3_calls.calls)
         _check(dev.type != "cuda" or (
             ops["expand"] >= P and ops["combine"] == 1 and k3_launches
-            == {"blocks": 0, "expand": ops["expand"], "combine": 1}),
+            == {"blocks": 0, "expand": ops["expand"], "combine": 1,
+                "mask": 0}),
             f"protocol round (ChaCha): K3 calls {dict(ops)}, launches "
             f"{k3_launches}")
         # the first participant's expand and the recipient's combine
@@ -3974,7 +4341,7 @@ def examples_phase(dev, smi=""):
             _check(k1.launches == 0, f"{name}: K1 launched {k1.launches}")
             one = int(name == "embedded_participant")
             _check(not on_card or launches == {
-                "blocks": 0, "expand": one, "combine": one},
+                "blocks": 0, "expand": one, "combine": one, "mask": 0},
                 f"{name}: K3 launches {launches}")
             kept, err = _example_checks(name, rec, k3_calls, dev)
             calls = {op: dict(c) for op, c in counts.calls.items() if c}
@@ -3986,6 +4353,8 @@ def examples_phase(dev, smi=""):
             records[name] = {"wall_s": wall, "device_calls": calls,
                              "k3_launches": launches, **kept}
             print(f"  examples {name} in process: {wall:.2f} s ({smi})")
+        records["fedavg_lenet"]["precision"] = _lenet_precision(
+            dev, records["fedavg_lenet"]["losses"])
         wall_a = time.perf_counter() - t_a
         outs = {name: fut.result() for name, fut in procs.items()}
     wall_b = max(o[3] for o in outs.values())
@@ -4005,6 +4374,40 @@ def examples_phase(dev, smi=""):
             "in_process_s": wall_a, "processes_s": wall_b,
             "k3_launches": k3_total, "k3_max_abs_err": k3_err,
             "device": str(dev)}
+
+
+def _k3_record(k3_rec, rec13, rec15, k3_launches, k3_err):
+    """K3's entries of the script's kernel line, one an operation: its
+    phase 12 times and bound (``k3_rec``, from ``chacha_kernels``), its
+    launches on the path that runs it (the streamed round's mask ops in
+    ``rec15``, the ChaCha role crypto's expands and combine in ``rec13``),
+    K3's launches by phase and max |error| over every hold."""
+    ops = k3_rec["ops"]
+    rows = (
+        ("chacha_mask", "mask", "sda_tpu/mesh/simpod.py:214",
+         rec15["k3_launches"]["mask"],
+         {"launches_of": "the streamed round (phase 15)",
+          "int64_out": ops["mask_int64"]}),
+        ("chacha_expand", "expand", "sda_tpu/fields/chacha_jax.py:78",
+         rec13["k3_launches"]["expand"],
+         {"launches_of": "the ChaCha role crypto (phase 13)"}),
+        ("combine_masks", "combine", "sda_tpu/fields/chacha_jax.py:170",
+         rec13["k3_launches"]["combine"],
+         {"launches_of": "the ChaCha role crypto (phase 13)",
+          "launches_by_phase": k3_launches,
+          **{key: ops["combine"][key] for key in (
+              f"ms_s{S_BIG}", f"bound_ms_s{S_BIG}", "host_ms")}}),
+        ("chacha_blocks", "blocks", "sda_tpu/fields/chacha_jax.py:51", 0,
+         {"launches_of": "no path"}))
+    return [{"name": name, "route": "cuda",
+             "source": "sda_tpu_torch/fields/csrc/chacha.cu",
+             "replaces": replaces, "launches": launches,
+             "max_abs_err": k3_err,
+             **{key: ops[op][key] for key in (
+                 "ms", "plain_ms", "bound_ms", "bound_by", "share", "shape",
+                 "ptxas", "seed_loop")},
+             "library_ms": None, **extra}
+            for name, op, replaces, launches, extra in rows]
 
 
 def main() -> int:
@@ -4593,6 +4996,13 @@ def main() -> int:
           f"{time.perf_counter() - t_script:.1f} s")
 
     # -- 8. the record ------------------------------------------------------
+    k3_err = max(k3_rec["max_abs_err"], rec10b["k3_max_abs_err"],
+                 rec14["k3_window_max_abs_err"],
+                 rec15["k3_window_max_abs_err"],
+                 rec18["k3_window_max_abs_err"],
+                 rec22["k3_window_max_abs_err"],
+                 rec22["k3_drills_max_abs_err"], rec23["k3_max_abs_err"],
+                 rec25["k3_max_abs_err"])
     print(smi)
     print(json.dumps({"kernels": [{
         "name": "fused_mask_share_combine",
@@ -4643,32 +5053,7 @@ def main() -> int:
         "library_ms": lib_ms,
         "library_of": "fold_only",
         "variants": k5,
-    }, {
-        "name": "combine_masks",
-        "route": "cuda",
-        "source": "sda_tpu_torch/fields/csrc/chacha.cu",
-        "replaces": "sda_tpu/fields/chacha_jax.py:170",
-        "launches": sum(k3_launches.values()),
-        "launches_by_phase": k3_launches,
-        "max_abs_err": max(k3_rec["max_abs_err"],
-                           rec10b["k3_max_abs_err"],
-                           rec14["k3_window_max_abs_err"],
-                           rec15["k3_window_max_abs_err"],
-                           rec18["k3_window_max_abs_err"],
-                           rec22["k3_window_max_abs_err"],
-                           rec22["k3_drills_max_abs_err"],
-                           rec23["k3_max_abs_err"],
-                           rec25["k3_max_abs_err"]),
-        "ms": k3_rec["ms"],
-        "plain_ms": k3_rec["plain_ms"],
-        "bound_ms": k3_rec["bound_ms"],
-        "bound_by": k3_rec["bound_by"],
-        "library_ms": None,
-        "ms_of": f"combine, S={S_COMBINE} x d={D_CHACHA}",
-        f"ms_s{S_BIG}": k3_rec["ms_s_big"],
-        f"bound_ms_s{S_BIG}": k3_rec["bound_ms_s_big"],
-        "host_ms": k3_rec["host_ms"],
-    }, {
+    }, *_k3_record(k3_rec, rec13, rec15, k3_launches, k3_err), {
         "name": "premix",
         "route": "cuda",
         "source": "sda_tpu_torch/fields/csrc/montgomery.cu",

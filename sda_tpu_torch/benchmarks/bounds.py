@@ -1,6 +1,6 @@
 """The least time an H100 could take for the work of K1, K3 and K4,
-counted from the algorithm and the bytes: shared by ``chip_smoke.py`` and
-``k1_ab``."""
+counted from the algorithm and the bytes: shared by ``chip_smoke.py``,
+``k1_ab``, ``k3_ab`` and ``k4_ab``."""
 
 from __future__ import annotations
 
@@ -102,50 +102,65 @@ def k1_bound(P, B, k, draws, do_x, out_rows, muls=MULS, xors=XORS,
 #: wide multiplies and 4 carry adds, q*m's low half 3 multiplies, v - q*m 2
 #: subtracts, two conditional subtracts a 64-bit compare and subtract each,
 #: 8), the zone test (a 64-bit compare and an or, 3) and, in the combine,
-#: the accumulate mod m (a 64-bit add, compare and subtract, 6).
+#: the accumulate mod m (a 64-bit add, compare and subtract, 6); the mask
+#: op adds the draw to x mod m and accumulates it (6 each).
 CHACHA_ALU_OPS = 640
 CHACHA_EITHER_OPS = 320 + 16
 DRAW_MULS = 7
 DRAW_EITHER_OPS = 4 + 2 + 8 + 3
 DRAW_ACCUMULATE_OPS = 6
+#: K3's operations, and the accumulates mod m each does a draw (``blocks``
+#: makes keystream words and draws nothing)
+K3_ACCUMULATES = {"blocks": 0, "expand": 0, "combine": 1, "mask": 2}
 
 
-def _k3_ops(seeds: int, dimension: int, combine: bool):
-    """(blocks, ALU-pipe-only, FMA-pipe-only, all) operations of K3's work
-    on ``seeds`` streams of ``dimension`` draws."""
+def _k3_ops(seeds: int, dimension: int, op: str):
+    """(blocks, ALU-pipe-only, FMA-pipe-only, all) operations of K3's
+    ``op`` on ``seeds`` streams of ``dimension`` draws (``blocks``: one
+    key's dimension / 8 blocks)."""
     blocks = seeds * -(-dimension // 8)
-    draws = seeds * dimension
+    draws = 0 if op == "blocks" else seeds * dimension
     alu = blocks * CHACHA_ALU_OPS
     fma = draws * DRAW_MULS
     total = (alu + fma + blocks * CHACHA_EITHER_OPS
              + draws * (DRAW_EITHER_OPS
-                        + (DRAW_ACCUMULATE_OPS if combine else 0)))
+                        + K3_ACCUMULATES[op] * DRAW_ACCUMULATE_OPS))
     return blocks, alu, fma, total
 
 
-def k3_pipe_ops(seeds: int, dimension: int, combine: bool) -> int:
-    """K3's operations on its busier pipe: the ALU-only or FMA-only work,
-    or half of all work where the either-pipe operations fill both (the
-    issue rate is two pipes' rate)."""
-    _, alu, fma, total = _k3_ops(seeds, dimension, combine)
+def k3_pipe_ops(seeds: int, dimension: int, op: str) -> int:
+    """K3's operations on its busier pipe for ``op`` (``expand``,
+    ``combine`` or ``mask``): the ALU-only or FMA-only work, or half of all
+    work where the either-pipe operations fill both (the issue rate is two
+    pipes' rate)."""
+    _, alu, fma, total = _k3_ops(seeds, dimension, op)
     return max(alu, fma, -(-total // 2))
 
 
-def k3_bound(seeds: int, dimension: int, combine: bool):
-    """Least time (ms) the card could take for K3's work on ``seeds``
-    streams of ``dimension`` draws (``combine``: summed into one [d] row;
-    else each written), and what bounds it: the larger of its bytes (8
-    key words a seed read once, int64 residues written once) at the memory
-    rate and its integer operations, ALU-pipe work at one pipe's rate and
-    all work at the issue rate. Returns (bound_ms, bound_by, detail)."""
-    blocks, alu, _, total = _k3_ops(seeds, dimension, combine)
-    ops_ms = k3_pipe_ops(seeds, dimension, combine) / PIPE_OPS_PER_S * 1e3
-    bytes_moved = seeds * 8 * 4 + (dimension if combine
-                                   else seeds * dimension) * 8
+def k3_bound(seeds: int, dimension: int, op: str, out_itemsize: int = 8):
+    """Least time (ms) the card could take for K3's ``op`` on ``seeds``
+    streams of ``dimension`` draws, and what bounds it: the larger of its
+    bytes at the memory rate and its integer operations, ALU-pipe work at
+    one pipe's rate and all work at the issue rate. Bytes: 8 key words a
+    seed read once, and ``blocks``: 16 words a block written; ``expand``:
+    the [S, d] int64 residues written; ``combine``: the [d] int64 sum
+    written; ``mask``: x [S, d] int64 read, the masked [S, d] written at
+    ``out_itemsize`` bytes and the [d] int64 sum written. Returns
+    (bound_ms, bound_by, detail)."""
+    if op not in K3_ACCUMULATES:
+        raise ValueError(f"unknown K3 operation {op!r}")
+    blocks, alu, _, total = _k3_ops(seeds, dimension, op)
+    ops_ms = k3_pipe_ops(seeds, dimension, op) / PIPE_OPS_PER_S * 1e3
+    elements = seeds * dimension
+    bytes_moved = seeds * 8 * 4 + {
+        "blocks": blocks * 16 * 4,
+        "expand": elements * 8,
+        "combine": dimension * 8,
+        "mask": elements * (8 + out_itemsize) + dimension * 8}[op]
     bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
     detail = (f"{bytes_moved} bytes -> {bytes_ms:.4f} ms; {blocks} blocks, "
               f"{total:.0f} integer ops ({alu:.0f} ALU-pipe only, "
-              f"{total / blocks:.0f} a block) -> {ops_ms:.4f} ms")
+              f"{total / max(1, blocks):.0f} a block) -> {ops_ms:.4f} ms")
     return (max(bytes_ms, ops_ms),
             "operations" if ops_ms >= bytes_ms else "bytes", detail)
 

@@ -12,6 +12,10 @@ Hopper (``csrc/chacha.cu``, built by ``_build``). This module holds
   ``stream_residues_at`` (``stream_u64_at`` with the reduction mod m of
   ``FieldOps.from_u64`` fused in: torch has no uint64 arithmetic, so the
   window comes back as canonical int64 residues);
+- ``mask_residues_at``: the ChaCha branch of the JAX package's
+  ``mesh/simpod.py::_mask_stage`` (``stream_u64_at`` -> ``from_u64`` ->
+  ``add`` and ``sum``, one fused XLA pass there) as one fused kernel pass:
+  the masked rows and the mask sum, with no [S, d] mask tensor;
 - ``chacha_kernel``: the wrapper of the C entries. For a CUDA tensor it
   launches the kernel on the current stream (and raises on a launch
   error); for a CPU tensor it runs the plain version. It counts its
@@ -48,7 +52,10 @@ _CONSTANTS = tuple(int(c) for c in chacha._CONSTANTS)
 #: blocks the plain version expands at once (its working set is ~40
 #: int64 words a block)
 _PLAIN_BLOCKS = 1 << 20
-OPS = ("blocks", "expand", "combine")
+OPS = ("blocks", "expand", "combine", "mask")
+#: the C entries' codes of the operations that chunk their seeds
+#: (``sda_chacha_chunks``): the mask op's by its output width
+_CHUNK_OPS = {"expand": 0, "combine": 1, "mask32": 2, "mask64": 3}
 
 
 def _check_modulus(modulus: int) -> None:
@@ -170,6 +177,17 @@ def expand_plain(seed_words, counter0: int, dimension: int, modulus: int,
                         _hi_first(prg), _zone(prg, modulus))
 
 
+def mask_plain(seed_words, counter0: int, x, modulus: int, out_dtype):
+    """The kernel's ``mask`` in plain torch: ([S, d] ``(x + w) mod m`` as
+    ``out_dtype``, [d] int64 ``sum_s w mod m``) for canonical int64
+    residues ``x`` and ``w`` the CHACHA_PRG_V1 windows of the S seeds from
+    block ``counter0``: ``expand_plain`` -> mod add -> mod sum."""
+    masks, _ = _draws_plain(seed_words, counter0, x.shape[1], modulus, False)
+    masked = x + masks
+    masked = torch.where(masked >= modulus, masked - modulus, masked)
+    return masked.to(out_dtype), modsum(masks, modulus, axis=0)
+
+
 def combine_plain(seed_words, dimension: int, modulus: int, prg: str):
     """The kernel's ``combine`` in plain torch: ([dimension] int64 sum mod
     m of the S masks without rejection, [S] bool rejected)."""
@@ -202,16 +220,45 @@ def _library() -> ctypes.CDLL:
     lib.sda_chacha_expand.argtypes = [ptr, i32, u32, i64, u64, u64, u64, i32,
                                       ptr, ptr, ptr]
     lib.sda_chacha_combine.argtypes = [ptr, i32, i64, u64, u64, u64, i32, ptr,
-                                       ptr, ptr]
+                                       ptr, i32, ptr, ptr]
+    lib.sda_chacha_mask.argtypes = [ptr, i32, u32, i64, u64, u64, ptr, i64,
+                                    i32, ptr, ptr, i32, ptr, ptr]
+    lib.sda_chacha_chunks.argtypes = [i32, i32, i64, u64, ptr]
     for fn in (lib.sda_chacha_blocks, lib.sda_chacha_expand,
-               lib.sda_chacha_combine):
+               lib.sda_chacha_combine, lib.sda_chacha_mask,
+               lib.sda_chacha_chunks):
         fn.restype = ctypes.c_int
     return lib
 
 
+def _chunks(lib, op: str, S: int, d: int, modulus: int) -> int:
+    """The chunks of seeds the kernel splits ``op`` into on the current
+    device (``sda_chacha_chunks``: enough to fill the card a few waves
+    over); their partial sums need a [chunks - 1, d] int64 scratch."""
+    out = ctypes.c_int()
+    err = lib.sda_chacha_chunks(_CHUNK_OPS[op], S, d, modulus,
+                                ctypes.byref(out))
+    if err != 0:
+        raise RuntimeError(f"K3 {op} plan failed: CUDA error {err}")
+    return out.value
+
+
+def _scratch(chunks: int, d: int, dev):
+    """[chunks - 1, d] int64 partial sums, or None for one chunk."""
+    if chunks < 2:
+        return None
+    return torch.empty((chunks - 1, d), dtype=torch.int64, device=dev)
+
+
+def _ptr(t):
+    """A tensor's address for ctypes, or None (a null pointer)."""
+    return None if t is None else t.data_ptr()
+
+
 def _u32_storage(words):
     """int64 words in [0, 2^32) -> contiguous int32 tensor of the same
-    bits, the kernel's uint32 input."""
+    bits, the kernel's uint32 input (a fresh allocation: 16-byte aligned,
+    as the kernels' key loads need)."""
     return torch.where(words >= 1 << 31, words - (1 << 32),
                        words).to(torch.int32).contiguous()
 
@@ -224,9 +271,31 @@ def _check_seed_words(seed_words):
         raise ValueError("too many seeds for one launch")
 
 
+def _check_mask_args(seed_words, x, modulus: int, prg: str, out_dtype):
+    if x is None:
+        raise ValueError("the mask op needs x")
+    if x.dim() != 2 or x.shape[0] != seed_words.shape[0]:
+        raise ValueError(f"x must be [S, d] with S = {seed_words.shape[0]}, "
+                         f"got {tuple(x.shape)}")
+    if x.dtype != torch.int64:
+        raise ValueError(f"x must hold int64 residues, got {x.dtype}")
+    if x.device != seed_words.device:
+        raise ValueError(f"x on {x.device}, seeds on {seed_words.device}")
+    if x.shape[1] % 8:
+        raise ValueError(
+            "dimension must be a multiple of 8 (one ChaCha block)")
+    if out_dtype not in (torch.int32, torch.int64):
+        raise ValueError(f"out_dtype must be int32 or int64, got {out_dtype}")
+    if out_dtype == torch.int32 and modulus >= 1 << 31:
+        raise ValueError("int32 out needs a modulus below 2^31")
+    if prg != chacha.CHACHA_PRG_V1:
+        raise ValueError("the mask op takes the CHACHA_PRG_V1 window")
+
+
 def chacha_kernel(op: str, seed_words, *, counter0: int = 0,
                   dimension: int = 0, nblocks: int = 0, modulus: int = 1,
-                  prg: str = chacha.CHACHA_PRG_V1, flags: bool = True):
+                  prg: str = chacha.CHACHA_PRG_V1, flags: bool = True,
+                  x=None, out_dtype=None):
     """One K3 call on ``seed_words`` ([S, 8] int64 words in [0, 2^32); for
     ``blocks``, S = 1) on their device:
 
@@ -235,7 +304,12 @@ def chacha_kernel(op: str, seed_words, *, counter0: int = 0,
       ``prg`` streams from block ``counter0``, [S] bool rejected, or None
       without ``flags``);
     - ``combine``: ([dimension] sum mod ``modulus`` of the S masks from
-      block 0, [S] bool rejected).
+      block 0, [S] bool rejected);
+    - ``mask``: for ``x`` [S, d] canonical int64 residues mod ``modulus``
+      (d a multiple of 8), ([S, d] ``(x + w) mod m`` as ``out_dtype``,
+      int32 only for m < 2^31, or int64 (None); [d] int64 ``sum_s w mod
+      m``), w the CHACHA_PRG_V1 windows from block ``counter0`` without
+      rejection.
 
     A CUDA tensor launches the kernel (a launch error raises); a CPU tensor
     runs the plain version.
@@ -249,6 +323,9 @@ def chacha_kernel(op: str, seed_words, *, counter0: int = 0,
     if op != "blocks":
         _check_modulus(modulus)
         _check_prg(prg)
+    if op == "mask":
+        out_dtype = torch.int64 if out_dtype is None else out_dtype
+        _check_mask_args(seed_words, x, modulus, prg, out_dtype)
     if dev.type == "cpu":
         if op == "blocks":
             return block_words_plain(seed_words[:1], counter0, nblocks)[0]
@@ -256,6 +333,8 @@ def chacha_kernel(op: str, seed_words, *, counter0: int = 0,
             masks, rej = expand_plain(seed_words, counter0, dimension,
                                       modulus, prg)
             return masks, (rej if flags else None)
+        if op == "mask":
+            return mask_plain(seed_words, counter0, x, modulus, out_dtype)
         return combine_plain(seed_words, dimension, modulus, prg)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
@@ -274,6 +353,9 @@ def chacha_kernel(op: str, seed_words, *, counter0: int = 0,
                                         counter0, nblocks,
                                         out.data_ptr(), stream)
             result = out.to(torch.int64) & _MASK32
+        elif op == "mask":
+            err, result = _launch_mask(lib, keys, S, counter0, x, modulus,
+                                       out_dtype, dev, stream)
         else:
             mu, zone = _U64_MAX // modulus, _zone(prg, modulus)
             rej = torch.zeros(S, dtype=torch.int32, device=dev)
@@ -286,16 +368,40 @@ def chacha_kernel(op: str, seed_words, *, counter0: int = 0,
                     rej.data_ptr() if flags else None, stream)
             else:
                 out = torch.empty(dimension, dtype=torch.int64, device=dev)
+                chunks = _chunks(lib, op, S, dimension, modulus)
+                partials = _scratch(chunks, dimension, dev)
                 err = lib.sda_chacha_combine(
                     keys.data_ptr(), S, dimension, modulus, mu, zone,
                     int(_hi_first(prg)), out.data_ptr(), rej.data_ptr(),
-                    stream)
+                    chunks, _ptr(partials), stream)
             result = (out, rej.bool() if flags else None)
     if err != 0:
         raise RuntimeError(f"K3 {op} kernel launch failed: CUDA error {err}")
     chacha_kernel.launches += 1
     chacha_kernel.op_launches[op] += 1
     return result
+
+
+def _launch_mask(lib, keys, S: int, counter0: int, x, modulus: int,
+                 out_dtype, dev, stream):
+    """The mask op's C entry on the current stream: (CUDA error code,
+    (masked, mask sum)). ``x`` is read in place when its rows are 16-byte
+    aligned with unit column stride (any contiguous tensor, or rows of
+    one), else copied contiguous first."""
+    d = x.shape[1]
+    if S and (x.stride(1) != 1 or x.stride(0) % 2 or x.stride(0) < d
+              or x.data_ptr() % 16):
+        x = x.contiguous()
+    out = torch.empty((S, d), dtype=out_dtype, device=dev)
+    sums = torch.empty(d, dtype=torch.int64, device=dev)
+    out32 = out_dtype == torch.int32
+    chunks = _chunks(lib, "mask32" if out32 else "mask64", S, d, modulus)
+    partials = _scratch(chunks, d, dev)
+    err = lib.sda_chacha_mask(
+        keys.data_ptr(), S, counter0, d, modulus, _U64_MAX // modulus,
+        x.data_ptr(), x.stride(0) if S else d, int(out32), out.data_ptr(),
+        sums.data_ptr(), chunks, _ptr(partials), stream)
+    return err, (out, sums)
 
 
 chacha_kernel.launches = 0
@@ -348,6 +454,20 @@ def stream_residues_at(seed_words, counter0, *, dimension: int,
                              dimension=dimension, modulus=modulus,
                              prg=chacha.CHACHA_PRG_V1, flags=False)
     return masks
+
+
+def mask_residues_at(seed_words, counter0, x, *, modulus: int,
+                     out_dtype=None):
+    """The ChaCha mask stage in one K3 pass: [S, 8] seed words and [S, d]
+    canonical int64 residues ``x`` (``d % 8 == 0``) -> ([S, d] ``(x + w)
+    mod modulus`` as ``out_dtype``, int64 when None; [d] int64 ``sum_s w
+    mod modulus``) on the seeds' device, w the CHACHA_PRG_V1 window of
+    each seed from block ``counter0`` (``stream_residues_at``'s, without
+    rejection). Equals the JAX package's ``f.add(x,
+    f.from_u64(stream_u64_at(...)))`` and ``f.sum`` of the masks; no [S,
+    d] mask tensor exists."""
+    return chacha_kernel("mask", seed_words, counter0=counter0,
+                         modulus=modulus, x=x, out_dtype=out_dtype)
 
 
 def combine_masks(seeds, dimension: int, modulus: int, *, prg: str,

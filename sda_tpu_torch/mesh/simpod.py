@@ -3,10 +3,11 @@
 
 One round is mask -> share -> clerk combine -> reconstruct -> unmask. The
 stages below are plain torch on int64 residues (the Solinas or generic lane
-of ``fields.ops.FieldOps``), but for ChaCha seed masks, which K3 expands
-(``fields.chacha_device``) at each shard's offset in every participant's
-stream; with ``use_pallas=True`` a shard's mask, share and combine run on
-K1, the fused CUDA kernel (``_pallas_stage``, ``fields.fused_round``).
+of ``fields.ops.FieldOps``), but for ChaCha seed masks, which K3 expands,
+adds and sums in one pass (``fields.chacha_device.mask_residues_at``) at
+each shard's offset in every participant's stream; with
+``use_pallas=True`` a shard's mask, share and combine run on K1, the
+fused CUDA kernel (``_pallas_stage``, ``fields.fused_round``).
 
 ``single_chip_round`` keeps the whole clerk committee on one device.
 ``SimulatedPod`` runs the round over a ``('p', 'd')`` mesh of devices in
@@ -175,31 +176,34 @@ def _chacha_seed_words(round_seed: int, global_ids, seed_bitsize: int):
 # ---------------------------------------------------------------------------
 # Round stages. Every function takes canonical int64 residues.
 
-def _chacha_masks(f: FieldOps, seeds, d_block0: int, d_loc: int):
-    """[S, 8] seed words -> [S, d_loc] residues: the window of each
-    CHACHA_PRG_V1 stream at block ``d_block0`` (= dim offset / 8), by K3."""
-    return chacha_device.stream_residues_at(seeds, d_block0,
-                                            dimension=d_loc, modulus=f.m)
+def _chacha_mask(f: FieldOps, seeds, d_block0: int, x, out_dtype=None):
+    """[S, 8] seed words and [S, d_loc] residues -> (x + masks as
+    ``out_dtype``, int64 when None; the masks' sum [d_loc]), the masks the
+    window of each CHACHA_PRG_V1 stream at block ``d_block0`` (= dim
+    offset / 8): K3's fused mask op, one pass with no [S, d_loc] mask."""
+    return chacha_device.mask_residues_at(seeds, d_block0, x, modulus=f.m,
+                                          out_dtype=out_dtype)
 
 
 def _mask_stage(masking, f: FieldOps, x, generator, *, round_seed=None,
-                pid_base: int = 0, d_block0: int = 0):
+                pid_base: int = 0, d_block0: int = 0, out_dtype=None):
     """-> (masked [S, d_loc], local_mask_sum [d_loc] or None).
 
     Full masks are drawn from ``generator``. ChaCha masks are a function of
     (``round_seed``, global participant id, dim offset): ``pid_base`` is
     the global id of the first row, ``d_block0`` the ChaCha block counter
-    at this tile's dim offset."""
+    at this tile's dim offset; they are added and summed by K3 in one
+    pass, which writes the masked rows as ``out_dtype`` (int64 when None;
+    int32 for a modulus below 2^31)."""
     S, d_loc = x.shape
     if isinstance(masking, FullMasking):
         masks = f.uniform(generator, x.shape)
-    elif isinstance(masking, ChaChaMasking):
+        return f.add(x, masks), f.sum(masks, axis=0)
+    if isinstance(masking, ChaChaMasking):
         gids = pid_base + torch.arange(S, dtype=torch.int64, device=x.device)
         seeds = _chacha_seed_words(round_seed, gids, masking.seed_bitsize)
-        masks = _chacha_masks(f, seeds, d_block0, d_loc)
-    else:
-        return x, None
-    return f.add(x, masks), f.sum(masks, axis=0)
+        return _chacha_mask(f, seeds, d_block0, x, out_dtype)
+    return x, None
 
 
 def _share_sum_stage(scheme, f: FieldOps, M_host, masked, generator):
@@ -279,18 +283,20 @@ def _pallas_stage(scheme, f: FieldOps, M_host, masking, x, seed: int, *,
     the final subtract and the random polynomial rows are annihilated by
     the reconstruction matrix — so K1's Philox draws never change the
     aggregate. ChaCha masking: the masks are the CHACHA_PRG_V1 windows of
-    _mask_stage, applied first; the kernel then runs mask-free on the
-    pre-masked input (the ``columns_unmasked`` instance for the flagship
-    scheme).
+    _mask_stage, applied first by K3's mask op, which writes the masked
+    rows as the int32 words K1 reads (p < 2^29); the kernel then runs
+    mask-free on the pre-masked input (the ``columns_unmasked`` instance
+    for the flagship scheme).
     """
     chacha_mask_sum = None
     if isinstance(masking, ChaChaMasking):
         x, chacha_mask_sum = _mask_stage(
             masking, f, x, None, round_seed=round_seed, pid_base=pid_base,
-            d_block0=d_block0)
+            d_block0=d_block0, out_dtype=torch.int32)
         masking = NoMasking()
     d_loc = x.shape[1]
     masked = isinstance(masking, FullMasking)
+    # no copy for the mask op's int32 rows: a view of them (d % k == 0)
     x_cols = sharing.batch_columns(x.to(torch.int32), scheme.secret_count)
     shares, mask_tot = fused_round.fused_mask_share_combine(
         x_cols, seed, f.sp, M_host, scheme.privacy_threshold, masked)
@@ -613,7 +619,7 @@ def _reveal(scheme, f: FieldOps, L_host, survivors, gathered, mask_total,
 def _fold_ops(pod, rows: int, width: int) -> int:
     """Integer operations of one fold of [rows, width] inputs into their
     participant-summed shares and mask sum (``_fold_stage``), counted from
-    the algorithm: K1's (``bounds.k1_pipe_ops``) and K3's
+    the algorithm: K1's (``bounds.k1_pipe_ops``) and K3's mask op
     (``bounds.k3_pipe_ops``) where they run, and one operation an element
     for each plain-torch modular pass (residues, Full-mask and share-row
     draws, sums, the share contraction's multiply-adds). ``pod``: the
@@ -623,7 +629,7 @@ def _fold_ops(pod, rows: int, width: int) -> int:
     B = width // k
     ops = rows * width                              # residues
     if isinstance(masking, ChaChaMasking):
-        ops += bounds.k3_pipe_ops(rows, width, False) + 2 * rows * width
+        ops += bounds.k3_pipe_ops(rows, width, "mask")  # stream, add, sum
     elif isinstance(masking, FullMasking) and not pod.pallas_active:
         ops += 3 * rows * width                     # draw, add, sum
     if pod.pallas_active:

@@ -23,7 +23,10 @@ across unchanged in value:
 - ``GroupNorm`` uses flax's epsilon, 1e-6;
 - kernels start lecun-normal (a truncated normal of variance 1/fan_in),
   biases zero, GroupNorm scales one, ``lora_a_i`` normal(0.02) and
-  ``lora_b_i`` zero (the adapters start as a no-op).
+  ``lora_b_i`` zero (the adapters start as a no-op);
+- the forward runs in full float32 on any device
+  (``precision.float32_scope``: no TF32 in convolutions or matrix
+  products).
 
 Every builder takes ``device`` (CUDA unless ``"cpu"``; ``"meta"`` builds
 the shapes without drawing anything, for sizing) and ``generator`` (a CPU
@@ -41,6 +44,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..device import resolve_device
+from .precision import float32_scope
 
 __all__ = ["LeNet", "MobileLite", "LoRAMLP", "lora_adapter_params",
            "merge_lora_params", "param_count"]
@@ -149,6 +153,7 @@ class LeNet(nn.Module):
             self.Dense_2 = nn.Linear(84 * w, num_classes)
         _place(self, device, generator)
 
+    @float32_scope()
     def forward(self, x):
         x = F.relu(F.avg_pool2d(self.Conv_0(_nchw(x)), 2))
         x = F.relu(F.avg_pool2d(self.Conv_1(x), 2))
@@ -215,6 +220,7 @@ class MobileLite(nn.Module):
             self.Dense_0 = nn.Linear(40 * w, num_classes)
         _place(self, device, generator)
 
+    @float32_scope()
     def forward(self, x):
         x = F.relu6(self.GroupNorm_0(self.Conv_0(_nchw(x))))
         for block in self.blocks:
@@ -255,6 +261,7 @@ class LoRAMLP(nn.Module):
         for name, param in self.named_parameters():
             param.requires_grad_(name.startswith("lora_"))
 
+    @float32_scope()
     def forward(self, x):
         x = x.reshape(x.shape[0], -1)
         for i in range(self.layers):

@@ -38,6 +38,7 @@ import torch
 from ..device import resolve_device
 from ..protocol import Aggregation, AggregationId
 from .encoding import FixedPointCodec, _tree_leaves, _tree_rebuild
+from .precision import float32_scope
 
 __all__ = ["LocalTrainer", "FederatedSession", "pod_fedavg_round", "sgd"]
 
@@ -82,7 +83,8 @@ class LocalTrainer:
     eagerly on ``device`` (CUDA unless ``"cpu"``); each step's loss is
     taken at its pre-update params, as in the reference's ``lax.scan``,
     and every step builds new tensors, so the caller's params are never
-    changed.
+    changed. The steps run in full float32 (``precision.float32_scope``:
+    no TF32 in cuDNN's convolutions or the matrix products).
     """
 
     def __init__(self, loss_fn: Callable, optimizer, device=None):
@@ -110,7 +112,7 @@ class LocalTrainer:
         losses = []
         for i in range(steps):
             batch = _tree_map(lambda b: b[i], batches)
-            with torch.enable_grad():
+            with torch.enable_grad(), float32_scope():
                 live = [p.requires_grad_(True) for p in
                         (q.detach() for q in leaves)]
                 loss = self.loss_fn(_tree_rebuild(params, iter(live)), batch)

@@ -46,13 +46,15 @@ def _sass(lib_path: Path, cuobjdump: Path) -> str:
                           check=True).stdout
 
 
-def loop_instructions(lib_path: Path, cuobjdump: Path, kernel: str):
+def loop_instructions(lib_path: Path, cuobjdump: Path, kernel: str,
+                      innermost: bool = False):
     """The SASS lines (opcode and operands) of the participant loop of
     ``kernel`` (a substring of its mangled name) in a built library: the
     instructions between a backward branch and its target, for the branch
     whose body holds the most global loads and wide multiplies (the inputs
-    and Philox), the longest among equals. Raises LookupError without such
-    a kernel."""
+    and Philox), the longest among equals (the shortest with
+    ``innermost``: a loop nested in another holds the same work). Raises
+    LookupError without such a kernel."""
     body = None
     for chunk in _sass(lib_path, cuobjdump).split("Function : ")[1:]:
         if kernel in chunk.split("\n", 1)[0]:
@@ -66,12 +68,35 @@ def loop_instructions(lib_path: Path, cuobjdump: Path, kernel: str):
         work = sum(op.startswith(("LDG",) + MUL_OPS)
                    for addr, op, _, _ in instrs
                    if loop[0] <= addr <= loop[1])
-        return work, loop[1] - loop[0]
+        return work, (loop[0] - loop[1]) if innermost else loop[1] - loop[0]
 
     lo, hi = max(((int(tgt, 16), addr) for addr, op, tgt, _ in instrs
                   if op.split(".")[0] == "BRA" and tgt
                   and int(tgt, 16) < addr), key=weight)
     return [(op, text) for addr, op, _, text in instrs if lo <= addr <= hi]
+
+
+#: Hopper's integer pipes by opcode (its first dot-separated part): the
+#: ALU pipe's logic, shifts, permutes, adds, compares and selects; the FMA
+#: pipe's multiply-adds (IMAD, and the IMAD.IADD / IMAD.MOV forms ptxas
+#: moves adds and moves to); the uniform datapath's U* opcodes; the rest
+#: (memory, control) under "other"
+ALU_OPS = ("LOP3", "SHF", "PRMT", "IADD3", "ISETP", "SEL", "LEA", "IMNMX",
+           "MOV", "PLOP3", "IABS", "FLO", "POPC", "BMSK", "SGXT", "VIADD")
+FMA_OPS = ("IMAD", "IMUL", "FFMA", "FMUL", "FADD")
+
+
+def pipe_mix(lines) -> dict:
+    """{"alu", "fma", "uniform", "other": instructions} of
+    :func:`loop_instructions` lines, by the pipe each opcode issues to."""
+    mix = dict.fromkeys(("alu", "fma", "uniform", "other"), 0)
+    for op, _ in lines:
+        head = op.split(".")[0]
+        pipe = ("uniform" if head.startswith("U")
+                else "alu" if head in ALU_OPS
+                else "fma" if head in FMA_OPS else "other")
+        mix[pipe] += 1
+    return mix
 
 
 #: Philox's multipliers as SASS prints an immediate: signed 32-bit hex

@@ -25,6 +25,9 @@ from typing import Dict, Optional
 
 #: ``cat`` values of the events that occupy a device
 DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
+#: ... and of every event on a device lane (the profiler mirrors host
+#: ranges there as ``gpu_user_annotation``)
+_NOT_HOST = DEVICE_CATEGORIES + ("gpu_user_annotation",)
 
 
 def load_latest_trace(logdir: str) -> Optional[dict]:
@@ -107,3 +110,36 @@ def busy_share(trace: dict) -> Optional[float]:
             cur_end = max(cur_end, end)
     busy += cur_end - cur_start
     return busy / window if window > 0 else None
+
+
+def device_split(trace: dict, kernels: Dict[str, str],
+                 ranges: Dict[str, str]) -> Dict[str, float]:
+    """Device time (us) of a trace split into groups: a device event goes
+    to the first group of ``kernels`` ({group: a substring of the kernel's
+    name}) its name holds, else to the first group of ``ranges`` ({group:
+    the name of a host ``record_function`` range, such as a
+    ``utils.timed_phase``}) one of whose ranges encloses the host call
+    that launched it (matched by the events' ``correlation``), else to
+    "rest". Every group is in the result, "rest" included."""
+    events = trace.get("traceEvents", [])
+    spans = {group: sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+                           for e in events
+                           if e.get("ph") == "X" and e.get("name") == name
+                           and e.get("cat") not in _NOT_HOST and "dur" in e)
+             for group, name in ranges.items()}
+    launched = {}
+    for e in events:
+        corr = (e.get("args") or {}).get("correlation")
+        if (e.get("ph") == "X" and corr is not None
+                and e.get("cat") not in _NOT_HOST):
+            launched[corr] = float(e["ts"])
+    out = dict.fromkeys([*kernels, *ranges, "rest"], 0.0)
+    for e in _device_events(trace):
+        name, dur = e.get("name", ""), float(e["dur"])
+        group = next((g for g, hint in kernels.items() if hint in name), None)
+        if group is None:
+            ts = launched.get((e.get("args") or {}).get("correlation"))
+            group = next((g for g, sp in spans.items() if ts is not None
+                          and any(a <= ts <= b for a, b in sp)), "rest")
+        out[group] += dur
+    return out

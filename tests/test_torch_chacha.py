@@ -209,3 +209,145 @@ def test_cpu_tensors_take_the_plain_version():
     chacha_device.chacha_kernel("combine", torch.ones((2, 8), dtype=torch.int64),
                                 dimension=16, modulus=433)
     assert chacha_device.chacha_kernel.launches == before
+
+
+def _mask_inputs(S, d, modulus, seed):
+    rng = np.random.default_rng(seed)
+    sw = rng.integers(0, 1 << 32, size=(S, 8)).astype(np.uint32)
+    x = rng.integers(0, modulus, size=(S, d)).astype(np.int64)
+    return sw, x
+
+
+@pytest.mark.parametrize("counter0", [0, 12345, (1 << 32) - 2])
+@pytest.mark.parametrize("modulus,out_dtype", [
+    (P29, torch.int32), (P29, torch.int64), ((1 << 61) - 1, torch.int64)])
+def test_mask_op_matches_jax_mask_stage(modulus, counter0, out_dtype):
+    """The mask op's plain version (a CPU tensor) equals the JAX package's
+    ChaCha mask stage, ``f.add(x, f.from_u64(stream_u64_at(...)))`` and
+    ``f.sum`` of the masks, exactly; the window from 2^32 - 2 wraps its
+    block counter. int32 out only below 2^31."""
+    from sda_tpu.fields.ops import FieldOps as RefFieldOps
+
+    S, d = 5, 48
+    sw, x = _mask_inputs(S, d, modulus, counter0 % 1000 + modulus % 7)
+    f = RefFieldOps.create(modulus)
+    masks = f.from_u64(chacha_jax.stream_u64_at(sw, np.uint32(counter0),
+                                                dimension=d))
+    want_masked = np.asarray(f.add(f.to_residues(x), masks), np.int64)
+    want_sum = np.asarray(f.sum(masks, axis=0), np.int64)
+    before = chacha_device.chacha_kernel.op_launches["mask"]
+    got, got_sum = chacha_device.chacha_kernel(
+        "mask", torch.from_numpy(sw.astype(np.int64)), counter0=counter0,
+        x=torch.from_numpy(x), modulus=modulus, out_dtype=out_dtype)
+    assert got.dtype == out_dtype and got.shape == (S, d)
+    assert got_sum.dtype == torch.int64 and got_sum.shape == (d,)
+    np.testing.assert_array_equal(got.numpy().astype(np.int64), want_masked)
+    np.testing.assert_array_equal(got_sum.numpy(), want_sum)
+    # a CPU tensor takes the plain version: no launch is counted
+    assert chacha_device.chacha_kernel.op_launches["mask"] == before
+    # the public entry is the same call
+    again = chacha_device.mask_residues_at(
+        torch.from_numpy(sw.astype(np.int64)), counter0, torch.from_numpy(x),
+        modulus=modulus, out_dtype=out_dtype)
+    assert torch.equal(again[0], got) and torch.equal(again[1], got_sum)
+
+
+@pytest.mark.parametrize("counter0", [0, (1 << 32) - 2])
+def test_mask_op_is_the_expand_added_and_summed(counter0):
+    """The mask op's plain version is the expand's window added to x mod m
+    and summed mod m; at 2^61 - 1 five masks overflow a flat int64 sum."""
+    m = (1 << 61) - 1
+    sw, x = _mask_inputs(5, 64, m, 3)
+    words = torch.from_numpy(sw.astype(np.int64))
+    masks = chacha_device.stream_residues_at(words, counter0, dimension=64,
+                                             modulus=m)
+    got, got_sum = chacha_device.mask_residues_at(
+        words, counter0, torch.from_numpy(x), modulus=m)
+    want = (x.astype(object) + masks.numpy().astype(object)) % m
+    np.testing.assert_array_equal(got.numpy(), want.astype(np.int64))
+    np.testing.assert_array_equal(
+        got_sum.numpy(),
+        (masks.numpy().astype(object).sum(axis=0) % m).astype(np.int64))
+
+
+@pytest.mark.parametrize("case,kw,match", [
+    ("int32 at 2^31", dict(modulus=1 << 31, out_dtype=torch.int32),
+     "int32 out needs a modulus below 2\\^31"),
+    ("int32 at 2^61 - 1", dict(modulus=(1 << 61) - 1,
+                               out_dtype=torch.int32),
+     "int32 out needs a modulus below 2\\^31"),
+    ("ragged width", dict(d=12), "multiple of 8"),
+    ("float out", dict(out_dtype=torch.float32), "int32 or int64"),
+    ("int32 x", dict(x_dtype=torch.int32), "int64 residues"),
+    ("rows", dict(rows=3), "x must be \\[S, d\\]"),
+    ("no x", dict(no_x=True), "needs x"),
+    ("rand 0.3", dict(prg=chacha.CHACHA_PRG_RAND03), "CHACHA_PRG_V1"),
+])
+def test_mask_op_argument_checks(case, kw, match):
+    S, d = 2, kw.pop("d", 16)
+    x = torch.zeros((kw.pop("rows", S), d), dtype=kw.pop("x_dtype",
+                                                        torch.int64))
+    if kw.pop("no_x", False):
+        x = None
+    with pytest.raises(ValueError, match=match):
+        chacha_device.chacha_kernel(
+            "mask", torch.zeros((S, 8), dtype=torch.int64), x=x,
+            **{"modulus": P29, **kw})
+
+
+def test_mask_op_counts_by_operation_and_refuses_other_devices():
+    """``op_launches`` has the mask op beside the others (the card's
+    launches are counted there; chip_smoke.py holds them); a tensor that
+    is neither on the CPU nor on a CUDA device is refused, not run."""
+    assert chacha_device.OPS == ("blocks", "expand", "combine", "mask")
+    assert set(chacha_device.chacha_kernel.op_launches) == set(
+        chacha_device.OPS)
+    sw = torch.zeros((2, 8), dtype=torch.int64, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        chacha_device.chacha_kernel(
+            "mask", sw, x=torch.zeros((2, 16), dtype=torch.int64,
+                                      device="meta"), modulus=P29)
+
+
+def test_k3_bounds_count_each_operation():
+    """``benchmarks/bounds.py``'s K3 bound by operation at the streamed
+    round's tile [250, 3,145,728]: the mask op moves x (int64) in, the
+    masked rows (int32) out and the [d] sums, 9.46 GB (2.82 ms at 3.35
+    TB/s), and is bound by the ALU pipe's 640 operations a block (3.76
+    ms); the expand writes int64 residues; the combine one [d] row; the
+    mask op's draws cost two accumulates more than the expand's."""
+    from sda_tpu_torch.benchmarks import bounds
+
+    S, d = 250, 3_145_728
+    ms, by, detail = bounds.k3_bound(S, d, "mask", 4)
+    assert by == "operations" and ms == pytest.approx(3.7561, abs=1e-4)
+    assert detail.startswith(f"{S * 32 + S * d * 12 + d * 8} bytes")
+    assert bounds.k3_bound(S, d, "mask", 8)[1] == "bytes"
+    assert bounds.k3_bound(S, d, "expand")[0] == ms
+    assert bounds.k3_bound(1, 8 * 125_001, "blocks")[2].startswith(
+        f"{32 + 125_001 * 64} bytes")
+    _, alu, fma, expand_total = bounds._k3_ops(S, d, "expand")
+    assert alu == S * d // 8 * 640 and fma == S * d * 7
+    assert (bounds._k3_ops(S, d, "mask")[3] - expand_total
+            == 2 * S * d * bounds.DRAW_ACCUMULATE_OPS)
+    assert bounds.k3_pipe_ops(S, d, "combine") == alu
+    with pytest.raises(ValueError, match="unknown K3 operation"):
+        bounds.k3_bound(S, d, "fold")
+
+
+def test_fold_ops_count_the_mask_op():
+    """The perf plane's counted cost of a ChaCha fold step counts K3's
+    mask op (stream, add and sum in one) where the unfused passes were."""
+    from types import SimpleNamespace
+
+    from sda_tpu_torch.benchmarks import bounds
+    from sda_tpu_torch.mesh import simpod
+    from sda_tpu_torch.protocol import ChaChaMasking, NoMasking
+    from sda_tpu_torch.protocol import PackedShamirSharing
+
+    scheme = PackedShamirSharing(3, 8, 4, 433, 354, 150)
+    pod = SimpleNamespace(scheme=scheme, masking=ChaChaMasking(433, 48, 128),
+                          pallas_active=False, _M_host=object())
+    none = SimpleNamespace(**{**vars(pod), "masking": NoMasking()})
+    assert (simpod._fold_ops(pod, 10, 48) - simpod._fold_ops(none, 10, 48)
+            == bounds.k3_pipe_ops(10, 48, "mask"))

@@ -430,6 +430,48 @@ def test_local_trainer_equals_reference_sgd():
     assert all(not torch.equal(out[k], before[k]) for k in before)
 
 
+@pytest.mark.parametrize("caller_tf32", [True, False])
+def test_local_trainer_steps_run_without_tf32(caller_tf32):
+    """The trainer's step and the families' forward (training and eval)
+    run under the TF32 setting ``models.precision`` states (off: full
+    float32 convolutions and matrix products), set in scope only: the
+    caller's setting stands before and after."""
+    from sda_tpu_torch.models import precision
+
+    assert precision.CUDNN_TF32 is False
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    saved = cudnn.allow_tf32, matmul.allow_tf32
+    cudnn.allow_tf32 = matmul.allow_tf32 = caller_tf32
+    try:
+        seen = []
+        tmod = LeNet(width=1, device="cpu")
+        tmod.Conv_0.register_forward_pre_hook(lambda *_: seen.append(
+            ("conv", cudnn.allow_tf32, matmul.allow_tf32)))
+
+        def loss_fn(p, batch):
+            seen.append(("step", cudnn.allow_tf32, matmul.allow_tf32))
+            x, y = batch
+            return F.cross_entropy(torch.func.functional_call(tmod, p, (x,)),
+                                   y.long())
+
+        rng = np.random.default_rng(12)
+        xs = rng.normal(size=(2, 4, 28, 28, 1)).astype(np.float32)
+        ys = rng.integers(0, 10, size=(2, 4))
+        params = dict(tmod.state_dict())
+        trainer = LocalTrainer(loss_fn, sgd(0.1), device="cpu")
+        trainer.fit(params, trainer.init_state(params), (xs, ys))
+        assert seen == [("step", False, False), ("conv", False, False)] * 2
+        assert (cudnn.allow_tf32, matmul.allow_tf32) == (caller_tf32,
+                                                         caller_tf32)
+        with torch.no_grad():  # eval: the forward alone
+            tmod(torch.from_numpy(xs[0]))
+        assert seen[-1] == ("conv", False, False)
+        assert (cudnn.allow_tf32, matmul.allow_tf32) == (caller_tf32,
+                                                         caller_tf32)
+    finally:
+        cudnn.allow_tf32, matmul.allow_tf32 = saved
+
+
 def _flagship():
     t, p, w2, w3 = numtheory.generate_packed_params(3, 8, 28)
     return PackedShamirSharing(3, 8, t, p, w2, w3), p

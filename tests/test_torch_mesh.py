@@ -407,25 +407,26 @@ def test_pod_k1_lane_matches_sum_and_reference(mesh_shape, masking):
 @pytest.mark.parametrize("masking", ["full", "chacha"])
 def test_pod_calls_each_kernel_once_a_shard(monkeypatch, masking):
     """The K1 lane calls K1's wrapper once a shard (a launch each on a
-    card), and ChaCha masks call K3's windowed stream once a shard at
-    that shard's participant ids and block counter."""
+    card), and ChaCha masks call K3's mask op once a shard at that shard's
+    participant ids and block counter, writing the int32 words K1 reads."""
     s = fast_scheme()
     p = s.prime_modulus
     mask = FullMasking(p) if masking == "full" else ChaChaMasking(p, 96, 128)
     k1_shapes, k3_windows = [], []
     real_k1 = fused_round.fused_mask_share_combine
-    real_k3 = chacha_device.stream_residues_at
+    real_k3 = chacha_device.mask_residues_at
 
     def k1(x_cols, *args, **kw):
         k1_shapes.append(tuple(x_cols.shape))
         return real_k1(x_cols, *args, **kw)
 
-    def k3(seeds, counter0, **kw):
-        k3_windows.append((tuple(seeds.shape), counter0, kw["dimension"]))
-        return real_k3(seeds, counter0, **kw)
+    def k3(seeds, counter0, x, **kw):
+        k3_windows.append((tuple(seeds.shape), counter0, x.shape[1]))
+        assert kw["out_dtype"] == torch.int32
+        return real_k3(seeds, counter0, x, **kw)
 
     monkeypatch.setattr(fused_round, "fused_mask_share_combine", k1)
-    monkeypatch.setattr(chacha_device, "stream_residues_at", k3)
+    monkeypatch.setattr(chacha_device, "mask_residues_at", k3)
     pod = port_pod(s, mask, (4, 2), use_pallas=True)
     inputs = np.random.default_rng(5).integers(0, 1 << 20, size=(16, 96))
     np.testing.assert_array_equal(pod.aggregate(inputs, 1).numpy(),

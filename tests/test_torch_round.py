@@ -203,13 +203,13 @@ def test_chacha_round_masks_depend_on_the_round_seed(monkeypatch):
     the same seed words at its own block offset."""
     s = _port("flagship")
     seen = []
-    real = simpod._chacha_masks
+    real = simpod._chacha_mask
 
-    def spy(f, seeds, d_block0, d_loc):
-        seen.append((seeds.clone(), d_block0, d_loc))
-        return real(f, seeds, d_block0, d_loc)
+    def spy(f, seeds, d_block0, x, out_dtype=None):
+        seen.append((seeds.clone(), d_block0, x.shape[1]))
+        return real(f, seeds, d_block0, x, out_dtype)
 
-    monkeypatch.setattr(simpod, "_chacha_masks", spy)
+    monkeypatch.setattr(simpod, "_chacha_mask", spy)
     x = _inputs(5, 480, 1)
     fn = single_chip_round(s, _chacha(proto, s, 480), dim_tile=240,
                            device="cpu")

@@ -59,3 +59,40 @@ def test_loop_is_the_branch_with_the_loads_and_multiplies(monkeypatch):
     assert sass.philox_muls(lines) == 2
     with pytest.raises(LookupError, match="not in the SASS"):
         sass.loop_instructions(LIB, "cuobjdump", "no_such_kernel")
+
+
+NESTED = """\
+\t\tFunction : _ZN12_GLOBAL__N_120chacha_combine_kernelILb0ELb1EEEvPKj
+        /*0000*/                   LDS.128 R4, [R2] ;
+        /*0010*/                   IMAD.WIDE.U32 R8, R6, R7, RZ ;
+        /*0020*/                   LOP3.LUT R9, R9, R4, RZ, 0x3c, !PT ;
+        /*0030*/                   SHF.L.W.U32.HI R9, R9, 0x10, R9 ;
+        /*0040*/                   IMAD.IADD R5, R5, 0x1, R9 ;
+        /*0050*/                   IADD3 R3, R3, 0x1, RZ ;
+        /*0060*/                   UIADD3 UR4, UR4, 0x1, URZ ;
+        /*0070*/               @P0 BRA 0x10 ;
+        /*0080*/                   BAR.SYNC.DEFER_BLOCKING 0x0 ;
+        /*0090*/               @P1 BRA 0x0 ;
+        /*00a0*/                   EXIT ;
+"""
+
+
+@pytest.mark.parametrize("innermost,first", [(False, "LDS.128"),
+                                             (True, "IMAD.WIDE.U32")])
+def test_nested_loops_and_the_pipe_mix(monkeypatch, innermost, first):
+    """A loop nested in another holds the same multiplies: the outer one
+    is taken by default, the inner one with ``innermost``; ``pipe_mix``
+    sorts a loop's opcodes by the pipe they issue to (ptxas's IMAD.IADD
+    adds on the FMA pipe, IADD3 on the ALU pipe, U* on the uniform
+    datapath)."""
+    monkeypatch.setattr(sass.subprocess, "run", lambda *a, **k:
+                        types.SimpleNamespace(stdout=NESTED))
+    sass._sass.cache_clear()
+    lines = sass.loop_instructions(LIB, "cuobjdump", "chacha_combine",
+                                   innermost=innermost)
+    sass._sass.cache_clear()
+    assert lines[0][0] == first
+    inner = [(op, t) for op, t in lines if op != "LDS.128"
+             and not op.startswith("BAR")][:7]
+    assert sass.pipe_mix(inner) == {"alu": 3, "fma": 2, "uniform": 1,
+                                    "other": 1}

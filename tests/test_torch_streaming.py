@@ -232,6 +232,63 @@ def test_chacha_mask_stage_matches_jax_on_fed_seed_words(
     np.testing.assert_array_equal(got_sum.numpy(), np.asarray(msum, np.int64))
 
 
+@pytest.mark.parametrize("stage,scheme_kind", [
+    ("mask", "fast"), ("mask", "generic"), ("pallas", "fast")])
+def test_chacha_stages_give_the_bits_of_the_unfused_passes(stage,
+                                                           scheme_kind):
+    """K3's fused mask op gives the ChaCha stages the bits of the passes it
+    replaces: the windows of ``stream_residues_at``, ``f.add`` and
+    ``f.sum`` (``_mask_stage``), and, on the K1 lane, their int32 cast fed
+    to K1 (``_pallas_stage``: the masked rows reach K1 as the int32 words
+    the op writes, the mask sum comes back beside the shares)."""
+    from sda_tpu_torch.fields import chacha_device, fused_round, sharing
+
+    scheme = fast_scheme() if scheme_kind == "fast" else GOLDEN
+    m = scheme.prime_modulus
+    S, d_loc, round_seed, pid_base, d_block0 = 7, 48, 31, 9, 1234
+    f = FieldOps.create(m)
+    x = f.to_residues(torch.from_numpy(
+        np.random.default_rng(8).integers(0, m, size=(S, d_loc))))
+    seeds = simpod._chacha_seed_words(
+        round_seed, pid_base + torch.arange(S), 128)
+    masks = chacha_device.stream_residues_at(seeds, d_block0,
+                                             dimension=d_loc, modulus=m)
+    want_masked, want_sum = f.add(x, masks), f.sum(masks, axis=0)
+    masking = ChaChaMasking(m, 4096, 128)
+    if stage == "mask":
+        got, got_sum = simpod._mask_stage(
+            masking, f, x, None, round_seed=round_seed, pid_base=pid_base,
+            d_block0=d_block0)
+        assert got.dtype == torch.int64
+        assert torch.equal(got, want_masked)
+        assert torch.equal(got_sum, want_sum)
+        return
+    M_host, _ = simpod._build_matrices(scheme)
+    shares, got_sum = simpod._pallas_stage(
+        scheme, f, M_host, masking, x, 5, round_seed=round_seed,
+        pid_base=pid_base, d_block0=d_block0)
+    want_shares, _ = fused_round.fused_mask_share_combine(
+        sharing.batch_columns(want_masked.to(torch.int32),
+                              scheme.secret_count),
+        5, f.sp, M_host, scheme.privacy_threshold, False)
+    assert torch.equal(shares, want_shares)
+    assert torch.equal(got_sum, want_sum)
+
+
+@pytest.mark.parametrize("lane", ["plain", "k1"])
+@pytest.mark.parametrize("P,d,pc,dc", [(11, 96, 4, 48), (13, 100, 5, 24)])
+def test_streamed_chacha_round_stays_exact(lane, P, d, pc, dc):
+    """A streamed ChaCha round at a small size, each tile's masks from K3's
+    mask op (int64 rows on the plain lane, int32 into K1 on the K1 lane),
+    is the column sum mod p."""
+    scheme = fast_scheme()
+    p = scheme.prime_modulus
+    x = np.random.default_rng(P + d).integers(0, 1 << 20, size=(P, d))
+    out = _agg(scheme, ChaChaMasking(p, d, 128), participants_chunk=pc,
+               dim_chunk=dc, use_pallas=lane == "k1").aggregate(x, seed=3)
+    np.testing.assert_array_equal(out, x.sum(axis=0) % p)
+
+
 def test_chacha_seed_words_depend_on_round_seed_and_id_only():
     a = simpod._chacha_seed_words(7, torch.arange(10), 128)
     b = simpod._chacha_seed_words(7, torch.arange(4, 10), 128)

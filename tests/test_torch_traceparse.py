@@ -132,3 +132,41 @@ def test_real_cpu_capture_has_no_device_lane(tmp_path):
     assert stats == {}
     assert traceparse.dominant_module(stats) is None
     assert traceparse.busy_share(tr) is None
+
+
+def test_device_split_by_kernel_name_and_launching_range():
+    """Device time by part: kernels by a substring of their name, the rest
+    by the host range (a ``record_function``) enclosing the runtime call
+    that launched them, matched by correlation id; the device lane's
+    mirror of a range (``gpu_user_annotation``) is not a host range."""
+    host = 4242
+    tr = {"traceEvents": [
+        {"ph": "X", "cat": "user_annotation", "name": "stream.feed",
+         "pid": host, "tid": 1, "ts": 0, "dur": 100.0},
+        {"ph": "X", "cat": "gpu_user_annotation", "name": "stream.feed",
+         "pid": 0, "tid": 9, "ts": 300, "dur": 1000.0},
+        *({"ph": "X", "cat": "cuda_runtime", "name": "cudaLaunchKernel",
+           "pid": host, "tid": 1, "ts": ts, "dur": 5.0,
+           "args": {"correlation": c}}
+          for c, ts in ((1, 10), (2, 150), (3, 160), (4, 170))),
+        {"ph": "X", "cat": "kernel", "pid": 0, "tid": 7,
+         "name": "void at::elementwise_kernel<128, 2>(...)", "ts": 300,
+         "dur": 40.0, "args": {"correlation": 1}},
+        {"ph": "X", "cat": "kernel", "pid": 0, "tid": 7,
+         "name": "void at::elementwise_kernel<128, 2>(...)", "ts": 400,
+         "dur": 7.0, "args": {"correlation": 2}},
+        {"ph": "X", "cat": "kernel", "pid": 0, "tid": 7,
+         "name": "void (anonymous namespace)::chacha_mask_kernel<true, "
+                 "true>(...)", "ts": 500, "dur": 600.0,
+         "args": {"correlation": 3}},
+        {"ph": "X", "cat": "kernel", "pid": 0, "tid": 7,
+         "name": "void fused_round_columns<3, 4, false>(...)", "ts": 1200,
+         "dur": 250.0, "args": {"correlation": 4}},
+        {"ph": "X", "cat": "gpu_memset", "pid": 0, "tid": 7,
+         "name": "Memset (Device)", "ts": 1500, "dur": 3.0},
+    ]}
+    assert traceparse.device_split(
+        tr, {"K3": "chacha_", "K1": "fused_round"},
+        {"block provider": "stream.feed"}) == {
+            "K3": 600.0, "K1": 250.0, "block provider": 40.0, "rest": 10.0}
+    assert traceparse.device_split(tr, {}, {}) == {"rest": 900.0}
