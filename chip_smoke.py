@@ -43,12 +43,18 @@ at 1, 5 and 250 seeds of 8, 1,000,008 and 3,145,728 columns from three
 block counters (one wraps), int32 and int64 out; each operation timed
 beside its bound at the main path's shapes; the role crypto with ChaCha
 masks (P=50 x 1,000,008); ``single_chip_round`` with ChaCha masks (one
-mask op); the streamed round (``StreamingAggregator(use_pallas=True)``,
-P=10,000 x 10,000,008 from the device block provider) on K1 and K3's
-mask op (160 launches, no expand), its device peak, and the device-tile
-clerk fold, each exact, with K3's mask op at the shapes, block counters
-and rows the two ChaCha rounds launched it with held to the plain
-version (their masks cancel, so the rounds' sums cannot show them). Then
+mask op); K6, the device block provider's coordinate hash
+(``csrc/blockgen.cu``): its ptxas line (a spill fails), held to its
+plain version at the streamed tile, the streamed round's ragged last
+tile, rows and columns across 2^32, 1 x 1 and an odd width, each at four
+bounds, and to the host provider, timed beside its bound; the streamed
+round (``StreamingAggregator(use_pallas=True)``, P=10,000 x 10,000,008
+from the device block provider) on K6, K1 and K3's mask op (160 launches
+each, no expand), its device peak, its oracle on K6 with K6 held to plain
+at the round's first, last and ragged tiles, and the device-tile clerk
+fold, each exact, with K3's mask op at the shapes, block counters and
+rows the two ChaCha rounds launched it with held to the plain version
+(their masks cancel, so the rounds' sums cannot show them). Then
 the Paillier premix on K4 (``csrc/montgomery.cu``): each instance's
 ptxas line and resident warps (a spill fails), K4 held to its plain
 version and to Python ints at 512-, 2048- and 3072-bit keys, several row
@@ -71,16 +77,18 @@ repo's ``BENCH_r*.json`` with the bench's line as the newest record (a
 torch record with no comparable history), the instrumented round against
 the bare one with cost capture off and on, and the streamed round once
 more with cost capture and the profiler on for its peak device memory,
-busy share and device time by part (K3, K1, the block provider, the
-rest). Then the multi-device modes: ``SimulatedPod`` at the flagship
-width on the card's 1x1 mesh and on a virtual 4x2 mesh (``[cuda:0] * 8``)
+busy share and device time by part (K3, K1, K6, the rest of the block
+provider, the rest). Then the multi-device modes: ``SimulatedPod`` at the
+flagship width on the card's 1x1 mesh and on a virtual 4x2 mesh
+(``[cuda:0] * 8``)
 with Full, ChaCha and no masks, on K1 and on the plain lane, and a quorum
 reveal without clerk 5, each exact with its K1 and K3 launches a round,
 and K1 and K3 held to their plain versions at a shard's shape and
 offsets; ``run_devscale`` at ``BENCH_r15_devscale.json``'s configuration
 (dim 1e8, P=8 on the virtual 4x2 mesh, full masks, K1, seed 20260804)
 with its ``DeviceTileSink``-fed lane, exact against the sampled oracle,
-its peak device memory against the watermark; and ``mesh.multihost`` at
+its peak device memory against the watermark, K6's launches and K6 held
+to plain at its first tile's block; and ``mesh.multihost`` at
 world size 1 over NCCL, one round and a streamed round stopped and
 resumed from its snapshots, both exact. Then FedAvg on the card: 100
 participants train MobileLite (3,731,890 parameters) and the LoRA
@@ -237,6 +245,22 @@ P_STREAM, D_STREAM, STREAM_CHUNK = 10_000, 10_000_008, 250
 D_TILE = 3_145_728
 #: rows and bundles of the device-tile clerk fold (phase 15)
 FOLD_ROWS, FOLD_BUNDLES = 100, 4
+#: K6's checks (phase 14b), blocks as (p0, rows, d0, cols): the streamed
+#: tile, phase 15's ragged last tile, rows across 2^32, columns from within
+#: 8 of 2^32, one value, and an odd width whose odd rows start at odd
+#: output indices; each at the flagship p (added at run time) and these
+#: bounds, on the streamed round's seed
+K6_BLOCKS = ((0, STREAM_CHUNK, 0, D_TILE),
+             (P_STREAM - STREAM_CHUNK, STREAM_CHUNK, 3 * D_TILE,
+              D_STREAM - 3 * D_TILE),
+             ((1 << 32) - 3, 7, 5, 100_003), (11, 5, (1 << 32) - 5, 100_003),
+             (0, 1, 0, 1), (1, 3, 7, 1_000_003))
+K6_BOUNDS = (1 << 20, 0xFFFFFFFF, 433)
+K6_SEED = 15
+#: the block K6 is held to the host provider on (p0, rows, d0, cols)
+K6_HOST_SAMPLE = (P_STREAM - STREAM_CHUNK, 16, 3 * D_TILE, 4_096)
+#: K6's kernel in the SASS
+K6_KERNEL = "blockgen_kernel"
 #: timed rounds of the pod phase (18)
 POD_REPS = 5
 #: the model-scale rung of ``BENCH_r15_devscale.json`` (phase 19)
@@ -404,14 +428,16 @@ def _profile(label: str, fn, reps: int = 3) -> dict:
             rows.append((dev_us, e.count, e.key))
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
+    events = sum(r[1] for r in rows) / reps
     print(f"  profile of {label}: wall {wall_us / reps / 1e3:.3f} ms/round "
           f"under the profiler, device busy {busy / reps / 1e3:.3f} "
-          f"ms/round, busy share {busy / wall_us:.3f}")
+          f"ms/round, busy share {busy / wall_us:.3f}, {events:.1f} device "
+          "events (kernels and copies) a round")
     for dev_us, count, key in rows[:8]:
         print(f"    {dev_us / reps / 1e3:9.4f} ms/round {count / reps:6.1f}"
               f" calls/round  {key[:100]}")
     return {"wall_ms": wall_us / reps / 1e3, "busy_ms": busy / reps / 1e3,
-            "busy_share": busy / wall_us}
+            "busy_share": busy / wall_us, "device_events": events}
 
 
 class DeviceCounts:
@@ -937,14 +963,136 @@ def chacha_round(dev, P, D, seed=0):
             "elements_per_s": None if ms is None else P * D / (ms / 1e3)}
 
 
+def _k6_reset():
+    from sda_tpu_torch.fields import blockgen
+
+    k6 = blockgen.coordinate_block
+    k6.launches = 0
+    return k6
+
+
+def _k6_hold(case, dev, p0, rows, d0, cols, seed, bound):
+    """K6's block [rows, cols] at (p0, d0) of the provider of ``seed`` and
+    ``bound`` against its plain version on ``dev``, ``torch.equal``.
+    Returns the max |error| (0 when equal)."""
+    import torch
+
+    from sda_tpu_torch.fields import blockgen
+
+    coords = (p0, p0 + rows, d0, d0 + cols, seed, bound, dev)
+    got = blockgen.coordinate_block(*coords)
+    want = blockgen.block_plain(*coords)
+    _check(got.dtype == want.dtype == torch.int64
+           and got.shape == want.shape == (rows, cols)
+           and got.is_contiguous(),
+           f"{case}: K6 {got.dtype}{tuple(got.shape)} vs plain "
+           f"{want.dtype}{tuple(want.shape)}")
+    err = 0 if torch.equal(got, want) else int((got - want).abs().max())
+    _check(err == 0, f"{case}: K6 [{rows}, {cols}] at ({p0}, {d0}), bound "
+           f"{bound} != plain (max |err| {err})")
+    print(f"  {case}: K6 [{rows}, {cols}] at ({p0}, {d0}), bound {bound}: "
+          "equal to plain")
+    del got, want
+    if rows * cols > 1 << 24:
+        _empty_cache(dev)
+    return err
+
+
+def blockgen_kernels(dev, p, lib_path, ptxas_log, cuobjdump,
+                     blocks=K6_BLOCKS, bounds=K6_BOUNDS, seed=K6_SEED,
+                     host_sample=K6_HOST_SAMPLE,
+                     time_shape=(STREAM_CHUNK, D_TILE), reps=20):
+    """Phase 14b: K6, the device block provider's kernel
+    (``csrc/blockgen.cu``): its ptxas line (a spill fails) and its row
+    loop's SASS by pipe; K6 held to its plain version at ``blocks`` x (p,
+    *``bounds``) and to the host provider on ``host_sample``; its time at
+    ``time_shape`` (median of ``reps`` CUDA-event times) beside its bound
+    and its plain version's. The SASS is skipped without ``lib_path``
+    (off the card). Returns the phase's JSON record."""
+    import numpy as np
+
+    from sda_tpu_torch.benchmarks.bounds import blockgen_bound
+    from sda_tpu_torch.fields import blockgen
+    from sda_tpu_torch.mesh import synthetic_block_provider32
+    from sda_tpu_torch.utils import sass
+    from sda_tpu_torch.utils.benchtime import median_ms
+
+    rec = {"stage": "blockgen", "ptxas": None, "row_loop": None,
+           "bound_ms_row_loop": None}
+    if lib_path is not None:
+        ptx = next((v for key, v in sass.ptxas_info(ptxas_log).items()
+                    if K6_KERNEL in key), None)
+        _check(ptx is not None, f"{K6_KERNEL}: no ptxas line")
+        _check(not sass.spills(ptx), f"{K6_KERNEL} spills: {'; '.join(ptx)}")
+        rec["ptxas"] = ptx
+        print(f"  K6 ({K6_KERNEL}): {'; '.join(ptx)}")
+        try:
+            lines = sass.loop_instructions(lib_path, cuobjdump, K6_KERNEL)
+        except (LookupError, ValueError) as exc:
+            print(f"  K6 row loop: not found ({exc})")
+            lines = None
+        if lines is not None:
+            mix = collections.Counter(op for op, _ in lines)
+            rec["row_loop"] = {"instructions": sum(mix.values()),
+                               "pipes": sass.pipe_mix(lines),
+                               "opcodes": dict(mix.most_common(16))}
+            print(f"  K6 row loop (8 values and the code of a row's two "
+                  f"lone ones): {rec['row_loop']['instructions']} "
+                  f"instructions, pipes {rec['row_loop']['pipes']}: "
+                  + ", ".join(f"{o} {c}" for o, c in mix.most_common(12)))
+            wide = sum(c for o, c in mix.items()
+                       if o.startswith("STG") and ".128" in o)
+            _check(wide >= 4, f"K6's row loop has {wide} 16-byte stores, "
+                   "want one a pair (4)")
+    err = 0
+    t0 = time.perf_counter()
+    for p0, rows, d0, cols in blocks:
+        for bound in (p, *bounds):
+            err = max(err, _k6_hold("K6 hold", dev, p0, rows, d0, cols,
+                                    seed, bound))
+    p0, rows, d0, cols = host_sample
+    got = blockgen.coordinate_block(p0, p0 + rows, d0, d0 + cols, seed,
+                                    1 << 20, dev).cpu().numpy()
+    host = synthetic_block_provider32(p, seed=seed, max_value=1 << 20)(
+        p0, p0 + rows, d0, d0 + cols)
+    _check(np.array_equal(got, host), "K6 != the host provider")
+    print(f"  K6 [{rows}, {cols}] at ({p0}, {d0}) == the host provider's "
+          f"block; {len(blocks) * (1 + len(bounds))} plain holds in "
+          f"{time.perf_counter() - t0:.1f} s")
+    rows, cols = time_shape
+    coords = (0, rows, 0, cols, seed, 1 << 20, dev)
+    ms = median_ms(lambda: blockgen.coordinate_block(*coords), dev,
+                   reps=reps)
+    plain_ms = median_ms(lambda: blockgen.block_plain(*coords), dev, reps=3,
+                         warmup=1)
+    bound_ms, bound_by, detail = blockgen_bound(rows, cols)
+    rec.update({"holds": len(blocks) * (1 + len(bounds)) + 1,
+                "max_abs_err": err, "shape": [rows, cols], "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "share": bound_ms / ms})
+    if rec["row_loop"] is not None:
+        pipes = rec["row_loop"]["pipes"]
+        rec["bound_ms_row_loop"] = blockgen_bound(
+            rows, cols, pipes["alu"] / 8, pipes["fma"] / 8)[0]
+    print(f"  K6 at [{rows}, {cols}]: {ms:.4f} ms median of {reps} (CUDA "
+          f"events), {rows * cols * 8 / (ms / 1e3) / 1e9:.1f} GB/s written; "
+          f"bound {bound_ms:.4f} ms ({detail}; {bound_ms / ms:.0%}); the row "
+          f"loop's own mix gives {rec['bound_ms_row_loop']} ms; plain "
+          f"{plain_ms:.3f} ms median of 3")
+    _empty_cache(dev)
+    return rec
+
+
 def streamed_round(dev, P, D, chunk, fold_rows=FOLD_ROWS,
                    fold_dim=D_CHACHA, fold_bundles=FOLD_BUNDLES):
     """Phase 15: ``StreamingAggregator(use_pallas=True)`` with ChaCha
     masking over the device block provider, exact against the plain column
-    sum recomputed on the device chunk by chunk from the same provider; K1
-    and K3 must have launched on every tile. Then ``DeviceTileCombiner``
-    folds ``fold_rows`` rows in ``fold_bundles`` bundles, exact against
-    ``mod_combine``. Returns the phase's JSON record."""
+    sum recomputed on the device chunk by chunk from the same provider
+    (K6), with K6 held to its plain version at the round's first, last and
+    ragged tiles; K1, K3 and K6 must have launched on every tile. Then
+    ``DeviceTileCombiner`` folds ``fold_rows`` rows in ``fold_bundles``
+    bundles, exact against ``mod_combine``. Returns the phase's JSON
+    record."""
     import numpy as np
     import torch
 
@@ -963,7 +1111,7 @@ def streamed_round(dev, P, D, chunk, fold_rows=FOLD_ROWS,
                               participants_chunk=chunk, use_pallas=True,
                               device=dev)
     K1 = fused_round.fused_mask_share_combine
-    k3 = _k3_reset()
+    k3, k6 = _k3_reset(), _k6_reset()
     K1.launches = 0
     K1.instance_launches.update(dict.fromkeys(fused_round.INSTANCES, 0))
     utils.reset_phase_report()
@@ -978,10 +1126,13 @@ def streamed_round(dev, P, D, chunk, fold_rows=FOLD_ROWS,
     peak = (torch.cuda.max_memory_allocated(dev) - base) if on_card else None
     phases = _phases(utils)
     k1_launches, k3_launches = dict(K1.instance_launches), dict(k3.op_launches)
+    k6_round = k6.launches
     dc = agg.dim_chunk
     tiles = -(-P // chunk) * -(-D // dc)
     _check(out.dtype == np.int64 and out.shape == (D,),
            f"streamed round: output {out.dtype}{out.shape}")
+    # the oracle reads the provider through K6 as the round did; K6 is held
+    # to its plain version at the round's own tiles below
     for d0 in range(0, D, dc):
         d1 = min(d0 + dc, D)
         want = torch.zeros(d1 - d0, dtype=torch.int64, device=dev)
@@ -989,7 +1140,20 @@ def streamed_round(dev, P, D, chunk, fold_rows=FOLD_ROWS,
             want += prov(p0, min(p0 + chunk, P), d0, d1).sum(0)
         _check(torch.equal(torch.from_numpy(out[d0:d1]).to(dev), want % p),
                f"streamed round: dims [{d0}, {d1}) != column sum mod p")
+    k6_oracle = k6.launches - k6_round
+    d_starts = range(0, D, dc)
+    last_p0 = (P - 1) // chunk * chunk
+    k6_err = 0
+    for case, p0, d0 in (("first", 0, 0),
+                         ("last full-width", last_p0,
+                          d_starts[max(0, len(d_starts) - 2)]),
+                         ("ragged last", last_p0, d_starts[-1])):
+        k6_err = max(k6_err, _k6_hold(
+            f"streamed round, {case} tile", dev, p0, min(chunk, P - p0), d0,
+            min(d0 + dc, D) - d0, 15, 1 << 20))
     if on_card:
+        _check(k6_round == tiles, f"streamed round: K6 launched {k6_round} "
+               f"times, want {tiles} (one a tile)")
         unmasked = k1_launches["columns_unmasked"]
         _check(K1.launches == tiles and unmasked == tiles,
                f"streamed round: K1 instances {k1_launches}, want {tiles} "
@@ -1001,13 +1165,12 @@ def streamed_round(dev, P, D, chunk, fold_rows=FOLD_ROWS,
           f"tiles: exact, wall {wall:.3f} s, {P * D / wall:.4e} "
           f"shared-elements/s; device peak "
           f"{'not measured' if peak is None else f'{peak} bytes'} above "
-          f"the phase's start; K1 {k1_launches}, K3 {k3_launches}")
+          f"the phase's start; K1 {k1_launches}, K3 {k3_launches}, K6 "
+          f"{k6_round} (the oracle's {k6_oracle})")
     # K3's mask op at the round's own tiles, on the provider's rows there
     # (zero-padded to the ChaCha grain, as the round pads them): the first
     # participant chunk of dim tile 0, the last chunk of dim tile 1, and
     # the ragged dim tail
-    d_starts = range(0, D, dc)
-    last_p0 = (P - 1) // chunk * chunk
     err = 0
     for p0, d0 in sorted({(0, d_starts[0]), (0, d_starts[-1]),
                           (last_p0, d_starts[min(1, len(d_starts) - 1)])}):
@@ -1042,7 +1205,8 @@ def streamed_round(dev, P, D, chunk, fold_rows=FOLD_ROWS,
             "out_sha256": hashlib.sha256(out.tobytes()).hexdigest(),
             "phases_s": phases,
             "k1_launches": k1_launches, "k3_launches": k3_launches,
-            "k3_window_max_abs_err": err,
+            "k3_window_max_abs_err": err, "k6_launches": k6_round,
+            "k6_launches_oracle": k6_oracle, "k6_max_abs_err": k6_err,
             "fold": {"rows": fold_rows, "dim": fold_dim,
                      "bundles": fold_bundles, "tile": comb._dim_tile,
                      "exact": True, "wall_s": fold_s}}
@@ -1200,9 +1364,10 @@ def bench_phase(dev, k1_ms, P=P_MAIN, D=D_MAIN, seconds=BENCH_SECONDS,
 def streamed_profile(dev, P, D, chunk, out_sha256):
     """Phase 17: phase 15's streamed round once more, with cost capture on
     (each ``stream.step`` / ``stream.finale`` call's device-memory peak)
-    and under ``torch.profiler`` (the device's busy share, through
-    ``utils.traceparse``); its output must be phase 15's, byte for byte.
-    Returns the phase's JSON record."""
+    and under ``torch.profiler`` (the device's busy share and its time by
+    part, through ``utils.traceparse``); its output must be phase 15's,
+    byte for byte, and K6 must have launched once a tile. Returns the
+    phase's JSON record."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1220,6 +1385,7 @@ def streamed_profile(dev, P, D, chunk, out_sha256):
                               device=dev)
     devprof.reset()
     devprof.enable_cost_analysis()
+    k6 = _k6_reset()
     activities = [ProfilerActivity.CPU]
     if dev.type == "cuda":
         activities.append(ProfilerActivity.CUDA)
@@ -1237,28 +1403,33 @@ def streamed_profile(dev, P, D, chunk, out_sha256):
         devprof.enable_cost_analysis(False)
     _check(hashlib.sha256(out.tobytes()).hexdigest() == out_sha256,
            "streamed round under the profiler != phase 15's output")
+    tiles = -(-P // chunk) * -(-D // agg.dim_chunk)
+    k6_launches = k6.launches
+    _check(dev.type != "cuda" or k6_launches == tiles,
+           f"streamed round under the profiler: K6 launched {k6_launches} "
+           f"times, want {tiles}")
     names = ("stream.step", "stream.finale")
     hbm = devprof.watermark_report(device=dev, names=names)
     busy = traceparse.busy_share(trace)
     stats = traceparse.device_module_stats(trace)
     top = sorted(stats.items(), key=lambda kv: -kv[1]["total_us"])[:6]
-    # the device time by part: K3's and K1's kernels, the block provider's
-    # (launched inside ``stream.feed``) and the rest
+    # the device time by part: K3's, K1's and K6's kernels, the rest of the
+    # block provider's (launched inside ``stream.feed``) and the rest
     split = {k: v / 1e3 for k, v in traceparse.device_split(
-        trace, {"K3": "chacha_", "K1": "fused_round"},
+        trace, {"K3": "chacha_", "K1": "fused_round", "K6": K6_KERNEL},
         {"block provider": "stream.feed"}).items()}
     print(f"streamed round under the profiler: wall {wall:.3f} s (trace "
           f"export and parse {trace_s:.1f} s), busy share {busy}, peak "
           f"device memory {hbm['hbm_peak_bytes']} bytes of a watermark of "
           f"{hbm['watermark_bytes']} ({hbm.get('hbm_watermark_ratio')}); "
-          "device time, ms: "
+          f"K6 {k6_launches} launches; device time, ms: "
           + ", ".join(f"{k} {v:.3f}" for k, v in split.items()))
     for name, st in top:
         print(f"    {st['total_us'] / 1e3:10.3f} ms {st['count']:6d} calls"
               f"  {name[:100]}")
     return {"stage": "streamed_profile", "participants": P, "dim": D,
             "exact": True, "wall_s": wall, "busy_share": busy, "hbm": hbm,
-            "device_ms_by_part": split,
+            "device_ms_by_part": split, "k6_launches": k6_launches,
             "device_events": sum(st["count"] for st in stats.values()),
             "functions": devprof.report()}
 
@@ -1410,14 +1581,17 @@ def devscale_phase(dev, dim=DEVSCALE_DIM, rounds=2):
     the device provider (``run_devscale``'s ``device_oracle``). Then one
     more round of the same pod, profiled (device time by operation, busy
     share), and K1 held to its plain version at a shard's shape of the
-    model-scale tile, on the provider's rows with that shard's seed.
-    Returns the phase's JSON record."""
+    model-scale tile, on the provider's rows with that shard's seed. K6
+    must have launched at least once a tile of each round, and once a tile
+    of the profiled round; it is held to its plain version at the round's
+    first tile block [8, dim tile] (the provider's bounds of phase 14b) and
+    at that shard's block. Returns the phase's JSON record."""
     from sda_tpu_torch.loadgen import DevScaleProfile, run_devscale
     from sda_tpu_torch.mesh import (StreamedPod, make_mesh, simpod,
                                     synthetic_device_block_provider32)
 
     on_card = dev.type == "cuda"
-    k1, k3 = _k1_reset(), _k3_reset()
+    k1, k3, k6 = _k1_reset(), _k3_reset(), _k6_reset()
     t0 = time.perf_counter()
     rec = run_devscale(DevScaleProfile(
         dim=dim, participants=8, participants_chunk=8, p_shards=4,
@@ -1440,29 +1614,42 @@ def devscale_phase(dev, dim=DEVSCALE_DIM, rounds=2):
         _check(k1.launches == want,
                f"devscale: K1 launched {k1.launches} times, want {want}")
         _check(k3.launches == 0, f"devscale: K3 launched {k3.launches}")
+        _check(k6.launches >= rec["tiles"] * rounds,
+               f"devscale: K6 launched {k6.launches} times for "
+               f"{rec['tiles']} tiles x {rounds} rounds")
+    k6_devscale = k6.launches
     keep = ("value", "round_seconds_marginal", "dim", "dim_tile", "tiles",
             "p_shards", "d_shards", "exact", "oracle", "device_oracle",
             "clerk_fed",
             "hbm", "roofline_utilization", "compiled_shapes",
             "framework", "platform")
     out = {"stage": "devscale", **{key: rec[key] for key in keep},
-           "k1_launches": k1.launches, "wall_s": wall}
+           "k1_launches": k1.launches, "k6_launches": k6_devscale,
+           "wall_s": wall}
     print(f"  devscale: dim {rec['dim']}, tile {rec['dim_tile']} x "
           f"{rec['tiles']}, value {rec['value']} elements/s, marginal "
           f"{rec['round_seconds_marginal']} s, exact {rec['exact']} (all "
           f"{rec['device_oracle']['cols']} columns of 2 rounds on the "
           f"device oracle), steps' peak {rec['hbm']['hbm_peak_bytes']} B "
           f"of a {rec['hbm']['watermark_bytes']} B watermark, K1 "
-          f"{k1.launches} launches, wall {wall:.1f} s")
+          f"{k1.launches} launches, K6 {k6_devscale} (the rounds and the "
+          f"device oracle), wall {wall:.1f} s")
     scheme, full, p = _flagship()
     pod = StreamedPod(scheme, full, mesh=make_mesh(4, 2, devices=[dev] * 8),
                       participants_chunk=8, dim_chunk=rec["dim_tile"],
                       use_pallas=True)
     prov = synthetic_device_block_provider32(p, seed=20260804, device=dev)
     if on_card:
-        _profile("devscale round",
-                 lambda: pod.aggregate_blocks(prov, 8, dim, 7), reps=1)
+        k6_before = k6.launches
+        out["profile"] = _profile(
+            "devscale round", lambda: pod.aggregate_blocks(prov, 8, dim, 7),
+            reps=1)
+        # _profile runs the round once before the profiled one
+        _check(k6.launches - k6_before == 2 * rec["tiles"],
+               f"devscale: K6 launched {k6.launches - k6_before} times in "
+               f"two profiled rounds of {rec['tiles']} tiles")
     out["k1_launches_phase"] = k1.launches
+    out["k6_launches_phase"] = k6.launches
     # K1 at the last shard of the warm round's first tile: its rows, its
     # columns and its seed (``_drive_stream``'s tile seed, then the
     # shard's)
@@ -1473,6 +1660,14 @@ def devscale_phase(dev, dim=DEVSCALE_DIM, rounds=2):
     out["k1_shard_max_abs_err"] = _k1_shard_hold(
         "devscale shard (3, 1) of tile 0", dev, scheme, True, x,
         simpod._tile_seed(simpod._tile_seed(20260804, 0, 0), pi, di))
+    del x
+    k6_err = _k6_hold("devscale shard (3, 1) of tile 0", dev, pi * Pc_loc,
+                      Pc_loc, di * d_loc, d_loc, 20260804, p)
+    for bound in (p, *K6_BOUNDS):
+        k6_err = max(k6_err, _k6_hold(
+            "devscale tile 0", dev, 0, 8, 0, min(pod.dim_chunk, dim),
+            20260804, bound))
+    out["k6_max_abs_err"] = k6_err
     return out
 
 
@@ -1544,6 +1739,7 @@ def multihost_phase(dev, P=P_MAIN, D=D_MAIN, chunk=MH_CHUNK,
             return prov(lp0, lp1, d0, d1)
 
         ck = os.path.join(tmp, "ck")
+        k6 = _k6_reset()
         try:
             multihost.streamed_aggregate_process_local(
                 spod, stopping, P, D, seed=21, checkpoint_path=ck,
@@ -1562,6 +1758,12 @@ def multihost_phase(dev, P=P_MAIN, D=D_MAIN, chunk=MH_CHUNK,
         resume_s = time.perf_counter() - t0
         k1_resumed = k1.launches - k1_before
         k1_total = k1.launches  # every launch of the phase
+        # a block the provider fed is one K6 launch: the stopped run's
+        # and the resumed run's
+        k6_stream = k6.launches
+        _check(not on_card or k6_stream == stop_after + calls["n"],
+               f"multihost streamed: K6 launched {k6_stream} times for "
+               f"{stop_after} + {calls['n']} blocks fed")
         tiles = -(-P // spod.participants_chunk) * -(-D // spod.dim_chunk)
         want = torch.zeros(D, dtype=torch.int64, device=dev)
         for p0 in range(0, P, chunk):
@@ -1578,8 +1780,8 @@ def multihost_phase(dev, P=P_MAIN, D=D_MAIN, chunk=MH_CHUNK,
                f"{calls['n']} blocks")
         print(f"  multihost streamed: {tiles} tiles, stopped after "
               f"{stop_after}, resumed with {calls['n']} blocks, exact, K1 "
-              f"{k1_resumed}, {resume_s:.3f} s; K1 {k1_total} launches in "
-              "the phase")
+              f"{k1_resumed}, K6 {k6_stream}, {resume_s:.3f} s; K1 "
+              f"{k1_total} launches in the phase")
         # K1 at the last shard of the resumed round's first tile
         Pc_loc, d_loc = spod.participants_chunk // 4, spod.dim_chunk // 2
         pi, di = 3, 1
@@ -1598,6 +1800,7 @@ def multihost_phase(dev, P=P_MAIN, D=D_MAIN, chunk=MH_CHUNK,
             "streamed_tiles": tiles, "resumed_blocks": calls["n"],
             "k1_launches_resumed": k1_resumed,
             "k1_launches_phase": k1_total, "k1_shard_max_abs_err": k1_err,
+            "k6_launches": k6_stream, "k6_launches_phase": k6.launches,
             "resume_s": resume_s}
 
 
@@ -4459,9 +4662,10 @@ def main() -> int:
     print(f"device: {kind}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}, Python {sys.version.split()[0]}")
 
-    # -- 2. build K1, K5, K3 and K4, one nvcc each, side by side ----------
+    # -- 2. build K1, K5, K3, K4 and K6, one nvcc each, side by side -------
     t0 = time.perf_counter()
-    names = ("fused_round", "kernel_probe", "chacha", "montgomery")
+    names = ("fused_round", "kernel_probe", "chacha", "montgomery",
+             "blockgen")
     with ThreadPoolExecutor(len(names)) as pool:
         built = dict(zip(names, pool.map(_build.build, names)))
     print(f"build: {', '.join(built[n][0].name for n in names)} in "
@@ -4865,6 +5069,14 @@ def main() -> int:
     rec14 = chacha_round(dev, P_MAIN, D_CHACHA)
     print(json.dumps(rec14), flush=True)
 
+    # -- 14b. K6, the device block provider's kernel ------------------------
+    print(f"K6 vs plain and the host provider (tolerance: exact, "
+          f"torch.equal; {smi}):")
+    t14b = time.perf_counter()
+    k6_rec = blockgen_kernels(dev, p, *built["blockgen"], cuobjdump)
+    k6_rec["phase_s"] = time.perf_counter() - t14b
+    print(json.dumps(k6_rec), flush=True)
+
     # -- 15. the streamed round on K1 and K3, and the device-tile fold -----
     print(f"streamed round: ChaCha masking, use_pallas=True ({smi}):")
     t15 = time.perf_counter()
@@ -5054,6 +5266,26 @@ def main() -> int:
         "library_of": "fold_only",
         "variants": k5,
     }, *_k3_record(k3_rec, rec13, rec15, k3_launches, k3_err), {
+        "name": "coordinate_block",
+        "route": "cuda",
+        "source": "sda_tpu_torch/fields/csrc/blockgen.cu",
+        "replaces": "sda_tpu/mesh/streaming.py:117",
+        "launches": rec15["k6_launches"],
+        "launches_of": "the streamed round (phase 15)",
+        "launches_by_phase": {
+            "streamed_round": rec15["k6_launches"],
+            "streamed_oracle": rec15["k6_launches_oracle"],
+            "streamed_profile": rec17s["k6_launches"],
+            "devscale": rec19["k6_launches"],
+            "devscale_phase": rec19["k6_launches_phase"],
+            "multihost_streamed": rec20["k6_launches"]},
+        "max_abs_err": max(k6_rec["max_abs_err"], rec15["k6_max_abs_err"],
+                           rec19["k6_max_abs_err"]),
+        **{key: k6_rec[key] for key in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "share", "shape",
+            "ptxas", "bound_ms_row_loop")},
+        "library_ms": None,
+    }, {
         "name": "premix",
         "route": "cuda",
         "source": "sda_tpu_torch/fields/csrc/montgomery.cu",

@@ -1,4 +1,4 @@
-"""The least time an H100 could take for the work of K1, K3 and K4,
+"""The least time an H100 could take for the work of K1, K3, K4 and K6,
 counted from the algorithm and the bytes: shared by ``chip_smoke.py``,
 ``k1_ab``, ``k3_ab`` and ``k4_ab``."""
 
@@ -181,5 +181,34 @@ def k4_bound(montmuls: int, L: int, rows: int, lanes: int):
     detail = (f"{bytes_moved} bytes -> {bytes_ms:.4f} ms; {montmuls} "
               f"montmuls x {2 * L * L + L} wide multiplies = {wide:.4g} "
               f"at half the FMA pipe's rate -> {ops_ms:.4f} ms")
+    return (max(bytes_ms, ops_ms),
+            "operations" if ops_ms >= bytes_ms else "bytes", detail)
+
+
+#: K6 (fields/csrc/blockgen.cu), counted from its source: an element takes
+#: on the ALU pipe the xor of its column's product into the row's word and
+#: three shift-and-xor pairs of the hash (7), on the FMA pipe the column's
+#: multiply, the hash's two multiplies and the remainder's four (the wide
+#: product M * x and its high word's multiply, a multiply-high and a wide
+#: multiply-add: 7).
+BLOCKGEN_ALU_OPS = 7
+BLOCKGEN_FMA_OPS = 7
+
+
+def blockgen_bound(rows: int, cols: int, alu_ops: float = BLOCKGEN_ALU_OPS,
+                   fma_ops: float = BLOCKGEN_FMA_OPS):
+    """Least time (ms) the card could take for K6's block of ``rows`` x
+    ``cols`` int64 values, and what bounds it: the larger of its bytes (each
+    value written once, nothing read) at the memory rate and its integer
+    operations (``alu_ops`` and ``fma_ops`` an element) at a pipe's rate
+    and at the issue rate. Returns (bound_ms, bound_by, detail)."""
+    n = rows * cols
+    bytes_moved = 8 * n
+    bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = max(max(alu_ops, fma_ops) * n / PIPE_OPS_PER_S,
+                 (alu_ops + fma_ops) * n / INSTR_PER_S) * 1e3
+    detail = (f"{bytes_moved} bytes -> {bytes_ms:.4f} ms; {alu_ops:g} "
+              f"ALU-pipe + {fma_ops:g} FMA-pipe ops an element -> "
+              f"{ops_ms:.4f} ms")
     return (max(bytes_ms, ops_ms),
             "operations" if ops_ms >= bytes_ms else "bytes", detail)

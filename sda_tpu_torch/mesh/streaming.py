@@ -41,6 +41,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..fields import blockgen
 from ..fields.ops import FieldOps
 from ..obs import devprof
 from ..protocol import ChaChaMasking, FullMasking, LinearMaskingScheme, NoMasking
@@ -69,8 +70,6 @@ from .simpod import (
 #: get_block(p0, p1, d0, d1) -> integer array or tensor [p1-p0, d1-d0]
 BlockProvider = Callable[[int, int, int, int], object]
 
-_MASK32 = 0xFFFFFFFF
-
 
 def array_block_provider(inputs) -> BlockProvider:
     """Adapt an in-memory (or np.memmap) [P, d] array to a BlockProvider."""
@@ -83,7 +82,8 @@ def array_block_provider(inputs) -> BlockProvider:
 
 def _hash32(rows, cols, seed, xp):
     """Deterministic uint32 hash of absolute (participant, component)
-    coordinates (numpy); :func:`_hash32_torch` is its int64 torch twin."""
+    coordinates (numpy); ``fields/blockgen.py::hash32_plain`` is its int64
+    torch twin and K6 (``fields/csrc/blockgen.cu``) its kernel."""
     u = (lambda v: xp.uint32(v))
     x = rows * u(0x9E3779B1) ^ cols * u(0x85EBCA77) ^ u(seed)
     x = x ^ (x >> u(16))
@@ -92,22 +92,6 @@ def _hash32(rows, cols, seed, xp):
     x = x * u(0x846CA68B)
     x = x ^ (x >> u(16))
     return x
-
-
-def _mul32(x, c: int):
-    """x * c mod 2^32 for int64 x in [0, 2^32) and a constant c < 2^32,
-    split into 16-bit halves of c so no product reaches 2^63."""
-    return (x * (c & 0xFFFF) + (((x * (c >> 16)) & 0xFFFF) << 16)) & _MASK32
-
-
-def _hash32_torch(rows, cols, seed: int):
-    """:func:`_hash32` on int64 tensors holding uint32 values."""
-    x = _mul32(rows, 0x9E3779B1) ^ _mul32(cols, 0x85EBCA77) ^ seed
-    x = x ^ (x >> 16)
-    x = _mul32(x, 0x7FEB352D)
-    x = x ^ (x >> 15)
-    x = _mul32(x, 0x846CA68B)
-    return x ^ (x >> 16)
 
 
 def synthetic_block_provider32(
@@ -139,19 +123,15 @@ def synthetic_device_block_provider32(
     each block on ``device`` (CUDA unless ``device="cpu"``) from its
     absolute coordinates, as int64 tensors of the same values, so
     flagship-scale runs are not bound by host hashing or host-to-device
-    copies."""
-    bound = int(max_value if max_value is not None else modulus)
-    if not 0 < bound <= 0xFFFFFFFF:
-        raise ValueError("synthetic32 values must fit uint32")
-    sd = (seed ^ 0x5851F42D) & 0xFFFFFFFF
+    copies. On CUDA each block is one launch of K6
+    (``fields/blockgen.py::coordinate_block``), on the CPU its plain
+    version."""
+    bound = blockgen.check_bound(
+        max_value if max_value is not None else modulus)
     dev = resolve_device(device)
 
     def get_block(p0, p1, d0, d1):
-        rows = (p0 + torch.arange(p1 - p0, dtype=torch.int64,
-                                  device=dev))[:, None] & _MASK32
-        cols = (d0 + torch.arange(d1 - d0, dtype=torch.int64,
-                                  device=dev))[None, :] & _MASK32
-        return torch.remainder(_hash32_torch(rows, cols, sd), bound)
+        return blockgen.coordinate_block(p0, p1, d0, d1, seed, bound, dev)
 
     return get_block
 
