@@ -47,13 +47,21 @@ mask op); K6, the device block provider's coordinate hash
 (``csrc/blockgen.cu``): its ptxas line (a spill fails), held to its
 plain version at the streamed tile, the streamed round's ragged last
 tile, rows and columns across 2^32, 1 x 1 and an odd width, each at four
-bounds, and to the host provider, timed beside its bound; the streamed
+bounds, and to the host provider, timed beside its bound; K7, the reveal
+(``csrc/reveal.cu``: Lagrange reconstruct and unmask in one pass), and K8,
+the residue pass (``csrc/residues.cu``): their ptxas lines (a spill
+fails), K7 held to its plain version at every scheme, quorum and mask
+layout a path makes, K8 at int64 blocks with the +-2^63 edges, int32 and
+uint32, K3's mask op on raw int64 blocks, each timed beside its bound
+(K8 also beside ``torch.remainder(x, p).to(torch.int32)``); the streamed
 round (``StreamingAggregator(use_pallas=True)``, P=10,000 x 10,000,008
 from the device block provider) on K6, K1 and K3's mask op (160 launches
-each, no expand), its device peak, its oracle on K6 with K6 held to plain
-at the round's first, last and ragged tiles, and the device-tile clerk
-fold, each exact, with K3's mask op at the shapes, block counters and
-rows the two ChaCha rounds launched it with held to the plain version
+each on raw blocks, no expand, one K7 a dim tile; phase 17's trace of
+the same round has no device kernel named remainder), its device peak,
+its oracle on K6 with K6 held to plain at the round's first, last and
+ragged tiles, and the device-tile clerk fold, each exact, with K3's
+mask op at the shapes, block counters and rows the two ChaCha rounds
+launched it with held to the plain version
 (their masks cancel, so the rounds' sums cannot show them). Then
 the Paillier premix on K4 (``csrc/montgomery.cu``): each instance's
 ptxas line and resident warps (a spill fails), K4 held to its plain
@@ -213,7 +221,7 @@ P_PROTOCOL = 20
 P_ROLE = 50
 #: the port's field ops that the role crypto calls (sda_tpu_torch.fields,
 #: looked up there at each call), counted by the device of their inputs
-ROLE_OPS = ("combine", "packed_share_from_randomness", "packed_reconstruct",
+ROLE_OPS = ("combine", "packed_share_from_randomness", "reconstruct",
             "modadd", "modsub", "additive_share_from_randomness")
 #: K3's checks (phase 12): moduli (the flagship p is added at run time;
 #: 3 * 2^60 + 1 rejects 1 draw in 16, so the host replays every seed) and
@@ -261,6 +269,48 @@ K6_SEED = 15
 K6_HOST_SAMPLE = (P_STREAM - STREAM_CHUNK, 16, 3 * D_TILE, 4_096)
 #: K6's kernel in the SASS
 K6_KERNEL = "blockgen_kernel"
+#: K7's checks (phase 14c): (case, sda-sim's sharing, secrets, clerks,
+#: survivors or None, B, d): the flagship tile and odd shapes, BasicShamir,
+#: the 26-clerk committee, sda-sim's run-time shapes (r = 80 at
+#: ``--clerks 80``: more rows than the kernel sums between two folds) and
+#: quorum subsets; a ``None`` sharing is k secrets from that many rows of a
+#: random matrix (k = 20: more secrets than a thread sums)
+K7_CASES = (
+    ("flagship tile", "packed", 3, 8, None, D_MAIN // 3, D_MAIN),
+    ("flagship, odd B, d % k != 0", "packed", 3, 8, None, 1001, 3001),
+    ("flagship quorum without clerk 5", "packed", 3, 8,
+     (0, 1, 2, 3, 4, 6, 7), 1001, 3002),
+    ("BasicShamir, 8 clerks", "basic", 1, 8, None, 3001, 3001),
+    ("BasicShamir quorum", "basic", 1, 8, (7, 5, 3, 1), 257, 257),
+    ("packed k=7, 26 clerks", "packed", 7, 26, None, 1001, 7001),
+    ("packed k=7 quorum of 15", "packed", 7, 26, tuple(range(1, 26, 2)) +
+     (0, 2), 429, 3000),
+    ("--secrets-per-batch 1", "packed", 1, 8, None, 999, 999),
+    ("--secrets-per-batch 2", "packed", 2, 8, None, 1000, 1999),
+    ("--sharing basic --clerks 26", "basic", 1, 26, None, 3001, 3001),
+    ("k=10 from 32 random rows", None, 10, 32, None, 301, 3003),
+    ("--clerks 80", "packed", 3, 80, None, 1001, 3001),
+    ("--clerks 80 quorum of 61", "packed", 3, 80, tuple(range(0, 80, 2)) +
+     tuple(range(1, 42, 2)), 1001, 3003),
+    ("--sharing basic --clerks 80", "basic", 1, 80, None, 257, 257),
+    ("k=20 from 70 random rows", None, 20, 70, None, 301, 6011),
+)
+#: K7 timed (phase 14c): (case, r, B, k, d, mask layout): the flagship
+#: tile's reveal (phase 5), a streamed finale's tile and a model-scale
+#: shard's (phase 19: [8, 10,984,168] of the 1e8 rung's d column)
+K7_TIMED = (("flagship tile", 8, D_MAIN // 3, 3, D_MAIN, "batched"),
+            ("streamed finale", 8, 1 << 20, 3, 3 << 20, "flat"),
+            ("model-scale shard", 8, 10_984_168, 3, 32_952_504, "flat"))
+#: K8's checks and timing (phase 14c): blocks as (dtype, rows, cols,
+#: offset of a strided view or None); the last is timed with the library
+#: call beside it
+K8_BLOCKS = (("int64", 7, 1003, None), ("int64", 3, 1_000_003, 5),
+             ("int32", 5, 100_003, 3), ("uint32", 100, 999_999, None),
+             ("int32", 1, 9, None), ("int64", STREAM_CHUNK, D_TILE, None))
+#: K7's and K8's kernels in the ptxas log
+K7_KERNELS = ("reveal_kernelILi4EE", "reveal_kernelILi16EE")
+K8_KERNELS = ("residues_kernelIxEE", "residues_kernelIiEE",
+              "residues_kernelIjEE")
 #: timed rounds of the pod phase (18)
 POD_REPS = 5
 #: the model-scale rung of ``BENCH_r15_devscale.json`` (phase 19)
@@ -1083,6 +1133,234 @@ def blockgen_kernels(dev, p, lib_path, ptxas_log, cuobjdump,
     return rec
 
 
+def _ptxas_lines(ptxas_log, kernels, label):
+    """Each of ``kernels``' ptxas lines (a spill fails), printed; None off
+    the card (no log)."""
+    from sda_tpu_torch.utils import sass
+
+    if ptxas_log is None:
+        return None
+    info = sass.ptxas_info(ptxas_log)
+    lines = {}
+    for kernel in kernels:
+        ptx = next((v for key, v in info.items() if kernel in key), None)
+        _check(ptx is not None, f"{kernel}: no ptxas line")
+        _check(not sass.spills(ptx), f"{kernel} spills: {'; '.join(ptx)}")
+        lines[kernel] = ptx
+        print(f"  {label} ({kernel}): {'; '.join(ptx)}")
+    return lines
+
+
+def _k7_k8_reset():
+    from sda_tpu_torch.fields.residues import residues_int32
+    from sda_tpu_torch.fields.reveal import reveal
+
+    reveal.launches = residues_int32.launches = 0
+    return reveal, residues_int32
+
+
+def _equal(case, got, want):
+    """``torch.equal`` of a kernel's output and its plain version's, the
+    same dtype and shape; returns the max |error| (0)."""
+    import torch
+
+    _check(got.dtype == want.dtype and got.shape == want.shape,
+           f"{case}: {got.dtype}{tuple(got.shape)} vs plain "
+           f"{want.dtype}{tuple(want.shape)}")
+    err = 0 if torch.equal(got, want) else int(
+        (got.to(torch.int64) - want.to(torch.int64)).abs().max())
+    _check(err == 0, f"{case}: kernel != plain version (max |err| {err})")
+    return err
+
+
+def _raw_block(rng, dtype, rows, cols, offset=None):
+    """A [rows, cols] block of raw values of ``dtype`` ("int64" with
+    negatives and the +-2^63 edges, "int32", "uint32") on the host, as a
+    strided view at column ``offset`` of a wider block when given."""
+    import numpy as np
+    import torch
+
+    width = cols + (0 if offset is None else offset + 3)
+    if dtype == "int64":
+        x = rng.integers(-(1 << 63), (1 << 63) - 1, size=(rows, width),
+                         dtype=np.int64, endpoint=True)
+        edges = [-(1 << 63), (1 << 63) - 1, -1, 0, 1, -(1 << 62), 1 << 62]
+        x.flat[:len(edges)] = edges[:x.size]
+    elif dtype == "int32":
+        x = rng.integers(-(1 << 31), (1 << 31) - 1, size=(rows, width),
+                         dtype=np.int32, endpoint=True)
+        x.flat[:3] = [-(1 << 31), (1 << 31) - 1, -1][:x.size]
+    else:
+        x = rng.integers(0, (1 << 32) - 1, size=(rows, width),
+                         dtype=np.uint32, endpoint=True)
+    t = torch.from_numpy(x)
+    return t if offset is None else t[:, offset:offset + cols]
+
+
+def reveal_kernels(dev, p, reveal_ptxas, residues_ptxas, cases=K7_CASES,
+                   timed=K7_TIMED, blocks=K8_BLOCKS, mask_shapes=(
+                       (5, 1000), (STREAM_CHUNK, D_TILE)), reps=20):
+    """Phase 14c: K7, the reveal (``csrc/reveal.cu``), and K8, the residue
+    pass (``csrc/residues.cu``): their ptxas lines (a spill fails); K7 held
+    to its plain version (``reveal_plain``, today's eager chain) with
+    ``torch.equal`` at ``cases``, each unmasked and with a batched and a
+    flat mask, and timed at ``timed`` beside ``bounds.reveal_bound``; K8
+    held at ``blocks`` (negative values and the +-2^63 edges, int32 and
+    uint32, strided views) and timed at the last beside its bound and the
+    library call ``torch.remainder(x, p).to(torch.int32)``; K3's mask op
+    on raw int64 blocks held to ``mask_plain`` of their residues at
+    ``mask_shapes`` (the flagship p, int32 out; 433 and 2^61 - 1, int64
+    out). Off the card the ptxas lines are skipped. Returns the phase's
+    JSON record."""
+    import numpy as np
+    import torch
+
+    from sda_tpu_torch.benchmarks.bounds import (k3_bound, residues_bound,
+                                                 reveal_bound)
+    from sda_tpu_torch.fields import chacha_device, numtheory
+    from sda_tpu_torch.fields.fastfield import SolinasPrime
+    from sda_tpu_torch.fields.residues import (residues_int32,
+                                               residues_int32_plain)
+    from sda_tpu_torch.fields.reveal import reveal, reveal_plain
+    from sda_tpu_torch.utils.benchtime import median_ms
+
+    rec = {"stage": "reveal_kernels",
+           "ptxas": {"K7": _ptxas_lines(reveal_ptxas, K7_KERNELS, "K7"),
+                     "K8": _ptxas_lines(residues_ptxas, K8_KERNELS, "K8")}}
+    rng = np.random.default_rng(14)
+    _k7_k8_reset()
+    t0 = time.perf_counter()
+    holds = k7_err = 0
+    for case, sharing, k, n, survivors, B, d in cases:
+        if sharing is None:
+            sp = SolinasPrime.try_from(p)
+            L = rng.integers(0, p, size=(k, n + 1))
+        else:
+            scheme = _sim_scheme(k, n, sharing)
+            _check(scheme.secret_count == k and scheme.share_count == n,
+                   f"{case}: sda-sim's scheme is {scheme}")
+            sp = SolinasPrime.try_from(scheme.prime_modulus)
+            L = numtheory.reconstruct_matrix_for(
+                scheme, tuple(range(n)) if survivors is None else survivors)
+        rows = torch.from_numpy(rng.integers(0, sp.p, size=(n, B))).to(dev)
+        masks = {"unmasked": None,
+                 "batched": torch.from_numpy(
+                     rng.integers(0, sp.p, size=(k, B))).to(dev),
+                 "flat": torch.from_numpy(
+                     rng.integers(0, sp.p, size=d)).to(dev)}
+        for layout, mask in masks.items():
+            args = (rows, L, sp)
+            kw = dict(dimension=d, mask=mask, rows_index=survivors)
+            k7_err = max(k7_err, _equal(f"K7 {case} {layout}",
+                                        reveal(*args, **kw),
+                                        reveal_plain(*args, **kw)))
+            holds += 1
+        print(f"  K7 {case} (k={k}, r={L.shape[1] - 1}, B={B}, d={d}): "
+              "unmasked, batched and flat masks equal to plain")
+        del rows, masks
+    rec.update({"k7_holds": holds, "k7_holds_s": time.perf_counter() - t0})
+    # K7's times at the paths' shapes, beside the bound and the plain chain
+    sp = SolinasPrime.try_from(p)
+    scheme, _, _ = _flagship()
+    L = numtheory.reconstruct_matrix_for(scheme, tuple(range(8)))
+    rec["k7_timed"] = []
+    for case, r, B, k, d, layout in timed:
+        rows = torch.from_numpy(rng.integers(0, p, size=(r, B))).to(dev)
+        mask = torch.from_numpy(rng.integers(
+            0, p, size=(k, B) if layout == "batched" else d)).to(dev)
+        kw = dict(dimension=d, mask=mask)
+        k7_err = max(k7_err, _equal(f"K7 {case}", reveal(rows, L, sp, **kw),
+                                    reveal_plain(rows, L, sp, **kw)))
+        ms = median_ms(lambda: reveal(rows, L, sp, **kw), dev, reps=reps)
+        plain_ms = median_ms(lambda: reveal_plain(rows, L, sp, **kw), dev,
+                             reps=3, warmup=1)
+        bound_ms, bound_by, detail = reveal_bound(r, B, k, d, layout)
+        rec["k7_timed"].append({
+            "case": case, "r": r, "B": B, "k": k, "d": d, "mask": layout,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "share": bound_ms / ms})
+        print(f"  K7 {case} [{r}, {B}] -> d={d}, {layout} mask: {ms:.4f} ms "
+              f"median of {reps} (CUDA events; inputs of "
+              f"{(rows.numel() + mask.numel()) * 8} bytes against a 50 MB "
+              f"L2); bound "
+              f"{bound_ms:.4f} ms ({detail}; {bound_ms / ms:.0%}); plain "
+              f"{plain_ms:.3f} ms median of 3")
+        del rows, mask
+        _empty_cache(dev)
+    # K8 at raw blocks of each dtype, then timed at the streamed tile
+    t1 = time.perf_counter()
+    k8_err = 0
+    for dtype, rows_n, cols, offset in blocks:
+        x = _raw_block(rng, dtype, rows_n, cols, offset).to(dev)
+        got = residues_int32(x, sp)
+        k8_err = max(k8_err, _equal(f"K8 {dtype} [{rows_n}, {cols}]", got,
+                                    residues_int32_plain(x, sp)))
+        print(f"  K8 {dtype} [{rows_n}, {cols}]"
+              + ("" if offset is None else f" (a view at column {offset})")
+              + ": equal to plain")
+        del got
+    rec["k8_holds"] = len(blocks)
+    rec["k8_holds_s"] = time.perf_counter() - t1
+    dtype, rows_n, cols, _ = blocks[-1]
+    n = rows_n * cols
+    ms = median_ms(lambda: residues_int32(x, sp), dev, reps=reps)
+    plain_ms = median_ms(lambda: residues_int32_plain(x, sp), dev, reps=3,
+                         warmup=1)
+    library_ms = median_ms(lambda: torch.remainder(x, p).to(torch.int32),
+                           dev, reps=5, warmup=1)
+    bound_ms, bound_by, detail = residues_bound(n, x.element_size())
+    rec["k8"] = {"dtype": dtype, "shape": [rows_n, cols], "ms": ms,
+                 "plain_ms": plain_ms, "library_ms": library_ms,
+                 "bound_ms": bound_ms, "bound_by": bound_by,
+                 "share": bound_ms / ms,
+                 "no_slower_than_library": ms <= library_ms}
+    print(f"  K8 at {dtype} [{rows_n}, {cols}]: {ms:.4f} ms median of {reps} "
+          f"(CUDA events), {n * 12 / (ms / 1e3) / 1e9:.1f} GB/s; bound "
+          f"{bound_ms:.4f} ms ({detail}; {bound_ms / ms:.0%}); plain "
+          f"{plain_ms:.3f} ms, library torch.remainder(x, p).to(int32) "
+          f"{library_ms:.3f} ms median of 5")
+    # K3's mask op on raw blocks: the residue pass folded into the kernel
+    t2 = time.perf_counter()
+    mask_err = 0
+    for S, d in mask_shapes:
+        raw = x if (S, d) == (rows_n, cols) else _raw_block(
+            rng, "int64", S, d).to(dev)
+        seeds = torch.from_numpy(rng.integers(0, 1 << 32, size=(S, 8))).to(
+            dev)
+        for m, out_dtype in ((p, torch.int32), (433, torch.int64),
+                             ((1 << 61) - 1, torch.int64)):
+            if m != p and S * d > 1 << 24:
+                continue
+            got = chacha_device.chacha_kernel(
+                "mask", seeds, counter0=12_345, modulus=m, x=raw,
+                out_dtype=out_dtype)
+            want = chacha_device.mask_plain(
+                seeds, 12_345, torch.remainder(raw, m), m, out_dtype)
+            for g, w in zip(got, want):
+                mask_err = max(mask_err, _equal(
+                    f"K3 mask on raw [{S}, {d}] mod {m}", g, w))
+            del got, want
+            print(f"  K3 mask op on a raw int64 [{S}, {d}] mod {m} "
+                  f"({out_dtype}): equal to mask_plain of its residues")
+        if (S, d) == (rows_n, cols):
+            ms3 = median_ms(lambda: chacha_device.chacha_kernel(
+                "mask", seeds, counter0=12_345, modulus=p, x=raw,
+                out_dtype=torch.int32), dev, reps=5, warmup=1)
+            b3 = k3_bound(S, d, "mask", 4)
+            rec["k3_raw_ms"] = {"shape": [S, d], "ms": ms3,
+                                "bound_ms": b3[0], "bound_by": b3[1]}
+            print(f"  K3 mask op on the raw tile [{S}, {d}] (int32 out): "
+                  f"{ms3:.4f} ms median of 5; bound {b3[0]:.4f} ms "
+                  f"({b3[2]}; {b3[0] / ms3:.0%})")
+        del raw, seeds
+    rec.update({"k3_raw_max_abs_err": mask_err,
+                "k3_raw_s": time.perf_counter() - t2,
+                "k7_max_abs_err": k7_err, "k8_max_abs_err": k8_err})
+    del x
+    _empty_cache(dev)
+    return rec
+
+
 def streamed_round(dev, P, D, chunk, fold_rows=FOLD_ROWS,
                    fold_dim=D_CHACHA, fold_bundles=FOLD_BUNDLES):
     """Phase 15: ``StreamingAggregator(use_pallas=True)`` with ChaCha
@@ -1112,6 +1390,7 @@ def streamed_round(dev, P, D, chunk, fold_rows=FOLD_ROWS,
                               device=dev)
     K1 = fused_round.fused_mask_share_combine
     k3, k6 = _k3_reset(), _k6_reset()
+    k7, k8 = _k7_k8_reset()
     K1.launches = 0
     K1.instance_launches.update(dict.fromkeys(fused_round.INSTANCES, 0))
     utils.reset_phase_report()
@@ -1126,9 +1405,10 @@ def streamed_round(dev, P, D, chunk, fold_rows=FOLD_ROWS,
     peak = (torch.cuda.max_memory_allocated(dev) - base) if on_card else None
     phases = _phases(utils)
     k1_launches, k3_launches = dict(K1.instance_launches), dict(k3.op_launches)
-    k6_round = k6.launches
+    k6_round, k7_round, k8_round = k6.launches, k7.launches, k8.launches
     dc = agg.dim_chunk
     tiles = -(-P // chunk) * -(-D // dc)
+    dim_tiles = -(-D // dc)
     _check(out.dtype == np.int64 and out.shape == (D,),
            f"streamed round: output {out.dtype}{out.shape}")
     # the oracle reads the provider through K6 as the round did; K6 is held
@@ -1161,12 +1441,19 @@ def streamed_round(dev, P, D, chunk, fold_rows=FOLD_ROWS,
         _check(k3_launches["mask"] == tiles and k3_launches["expand"] == 0,
                f"streamed round: K3 launches {k3_launches}, want {tiles} "
                "mask ops and no expand")
+        # the mask ops read the raw blocks (phase 17's trace of this round
+        # holds no residue pass); one K7 finale a dim tile; no K8 on the
+        # ChaCha lane
+        _check(k7_round == dim_tiles and k8_round == 0,
+               f"streamed round: K7 launched {k7_round} times, K8 "
+               f"{k8_round}; want {dim_tiles} and 0")
     print(f"streamed round: P={P} x d={D}, chunks {chunk} x {dc}, {tiles} "
           f"tiles: exact, wall {wall:.3f} s, {P * D / wall:.4e} "
           f"shared-elements/s; device peak "
           f"{'not measured' if peak is None else f'{peak} bytes'} above "
-          f"the phase's start; K1 {k1_launches}, K3 {k3_launches}, K6 "
-          f"{k6_round} (the oracle's {k6_oracle})")
+          f"the phase's start; K1 {k1_launches}, K3 {k3_launches} (on raw "
+          f"blocks), K6 {k6_round} (the oracle's {k6_oracle}), K7 "
+          f"{k7_round}, K8 {k8_round}")
     # K3's mask op at the round's own tiles, on the provider's rows there
     # (zero-padded to the ChaCha grain, as the round pads them): the first
     # participant chunk of dim tile 0, the last chunk of dim tile 1, and
@@ -1177,7 +1464,7 @@ def streamed_round(dev, P, D, chunk, fold_rows=FOLD_ROWS,
         d1, rows = min(d0 + dc, D), min(chunk, P - p0)
         width = -(-(d1 - d0) // agg._grain) * agg._grain
         x = torch.zeros((rows, width), dtype=torch.int64, device=dev)
-        x[:, :d1 - d0] = torch.remainder(prov(p0, p0 + rows, d0, d1), p)
+        x[:, :d1 - d0] = prov(p0, p0 + rows, d0, d1)  # raw, as the round
         err = max(err, _k3_window("streamed round", dev, round_seed, p0,
                                   rows, d0 // 8, width, p, x=x,
                                   out_dtype=torch.int32))
@@ -1207,6 +1494,7 @@ def streamed_round(dev, P, D, chunk, fold_rows=FOLD_ROWS,
             "k1_launches": k1_launches, "k3_launches": k3_launches,
             "k3_window_max_abs_err": err, "k6_launches": k6_round,
             "k6_launches_oracle": k6_oracle, "k6_max_abs_err": k6_err,
+            "k7_launches": k7_round, "k8_launches": k8_round,
             "fold": {"rows": fold_rows, "dim": fold_dim,
                      "bundles": fold_bundles, "tile": comb._dim_tile,
                      "exact": True, "wall_s": fold_s}}
@@ -1386,6 +1674,7 @@ def streamed_profile(dev, P, D, chunk, out_sha256):
     devprof.reset()
     devprof.enable_cost_analysis()
     k6 = _k6_reset()
+    k7, _ = _k7_k8_reset()
     activities = [ProfilerActivity.CPU]
     if dev.type == "cuda":
         activities.append(ProfilerActivity.CUDA)
@@ -1404,25 +1693,35 @@ def streamed_profile(dev, P, D, chunk, out_sha256):
     _check(hashlib.sha256(out.tobytes()).hexdigest() == out_sha256,
            "streamed round under the profiler != phase 15's output")
     tiles = -(-P // chunk) * -(-D // agg.dim_chunk)
-    k6_launches = k6.launches
-    _check(dev.type != "cuda" or k6_launches == tiles,
+    k6_launches, k7_launches = k6.launches, k7.launches
+    dim_tiles = -(-D // agg.dim_chunk)
+    _check(dev.type != "cuda" or (k6_launches, k7_launches) == (tiles,
+                                                                dim_tiles),
            f"streamed round under the profiler: K6 launched {k6_launches} "
-           f"times, want {tiles}")
+           f"times, K7 {k7_launches}; want {tiles} and {dim_tiles}")
     names = ("stream.step", "stream.finale")
     hbm = devprof.watermark_report(device=dev, names=names)
     busy = traceparse.busy_share(trace)
     stats = traceparse.device_module_stats(trace)
     top = sorted(stats.items(), key=lambda kv: -kv[1]["total_us"])[:6]
-    # the device time by part: K3's, K1's and K6's kernels, the rest of the
-    # block provider's (launched inside ``stream.feed``) and the rest
+    # the device time by part: K3's, K1's, K6's, K7's and K8's kernels, the
+    # rest of the block provider's (launched inside ``stream.feed``) and
+    # the rest; a residue pass would be a device kernel named remainder
     split = {k: v / 1e3 for k, v in traceparse.device_split(
-        trace, {"K3": "chacha_", "K1": "fused_round", "K6": K6_KERNEL},
+        trace, {"K3": "chacha_", "K1": "fused_round", "K6": K6_KERNEL,
+                "K7": "reveal_kernel", "K8": "residues_kernel"},
         {"block provider": "stream.feed"}).items()}
+    remainder_events = sum(st["count"] for name, st in stats.items()
+                           if "remainder" in name.lower())
+    _check(remainder_events == 0, f"streamed round under the profiler: "
+           f"{remainder_events} device kernels named remainder (a residue "
+           "pass the mask op should have folded)")
     print(f"streamed round under the profiler: wall {wall:.3f} s (trace "
           f"export and parse {trace_s:.1f} s), busy share {busy}, peak "
           f"device memory {hbm['hbm_peak_bytes']} bytes of a watermark of "
           f"{hbm['watermark_bytes']} ({hbm.get('hbm_watermark_ratio')}); "
-          f"K6 {k6_launches} launches; device time, ms: "
+          f"K6 {k6_launches} launches, K7 {k7_launches}; device events "
+          f"named remainder {remainder_events}; device time, ms: "
           + ", ".join(f"{k} {v:.3f}" for k, v in split.items()))
     for name, st in top:
         print(f"    {st['total_us'] / 1e3:10.3f} ms {st['count']:6d} calls"
@@ -1430,6 +1729,8 @@ def streamed_profile(dev, P, D, chunk, out_sha256):
     return {"stage": "streamed_profile", "participants": P, "dim": D,
             "exact": True, "wall_s": wall, "busy_share": busy, "hbm": hbm,
             "device_ms_by_part": split, "k6_launches": k6_launches,
+            "k7_launches": k7_launches,
+            "remainder_device_events": remainder_events,
             "device_events": sum(st["count"] for st in stats.values()),
             "functions": devprof.report()}
 
@@ -1514,10 +1815,12 @@ def pod_phase(dev, P=P_MAIN, D=D_MAIN, reps=POD_REPS):
         label = (f"{shape} {mask} {'K1' if pallas else 'plain'}"
                  + ("" if survivors is None else " quorum without clerk 5"))
         k1, k3 = _k1_reset(), _k3_reset()
+        k7, k8 = _k7_k8_reset()
         t0 = time.perf_counter()
         out = pod.aggregate(inputs, seed=18)
         first_ms = (time.perf_counter() - t0) * 1e3
         k1_n, k3_n = k1.launches, k3.launches
+        k7_n, k8_n = k7.launches, k8.launches
         _check(out.dtype == torch.int64 and out.shape == (D,),
                f"pod {label}: output {out.dtype}{tuple(out.shape)}")
         _check(torch.equal(out, expect), f"pod {label}: != column sum mod p")
@@ -1527,7 +1830,14 @@ def pod_phase(dev, P=P_MAIN, D=D_MAIN, reps=POD_REPS):
         want_k1 = shards if pallas else 0
         want_k3 = 0 if mask != "chacha" else shards * (1 if pallas
                                                         else chunks)
+        # one K7 reveal a d column; K8's residues on each K1 shard but
+        # ChaCha's (K3's mask op reads the raw block)
+        want_k7 = pod.mesh.devices.shape[1]
+        want_k8 = shards if pallas and mask != "chacha" else 0
         if on_card:
+            _check((k7_n, k8_n) == (want_k7, want_k8),
+                   f"pod {label}: K7 and K8 launched {k7_n} and {k8_n} "
+                   f"times, want {want_k7} and {want_k8}")
             _check(k1_n == want_k1, f"pod {label}: K1 launched {k1_n} "
                    f"times, want {want_k1}")
             _check(k3_n == want_k3, f"pod {label}: K3 launched {k3_n} "
@@ -1538,8 +1848,10 @@ def pod_phase(dev, P=P_MAIN, D=D_MAIN, reps=POD_REPS):
         rounds.append({"mesh": shape, "mask": mask, "k1": pallas,
                        "survivors": survivors, "exact": True,
                        "k1_launches": k1_n, "k3_launches": k3_n,
+                       "k7_launches": k7_n, "k8_launches": k8_n,
                        "first_round_ms": first_ms, "round_ms": ms})
-        print(f"  pod {label}: exact, K1 {k1_n}, K3 {k3_n} launches, first "
+        print(f"  pod {label}: exact, K1 {k1_n}, K3 {k3_n}, K7 {k7_n}, K8 "
+              f"{k8_n} launches, first "
               f"round {first_ms:.1f} ms"
               + ("" if ms is None else f", median of {reps} {ms:.3f} ms"))
     # the kernels at a 4x2 shard's shape and offsets: the last shard
@@ -1557,8 +1869,13 @@ def pod_phase(dev, P=P_MAIN, D=D_MAIN, reps=POD_REPS):
     k3_err = _k3_window("pod shard (3, 1)", dev, 18, pi * P_loc, P_loc,
                         di * (d_loc // 8), d_loc, p, x=x,
                         out_dtype=torch.int32)
+    key = lambda r: (f"{r['mesh']} {r['mask']} "
+                     f"{'K1' if r['k1'] else 'plain'}"
+                     + ("" if r["survivors"] is None else " quorum"))
     return {"stage": "pod_round", "participants": P, "dim": D,
             "rounds": rounds, "k1_launches_phase": k1_total,
+            "k7_launches": {key(r): r["k7_launches"] for r in rounds},
+            "k8_launches": {key(r): r["k8_launches"] for r in rounds},
             "k1_shard_max_abs_err": k1_err,
             "k3_window_max_abs_err": k3_err,
             "k1_launches": {f"{r['mesh']} {r['mask']}"
@@ -1592,6 +1909,7 @@ def devscale_phase(dev, dim=DEVSCALE_DIM, rounds=2):
 
     on_card = dev.type == "cuda"
     k1, k3, k6 = _k1_reset(), _k3_reset(), _k6_reset()
+    k7, k8 = _k7_k8_reset()
     t0 = time.perf_counter()
     rec = run_devscale(DevScaleProfile(
         dim=dim, participants=8, participants_chunk=8, p_shards=4,
@@ -1617,7 +1935,12 @@ def devscale_phase(dev, dim=DEVSCALE_DIM, rounds=2):
         _check(k6.launches >= rec["tiles"] * rounds,
                f"devscale: K6 launched {k6.launches} times for "
                f"{rec['tiles']} tiles x {rounds} rounds")
+        # K8's residues a K1 shard, one K7 reveal a d column of 4 shards
+        _check(k8.launches == k1.launches == 4 * k7.launches,
+               f"devscale: K1, K7 and K8 launched {k1.launches}, "
+               f"{k7.launches} and {k8.launches} times")
     k6_devscale = k6.launches
+    k7_devscale, k8_devscale = k7.launches, k8.launches
     keep = ("value", "round_seconds_marginal", "dim", "dim_tile", "tiles",
             "p_shards", "d_shards", "exact", "oracle", "device_oracle",
             "clerk_fed",
@@ -1625,6 +1948,7 @@ def devscale_phase(dev, dim=DEVSCALE_DIM, rounds=2):
             "framework", "platform")
     out = {"stage": "devscale", **{key: rec[key] for key in keep},
            "k1_launches": k1.launches, "k6_launches": k6_devscale,
+           "k7_launches": k7_devscale, "k8_launches": k8_devscale,
            "wall_s": wall}
     print(f"  devscale: dim {rec['dim']}, tile {rec['dim_tile']} x "
           f"{rec['tiles']}, value {rec['value']} elements/s, marginal "
@@ -1633,7 +1957,8 @@ def devscale_phase(dev, dim=DEVSCALE_DIM, rounds=2):
           f"device oracle), steps' peak {rec['hbm']['hbm_peak_bytes']} B "
           f"of a {rec['hbm']['watermark_bytes']} B watermark, K1 "
           f"{k1.launches} launches, K6 {k6_devscale} (the rounds and the "
-          f"device oracle), wall {wall:.1f} s")
+          f"device oracle), K7 {k7_devscale}, K8 {k8_devscale}, wall "
+          f"{wall:.1f} s")
     scheme, full, p = _flagship()
     pod = StreamedPod(scheme, full, mesh=make_mesh(4, 2, devices=[dev] * 8),
                       participants_chunk=8, dim_chunk=rec["dim_tile"],
@@ -1650,6 +1975,8 @@ def devscale_phase(dev, dim=DEVSCALE_DIM, rounds=2):
                f"two profiled rounds of {rec['tiles']} tiles")
     out["k1_launches_phase"] = k1.launches
     out["k6_launches_phase"] = k6.launches
+    out["k7_launches_phase"] = k7.launches
+    out["k8_launches_phase"] = k8.launches
     # K1 at the last shard of the warm round's first tile: its rows, its
     # columns and its seed (``_drive_stream``'s tile seed, then the
     # shard's)
@@ -4662,10 +4989,10 @@ def main() -> int:
     print(f"device: {kind}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}, Python {sys.version.split()[0]}")
 
-    # -- 2. build K1, K5, K3, K4 and K6, one nvcc each, side by side -------
+    # -- 2. build K1, K5, K3, K4, K6, K7 and K8, one nvcc each, side by side
     t0 = time.perf_counter()
     names = ("fused_round", "kernel_probe", "chacha", "montgomery",
-             "blockgen")
+             "blockgen", "reveal", "residues")
     with ThreadPoolExecutor(len(names)) as pool:
         built = dict(zip(names, pool.map(_build.build, names)))
     print(f"build: {', '.join(built[n][0].name for n in names)} in "
@@ -4897,9 +5224,16 @@ def main() -> int:
         gen.manual_seed(0)
         K1.launches = K5.launches = 0
         K1.instance_launches.update(dict.fromkeys(fused_round.INSTANCES, 0))
+        K7, K8 = _k7_k8_reset()
         out = fn(inputs, gen)
         torch.cuda.synchronize()
         launches, round_k5_launches = K1.launches, K5.launches
+        k7_launches, k8_launches = K7.launches, K8.launches
+        # one reveal a tile on K7, no modmatmul32 chain; uint32 inputs are
+        # read in place by K1, so no K8 pass
+        _check(k7_launches == want_launches and K8.launches == 0,
+               f"{label}: K7 launched {k7_launches} times, K8 "
+               f"{K8.launches}; want {want_launches} and 0")
         _check(K1.instance_launches["columns"] == launches,
                f"{label}: K1 instances {K1.instance_launches}, want every "
                "launch on the main path's")
@@ -4911,8 +5245,9 @@ def main() -> int:
         ms = _median_ms(lambda: fn(inputs, gen), reps=10)
         _check(round_k5_launches == 0, f"{label}: K5 launched on the round")
         if dim_tile is None:
-            main_launches = launches
-        print(f"{label}: exact, K1 launches {launches}, round {ms:.3f} ms "
+            main_launches, main_k7_launches = launches, k7_launches
+        print(f"{label}: exact, K1 launches {launches}, K7 {k7_launches}, "
+              f"K8 {k8_launches}, round {ms:.3f} ms "
               f"median of 10, {P_MAIN * D_MAIN / (ms / 1e3):.4e} "
               f"shared-elements/s")
         _profile(label, lambda: fn(inputs, gen))
@@ -5077,6 +5412,16 @@ def main() -> int:
     k6_rec["phase_s"] = time.perf_counter() - t14b
     print(json.dumps(k6_rec), flush=True)
 
+    # -- 14c. K7, the reveal, and K8, the residue pass ---------------------
+    print(f"K7 and K8 vs plain, K3's mask op on raw blocks (tolerance: exact, "
+          f"torch.equal; {smi}):")
+    t14c = time.perf_counter()
+    k78_rec = reveal_kernels(dev, p, built["reveal"][1],
+                             built["residues"][1])
+    k78_rec["phase_s"] = time.perf_counter() - t14c
+    print(json.dumps(k78_rec), flush=True)
+    print(f"phase 14c: {k78_rec['phase_s']:.1f} s")
+
     # -- 15. the streamed round on K1 and K3, and the device-tile fold -----
     print(f"streamed round: ChaCha masking, use_pallas=True ({smi}):")
     t15 = time.perf_counter()
@@ -5148,19 +5493,27 @@ def main() -> int:
           f"LoRAMLP adapters (StreamedPod 4x2), K1; run_devscale by family "
           f"({smi}):")
     t21 = time.perf_counter()
+    K7, K8 = _k7_k8_reset()
     rec21 = fedavg_phase(dev)
     rec21["phase_s"] = time.perf_counter() - t21
+    rec21["k7_launches"], rec21["k8_launches"] = K7.launches, K8.launches
+    _check(K7.launches > 0, "fedavg: K7 never launched")
     print(json.dumps(rec21), flush=True)
-    print(f"phase 21: {rec21['phase_s']:.1f} s")
+    print(f"phase 21: {rec21['phase_s']:.1f} s; K7 {K7.launches}, K8 "
+          f"{K8.launches} launches")
 
     # -- 22. the port's sda-sim ---------------------------------------------
     print(f"sim: the port's sda-sim at P={P_MAIN} x d={D_MAIN}: pod, "
           f"streamed, quorum, one multihost worker, devscale ({smi}):")
     t22 = time.perf_counter()
+    K7, K8 = _k7_k8_reset()
     rec22 = sim_phase(dev, smi)
     rec22["phase_s"] = time.perf_counter() - t22
+    rec22["k7_launches"], rec22["k8_launches"] = K7.launches, K8.launches
+    _check(K7.launches > 0, "sim: K7 never launched")
     print(json.dumps(rec22), flush=True)
-    print(f"phase 22: {rec22['phase_s']:.1f} s")
+    print(f"phase 22: {rec22['phase_s']:.1f} s; K7 {K7.launches}, K8 "
+          f"{K8.launches} launches in this process")
     k3_launches["sim"] = rec22["k3_launches"]
     k3_launches["sim_drills"] = rec22["k3_launches_drills"]
 
@@ -5214,7 +5567,7 @@ def main() -> int:
                  rec18["k3_window_max_abs_err"],
                  rec22["k3_window_max_abs_err"],
                  rec22["k3_drills_max_abs_err"], rec23["k3_max_abs_err"],
-                 rec25["k3_max_abs_err"])
+                 rec25["k3_max_abs_err"], k78_rec["k3_raw_max_abs_err"])
     print(smi)
     print(json.dumps({"kernels": [{
         "name": "fused_mask_share_combine",
@@ -5285,6 +5638,50 @@ def main() -> int:
             "ms", "plain_ms", "bound_ms", "bound_by", "share", "shape",
             "ptxas", "bound_ms_row_loop")},
         "library_ms": None,
+    }, {
+        "name": "reveal",
+        "route": "cuda",
+        "source": "sda_tpu_torch/fields/csrc/reveal.cu",
+        "replaces": "sda_tpu/fields/sharing.py:141",
+        "launches": main_k7_launches,
+        "launches_of": "the flagship round (phase 5)",
+        "launches_by_phase": {
+            "streamed_round": rec15["k7_launches"],
+            "streamed_profile": rec17s["k7_launches"],
+            "pod_round": rec18["k7_launches"],
+            "devscale": rec19["k7_launches"],
+            "devscale_phase": rec19["k7_launches_phase"],
+            "fedavg": rec21["k7_launches"],
+            "sim": rec22["k7_launches"]},
+        "max_abs_err": k78_rec["k7_max_abs_err"],
+        **{key: k78_rec["k7_timed"][0][key] for key in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "share")},
+        "shape": [k78_rec["k7_timed"][0][key] for key in ("r", "B", "k",
+                                                          "d")],
+        "timed": k78_rec["k7_timed"],
+        "ptxas": k78_rec["ptxas"]["K7"],
+        "library_ms": None,
+    }, {
+        "name": "residues_int32",
+        "route": "cuda",
+        "source": "sda_tpu_torch/fields/csrc/residues.cu",
+        "replaces": "sda_tpu/fields/fastfield.py:89",
+        "launches": sum(rec18["k8_launches"].values()),
+        "launches_of": "the pod rounds (phase 18)",
+        "launches_by_phase": {
+            "flagship_round": 0,
+            "streamed_round": rec15["k8_launches"],
+            "pod_round": rec18["k8_launches"],
+            "devscale": rec19["k8_launches"],
+            "devscale_phase": rec19["k8_launches_phase"],
+            "fedavg": rec21["k8_launches"],
+            "sim": rec22["k8_launches"]},
+        "max_abs_err": k78_rec["k8_max_abs_err"],
+        **{key: k78_rec["k8"][key] for key in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "share", "shape",
+            "dtype", "library_ms", "no_slower_than_library")},
+        "library_of": "torch.remainder(x, p).to(torch.int32)",
+        "ptxas": k78_rec["ptxas"]["K8"],
     }, {
         "name": "premix",
         "route": "cuda",

@@ -1,5 +1,5 @@
-"""The least time an H100 could take for the work of K1, K3, K4 and K6,
-counted from the algorithm and the bytes: shared by ``chip_smoke.py``,
+"""The least time an H100 could take for the work of K1, K3, K4, K6, K7 and
+K8, counted from the algorithm and the bytes: shared by ``chip_smoke.py``,
 ``k1_ab``, ``k3_ab`` and ``k4_ab``."""
 
 from __future__ import annotations
@@ -103,15 +103,21 @@ def k1_bound(P, B, k, draws, do_x, out_rows, muls=MULS, xors=XORS,
 #: subtracts, two conditional subtracts a 64-bit compare and subtract each,
 #: 8), the zone test (a 64-bit compare and an or, 3) and, in the combine,
 #: the accumulate mod m (a 64-bit add, compare and subtract, 6); the mask
-#: op adds the draw to x mod m and accumulates it (6 each).
+#: op takes x's floor mod m (its word's sign bit flipped, 1, the draws'
+#: reduction without the zone test, 7 multiplies and 14, and an add of the
+#: fold constant mod m, 6), then adds the draw to it mod m and accumulates
+#: it (6 each).
 CHACHA_ALU_OPS = 640
 CHACHA_EITHER_OPS = 320 + 16
 DRAW_MULS = 7
 DRAW_EITHER_OPS = 4 + 2 + 8 + 3
 DRAW_ACCUMULATE_OPS = 6
+RAW_RESIDUE_EITHER_OPS = 1 + (DRAW_EITHER_OPS - 3) + DRAW_ACCUMULATE_OPS
 #: K3's operations, and the accumulates mod m each does a draw (``blocks``
 #: makes keystream words and draws nothing)
 K3_ACCUMULATES = {"blocks": 0, "expand": 0, "combine": 1, "mask": 2}
+#: the reductions of K3's x a draw (the mask op's raw x, one a draw)
+K3_RAW_REDUCTIONS = {"blocks": 0, "expand": 0, "combine": 0, "mask": 1}
 
 
 def _k3_ops(seeds: int, dimension: int, op: str):
@@ -120,10 +126,12 @@ def _k3_ops(seeds: int, dimension: int, op: str):
     key's dimension / 8 blocks)."""
     blocks = seeds * -(-dimension // 8)
     draws = 0 if op == "blocks" else seeds * dimension
+    raw = K3_RAW_REDUCTIONS[op]
     alu = blocks * CHACHA_ALU_OPS
-    fma = draws * DRAW_MULS
+    fma = draws * DRAW_MULS * (1 + raw)
     total = (alu + fma + blocks * CHACHA_EITHER_OPS
              + draws * (DRAW_EITHER_OPS
+                        + raw * RAW_RESIDUE_EITHER_OPS
                         + K3_ACCUMULATES[op] * DRAW_ACCUMULATE_OPS))
     return blocks, alu, fma, total
 
@@ -210,5 +218,71 @@ def blockgen_bound(rows: int, cols: int, alu_ops: float = BLOCKGEN_ALU_OPS,
     detail = (f"{bytes_moved} bytes -> {bytes_ms:.4f} ms; {alu_ops:g} "
               f"ALU-pipe + {fma_ops:g} FMA-pipe ops an element -> "
               f"{ops_ms:.4f} ms")
+    return (max(bytes_ms, ops_ms),
+            "operations" if ops_ms >= bytes_ms else "bytes", detail)
+
+
+#: K7 (fields/csrc/reveal.cu), counted from its source: a column takes k r
+#: wide multiply-adds (FMA pipe) and, a secret, the Solinas fold of a
+#: uint64 sum (at most 4 folds of a shift, a multiply, a mask and an add:
+#: 4 on the FMA pipe, 12 on the ALU pipe) and its conditional subtract (2)
+#: once every REVEAL_FOLD_ROWS rows and at the end, and the mask's modular
+#: subtract (3).
+REVEAL_FOLD_FMA = 4
+REVEAL_FOLD_ALU = 12 + 2
+REVEAL_UNMASK_ALU = 3
+#: rows summed between two folds (kRows x kFoldGroups in reveal.cu)
+REVEAL_FOLD_ROWS = 8 * 7
+
+
+def reveal_bound(r: int, B: int, k: int, d: int, mask_layout=None):
+    """Least time (ms) the card could take for K7's reveal of ``B`` columns
+    from ``r`` clerk rows into ``d`` secrets (k a column), and what bounds
+    it: the larger of its bytes (the r int64 rows read once, the mask read
+    once: k B int64 for the ``"batched"`` layout, d for ``"flat"``, none
+    for None; the d int64 outputs written once) at the memory rate and its
+    integer operations at a pipe's rate and at the issue rate. Returns
+    (bound_ms, bound_by, detail)."""
+    if mask_layout not in (None, "batched", "flat"):
+        raise ValueError(f"unknown mask layout {mask_layout!r}")
+    mask_bytes = {None: 0, "batched": k * B * 8, "flat": d * 8}[mask_layout]
+    bytes_moved = r * B * 8 + mask_bytes + d * 8
+    bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+    folds = -(-r // REVEAL_FOLD_ROWS)
+    fma = B * k * (r + folds * REVEAL_FOLD_FMA)
+    alu = B * k * (folds * REVEAL_FOLD_ALU
+                   + (REVEAL_UNMASK_ALU if mask_layout else 0))
+    ops_ms = max(max(fma, alu) / PIPE_OPS_PER_S,
+                 (fma + alu) / INSTR_PER_S) * 1e3
+    detail = (f"{bytes_moved} bytes -> {bytes_ms:.4f} ms; {fma} FMA-pipe + "
+              f"{alu} ALU-pipe ops ({k * r} multiply-adds and {k * folds} "
+              f"folds a column) -> {ops_ms:.4f} ms")
+    return (max(bytes_ms, ops_ms),
+            "operations" if ops_ms >= bytes_ms else "bytes", detail)
+
+
+#: K8 (fields/csrc/residues.cu), counted from its source: an element takes
+#: the sign bit's xor (1), the Solinas fold of a 64-bit word (at most 5
+#: folds: 5 multiplies on the FMA pipe, 15 shifts, masks and adds on the
+#: ALU pipe), its conditional subtract and the fold constant's add mod p
+#: (4).
+RESIDUES_FMA_OPS = 5
+RESIDUES_ALU_OPS = 1 + 15 + 4
+
+
+def residues_bound(n: int, in_itemsize: int = 8):
+    """Least time (ms) the card could take for K8's pass over ``n``
+    elements of ``in_itemsize`` bytes, and what bounds it: the larger of
+    its bytes (each input read once, each int32 output written once) at
+    the memory rate and its integer operations at a pipe's rate and at the
+    issue rate. Returns (bound_ms, bound_by, detail)."""
+    bytes_moved = n * (in_itemsize + 4)
+    bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+    fma, alu = RESIDUES_FMA_OPS * n, RESIDUES_ALU_OPS * n
+    ops_ms = max(max(fma, alu) / PIPE_OPS_PER_S,
+                 (fma + alu) / INSTR_PER_S) * 1e3
+    detail = (f"{bytes_moved} bytes -> {bytes_ms:.4f} ms; "
+              f"{RESIDUES_ALU_OPS} ALU-pipe + {RESIDUES_FMA_OPS} FMA-pipe "
+              f"ops an element -> {ops_ms:.4f} ms")
     return (max(bytes_ms, ops_ms),
             "operations" if ops_ms >= bytes_ms else "bytes", detail)

@@ -189,8 +189,9 @@ class PackedShamirReconstructor(SecretReconstructor):
         stacked_np = np.stack([np.asarray(v, dtype=np.int64) for (_, v) in indexed_shares])
         if _small(stacked_np.size):
             return oracle.packed_reconstruct(indices, stacked_np, s, self.dimension)
-        L = _to_device(numtheory.reconstruct_matrix_for(s, indices), self.device)
-        return _to_host(fields.packed_reconstruct(
+        # the host matrix: K7 takes it in its launch arguments
+        L = numtheory.reconstruct_matrix_for(s, indices)
+        return _to_host(fields.reconstruct(
             _to_device(stacked_np, self.device), L, prime=s.prime_modulus,
             dimension=self.dimension,
         ))

@@ -11,6 +11,7 @@ from .modular import (
     np_modsum,
     uniform_mod,
 )
+from .reveal import reconstruct
 from .sharing import (
     additive_share,
     additive_share_from_randomness,

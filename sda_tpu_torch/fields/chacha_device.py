@@ -179,11 +179,12 @@ def expand_plain(seed_words, counter0: int, dimension: int, modulus: int,
 
 def mask_plain(seed_words, counter0: int, x, modulus: int, out_dtype):
     """The kernel's ``mask`` in plain torch: ([S, d] ``(x + w) mod m`` as
-    ``out_dtype``, [d] int64 ``sum_s w mod m``) for canonical int64
-    residues ``x`` and ``w`` the CHACHA_PRG_V1 windows of the S seeds from
-    block ``counter0``: ``expand_plain`` -> mod add -> mod sum."""
+    ``out_dtype``, [d] int64 ``sum_s w mod m``) for any int64 ``x`` (its
+    floor mod m taken first, the round's residue pass) and ``w`` the
+    CHACHA_PRG_V1 windows of the S seeds from block ``counter0``:
+    ``torch.remainder`` -> ``expand_plain`` -> mod add -> mod sum."""
     masks, _ = _draws_plain(seed_words, counter0, x.shape[1], modulus, False)
-    masked = x + masks
+    masked = torch.remainder(x, modulus) + masks
     masked = torch.where(masked >= modulus, masked - modulus, masked)
     return masked.to(out_dtype), modsum(masks, modulus, axis=0)
 
@@ -278,7 +279,7 @@ def _check_mask_args(seed_words, x, modulus: int, prg: str, out_dtype):
         raise ValueError(f"x must be [S, d] with S = {seed_words.shape[0]}, "
                          f"got {tuple(x.shape)}")
     if x.dtype != torch.int64:
-        raise ValueError(f"x must hold int64 residues, got {x.dtype}")
+        raise ValueError(f"x must be int64, got {x.dtype}")
     if x.device != seed_words.device:
         raise ValueError(f"x on {x.device}, seeds on {seed_words.device}")
     if x.shape[1] % 8:
@@ -305,11 +306,11 @@ def chacha_kernel(op: str, seed_words, *, counter0: int = 0,
       without ``flags``);
     - ``combine``: ([dimension] sum mod ``modulus`` of the S masks from
       block 0, [S] bool rejected);
-    - ``mask``: for ``x`` [S, d] canonical int64 residues mod ``modulus``
-      (d a multiple of 8), ([S, d] ``(x + w) mod m`` as ``out_dtype``,
-      int32 only for m < 2^31, or int64 (None); [d] int64 ``sum_s w mod
-      m``), w the CHACHA_PRG_V1 windows from block ``counter0`` without
-      rejection.
+    - ``mask``: for ``x`` [S, d] int64, any values (the kernel takes
+      their floor mod ``modulus``; d a multiple of 8), ([S, d] ``(x + w)
+      mod m`` as ``out_dtype``, int32 only for m < 2^31, or int64 (None);
+      [d] int64 ``sum_s w mod m``), w the CHACHA_PRG_V1 windows from block
+      ``counter0`` without rejection.
 
     A CUDA tensor launches the kernel (a launch error raises); a CPU tensor
     runs the plain version.
@@ -458,14 +459,15 @@ def stream_residues_at(seed_words, counter0, *, dimension: int,
 
 def mask_residues_at(seed_words, counter0, x, *, modulus: int,
                      out_dtype=None):
-    """The ChaCha mask stage in one K3 pass: [S, 8] seed words and [S, d]
-    canonical int64 residues ``x`` (``d % 8 == 0``) -> ([S, d] ``(x + w)
-    mod modulus`` as ``out_dtype``, int64 when None; [d] int64 ``sum_s w
-    mod modulus``) on the seeds' device, w the CHACHA_PRG_V1 window of
-    each seed from block ``counter0`` (``stream_residues_at``'s, without
-    rejection). Equals the JAX package's ``f.add(x,
-    f.from_u64(stream_u64_at(...)))`` and ``f.sum`` of the masks; no [S,
-    d] mask tensor exists."""
+    """The ChaCha mask stage in one K3 pass: [S, 8] seed words and an [S, d]
+    int64 block ``x`` (``d % 8 == 0``; raw values, reduced in the kernel)
+    -> ([S, d] ``(x + w) mod modulus`` as ``out_dtype``, int64 when None;
+    [d] int64 ``sum_s w mod modulus``) on the seeds' device, w the
+    CHACHA_PRG_V1 window of each seed from block ``counter0``
+    (``stream_residues_at``'s, without rejection). Equals the JAX
+    package's ``f.add(f.to_residues(x), f.from_u64(stream_u64_at(...)))``
+    and ``f.sum`` of the masks; no [S, d] mask tensor and no residue pass
+    exist."""
     return chacha_kernel("mask", seed_words, counter0=counter0,
                          modulus=modulus, x=x, out_dtype=out_dtype)
 

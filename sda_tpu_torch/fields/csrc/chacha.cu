@@ -21,11 +21,12 @@
 // - blocks: [nblocks, 16] keystream words of one key;
 // - expand: [S, d] residues of S streams from block counter0, and flags;
 // - combine: [d] sum mod m of S streams from block 0, and flags;
-// - mask: x [S, d] canonical residues (d a multiple of 8) -> masked =
+// - mask: x [S, d] any int64 (d a multiple of 8) -> masked =
 //   (x + w) mod m as int32 or int64, and mask_sum = sum_s w mod m [d],
 //   where w is the V1 window of each seed from block counter0. One pass:
-//   each element of x is read once, each element of masked written once;
-//   no [S, d] mask exists.
+//   each element of x is read once and reduced mod m in registers (the
+//   residue pass of the round's step folded in: raw_residue), each element
+//   of masked written once; no [S, d] mask exists.
 //
 // What bounds it on this card: integer operations. A block is 20 rounds
 // of 4 quarter-rounds of 4 adds, 4 xors and 4 rotates, 960 operations,
@@ -124,6 +125,7 @@ struct Modulus {
   uint64_t m;     // the modulus, 0 < m < 2^62
   uint64_t mu;    // floor((2^64 - 1) / m)
   uint64_t zone;  // largest draw the host spec accepts
+  uint64_t fold;  // -2^63 mod m (the mask op's raw x)
 };
 
 // Residues mod m in 64-bit words (any m < 2^62) or, with SMALL, 32-bit
@@ -144,7 +146,6 @@ struct Res {
     const T s = a + b;
     return s >= md.m ? s - md.m : s;
   }
-  __device__ __forceinline__ static T from64(uint64_t v) { return v; }
 };
 
 template <>
@@ -163,8 +164,20 @@ struct Res<true> {
     const T s = a + b;  // < 2m < 2^31
     return min(s, s - (T)md.m);
   }
-  __device__ __forceinline__ static T from64(uint64_t v) { return (T)v; }
 };
+
+// The floor mod m of an int64 x given as its 64-bit word w (the mask op's
+// raw input): w with its sign bit flipped is x + 2^63, in [0, 2^64), which
+// the draws' reduction takes exactly; adding md.fold = -2^63 mod m gives
+// x mod m. A fold of the sign by 2^63 costs one xor, where the 32-bit
+// halves' form hi (2^32 mod m) + lo would still leave a 62-bit value to
+// reduce.
+template <bool SMALL>
+__device__ __forceinline__ typename Res<SMALL>::T raw_residue(
+    uint64_t w, const Modulus& md) {
+  using R = Res<SMALL>;
+  return R::add(R::reduce(w ^ (1ull << 63), md), (typename R::T)md.fold, md);
+}
 
 // The keys of seeds [s0, s0 + n), n <= kKeyBatch, into shared memory (two
 // uint4 a seed), by the whole block.
@@ -374,10 +387,10 @@ chacha_combine_kernel(const uint32_t* __restrict__ seeds, int S, int per,
 }
 
 // The mask op on a chunk of seeds (block y: seeds [y * per, (y + 1) *
-// per)): out[s, i] = (x[s, i] + w[s, i]) mod m as int32 (OUT32) or int64,
-// and the chunk's mask sum into sums (y = 0) or partials row y - 1. d is a
-// multiple of 8 (every block whole); x rows are x_stride apart and 16-byte
-// aligned.
+// per)): out[s, i] = (x[s, i] mod m + w[s, i]) mod m as int32 (OUT32) or
+// int64, and the chunk's mask sum into sums (y = 0) or partials row y - 1.
+// d is a multiple of 8 (every block whole); x rows are x_stride apart and
+// 16-byte aligned.
 template <bool OUT32, bool SMALL>
 __global__ void __launch_bounds__(kStrip)
 chacha_mask_kernel(const uint32_t* __restrict__ seeds, int S, int per,
@@ -439,8 +452,8 @@ chacha_mask_kernel(const uint32_t* __restrict__ seeds, int S, int per,
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
         const uint4 t = xt[swz64(4 * lane + q)];
-        v[2 * q] = R::from64(lo64(t));
-        v[2 * q + 1] = R::from64(hi64(t));
+        v[2 * q] = raw_residue<SMALL>(lo64(t), md);
+        v[2 * q + 1] = raw_residue<SMALL>(hi64(t), md);
       }
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
@@ -660,9 +673,9 @@ extern "C" int sda_chacha_combine(const uint32_t* seeds, int S, long long d,
 
 // The mask op: out [S, d] (int32 when out32, which needs m < 2^31, else
 // int64) = (x + w) mod m and sums [d] = sum_s w mod m, w the V1 window of
-// each seed from block counter0; d a multiple of 8; x [S, d] canonical
-// residues with rows x_stride int64 apart, 16-byte aligned; `chunks` and
-// partials as for the combine.
+// each seed from block counter0; d a multiple of 8; x [S, d] any int64
+// (its floor mod m taken in the kernel), rows x_stride int64 apart and
+// 16-byte aligned; `chunks` and partials as for the combine.
 extern "C" int sda_chacha_mask(const uint32_t* seeds, int S,
                                uint32_t counter0, long long d,
                                unsigned long long m, unsigned long long mu,
@@ -681,7 +694,7 @@ extern "C" int sda_chacha_mask(const uint32_t* seeds, int S,
   const long long nblocks = d / 8;
   int per = 0;
   const dim3 grid = strip_grid(nblocks, S, chunks, &per);
-  const Modulus md{m, mu, ~0ull};
+  const Modulus md{m, mu, ~0ull, (m - (1ull << 63) % m) % m};
   dispatch(out32, small(m), [&](auto o32, auto sm) {
     chacha_mask_kernel<decltype(o32)::value, decltype(sm)::value>
         <<<grid, kStrip, 0, stream>>>(seeds, S, per, counter0, d, nblocks, md,

@@ -17,8 +17,9 @@ inputs. Here that kernel is hand-written CUDA for Hopper
   int64 (the port's Solinas algebra), the kernel's yardstick;
 - ``philox_bits``: the words the kernel draws in internal mode, in the
   external-bits layout, so internal mode is bit-comparable as well;
-- ``single_chip_round_pallas``: the round driver (residues, batch
-  columns, the kernel, Lagrange reconstruct, unmask).
+- ``single_chip_round_pallas``: the round driver (residues on K8 unless
+  the inputs are uint32, batch columns, the kernel, then Lagrange
+  reconstruct and unmask in one K7 pass).
 
 The TPU block knobs (``tile``, ``p_block``, ``p_tile``, ``tree_fold``) have
 no counterpart: one CUDA thread owns a column and folds every participant
@@ -50,12 +51,12 @@ from .fastfield import (
     matrix_limbs,
     modadd32,
     modmatmul32_limbs,
-    modsub32,
     modsum32,
-    to_residues32,
     uniform_from_bits,
 )
-from .sharing import batch_columns, packed_reconstruct32, unbatch_columns
+from .residues import residues_int32
+from .reveal import reveal
+from .sharing import batch_columns
 from ..device import resolve_device
 
 _MASK32 = 0xFFFFFFFF
@@ -358,10 +359,10 @@ def _input_words(inputs, sp: SolinasPrime):
 
     uint32 inputs are reinterpreted in place as int32 storage (no copy, no
     pass: the kernel canonicalizes); other integer types are reduced to
-    canonical residues first (negative int32 as in ``to_residues32``)."""
+    int32 canonical residues first, in one K8 pass (``residues``)."""
     if inputs.dtype == torch.uint32:
         return inputs.view(torch.int32)
-    return to_residues32(inputs, sp).to(torch.int32)
+    return residues_int32(inputs, sp)
 
 
 def single_chip_round_pallas(sharing_scheme, masking_scheme=None,
@@ -402,10 +403,9 @@ def single_chip_round_pallas(sharing_scheme, masking_scheme=None,
         seed = int(torch.randint(0, 1 << 62, (), generator=generator))
         shares, mask_tot = fused_mask_share_combine(
             x_cols, seed, sp, m_host, t, masked)
-        total = packed_reconstruct32(shares, l_host, sp, dimension=d)
-        if masked:
-            total = modsub32(total, unbatch_columns(mask_tot, d), sp)
-        return total
+        # reconstruct + unmask: one K7 pass, the mask totals read batched
+        return reveal(shares, l_host, sp, dimension=d,
+                      mask=mask_tot if masked else None)
 
     if dim_tile is None:
         tiled = None

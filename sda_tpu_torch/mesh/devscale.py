@@ -50,6 +50,7 @@ from .simpod import (
     _check_mask_modulus,
     _check_masking_supported,
     _dim_grain,
+    _fold_input,
     _fold_stage,
     _normalize_survivors,
     _pod_mesh,
@@ -260,7 +261,8 @@ class ModelScaleRound:
                     dev = self.mesh.devices[pi, di]
                     blk = inputs[pi * P_loc:(pi + 1) * P_loc,
                                  di * d_loc + lo:di * d_loc + hi].to(dev)
-                    x = f.to_residues(blk)
+                    x = _fold_input(f, self.masking, self.pallas_active,
+                                    blk)
                     if hi - lo < width:  # zero columns aggregate as zero
                         x = torch.cat([x, x.new_zeros(
                             (P_loc, width - (hi - lo)))], dim=1)

@@ -54,6 +54,8 @@ from ..benchmarks import bounds
 from ..device import resolve_device
 from ..fields import (chacha_device, fastfield, fused_round, modular,
                       numtheory, sharing)
+from ..fields.residues import residues_int32
+from ..fields.reveal import reconstruct
 from ..fields.ops import FieldOps
 from ..obs import devprof
 from ..utils import timed_phase
@@ -174,10 +176,25 @@ def _chacha_seed_words(round_seed: int, global_ids, seed_bitsize: int):
 
 
 # ---------------------------------------------------------------------------
-# Round stages. Every function takes canonical int64 residues.
+# Round stages. Every function takes what ``_fold_input`` makes of a block:
+# canonical residues, but for ChaCha masks, which reduce the raw block.
+
+def _fold_input(f: FieldOps, masking, pallas: bool, block):
+    """A block of integer inputs as the fold stage takes it, with the
+    residue pass folded into the kernel that reads the block where there is
+    one: ChaCha masks take the raw block as int64 (the same values; K3's
+    mask op takes their floor mod m in registers), the K1 lane without them
+    K8's int32 residues (``fields.residues``), the plain lane
+    ``f.to_residues``' int64 ones."""
+    if isinstance(masking, ChaChaMasking):
+        return block.to(torch.int64)
+    if pallas:
+        return residues_int32(block, f.sp)
+    return f.to_residues(block)
+
 
 def _chacha_mask(f: FieldOps, seeds, d_block0: int, x, out_dtype=None):
-    """[S, 8] seed words and [S, d_loc] residues -> (x + masks as
+    """[S, 8] seed words and an [S, d_loc] int64 block -> (x + masks as
     ``out_dtype``, int64 when None; the masks' sum [d_loc]), the masks the
     window of each CHACHA_PRG_V1 stream at block ``d_block0`` (= dim
     offset / 8): K3's fused mask op, one pass with no [S, d_loc] mask."""
@@ -234,19 +251,6 @@ def _share_sum_stage(scheme, f: FieldOps, M_host, masked, generator):
     return torch.cat([dsum, last[None, :]], dim=0)
 
 
-def _reconstruct_stage(scheme, f: FieldOps, L_host, gathered, d_loc: int):
-    """[n, B] clerk rows -> [d_loc] masked totals."""
-    if isinstance(scheme, SHAMIR_SCHEMES):
-        if f.sp is not None:
-            return sharing.packed_reconstruct32(
-                gathered, L_host, f.sp, dimension=d_loc
-            )
-        return sharing.packed_reconstruct(
-            gathered, L_host, prime=scheme.prime_modulus, dimension=d_loc,
-        )
-    return f.sum(gathered, axis=0)  # additive: plain share sum
-
-
 def _pallas_supported(scheme, masking, f: FieldOps) -> bool:
     """K1 serves packed Shamir over a Solinas prime with any masking in the
     lattice. None/Full draw inside the kernel; ChaCha masks are expanded
@@ -275,8 +279,9 @@ def _resolve_pallas(scheme, masking, f: FieldOps, use_pallas: bool,
 
 def _pallas_stage(scheme, f: FieldOps, M_host, masking, x, seed: int, *,
                   round_seed=None, pid_base: int = 0, d_block0: int = 0):
-    """[S, d_loc] canonical residues -> (combined shares [n, B0], mask sum
-    [d_loc] | None) on K1 (``fields.fused_round``), keyed by ``seed``.
+    """[S, d_loc] block from ``_fold_input`` -> (combined shares [n, B0],
+    mask sum [d_loc] | None) on K1 (``fields.fused_round``), keyed by
+    ``seed``.
 
     Drop-in replacement for the _mask_stage + _share_sum_stage pair: the
     round result is exact for ANY mask/share randomness — masks cancel in
@@ -308,12 +313,12 @@ def _pallas_stage(scheme, f: FieldOps, M_host, masking, x, seed: int, *,
 def _fold_stage(scheme, f: FieldOps, M_host, masking, pallas: bool, x,
                 seed: int, *, round_seed=None, pid_base: int = 0,
                 d_block0: int = 0):
-    """[S, d_loc] canonical residues -> (participant-summed shares [n, B],
-    mask sum [d_loc] | None), keyed by ``seed``: K1 when ``pallas``, else
-    the plain mask and share stages drawing from a generator on ``x``'s
-    device seeded with ``seed``. ``pid_base`` and ``d_block0`` locate the
-    block in the global ChaCha streams, so every tiling of a round sees
-    the same masks."""
+    """[S, d_loc] block from ``_fold_input`` -> (participant-summed shares
+    [n, B], mask sum [d_loc] | None), keyed by ``seed``: K1 when
+    ``pallas``, else the plain mask and share stages drawing from a
+    generator on ``x``'s device seeded with ``seed``. ``pid_base`` and
+    ``d_block0`` locate the block in the global ChaCha streams, so every
+    tiling of a round sees the same masks."""
     if pallas:
         return _pallas_stage(scheme, f, M_host, masking, x, seed,
                              round_seed=round_seed, pid_base=pid_base,
@@ -330,7 +335,8 @@ def _fold_stage(scheme, f: FieldOps, M_host, masking, pallas: bool, x,
 
 def _scan_combine(f: FieldOps, scheme, masking, M_host, x, seed: int,
                   round_seed, pid0: int, dblk0: int, chunk: int):
-    """[P, d] canonical residues -> (acc_shares [n, B], acc_mask [d] | None).
+    """[P, d] block from ``_fold_input`` -> (acc_shares [n, B], acc_mask
+    [d] | None).
 
     Folds participants in blocks of ``chunk`` rows: the live share
     randomness is [chunk, t, B] instead of [P, t, B]. Block i draws from a
@@ -426,16 +432,14 @@ def single_chip_round(
     # blocks (8 u64 draws) — the same grain as the reference
     grain = scheme.input_size * 8 // math.gcd(scheme.input_size, 8)
 
-    def one_tile(x, generator, d_loc, round_seed=None, d_block0=0):
+    def one_tile(blk, generator, d_loc, round_seed=None, d_block0=0):
+        x = _fold_input(f, masking, False, blk)
         masked, mask_total = _mask_stage(
             masking, f, x, generator, round_seed=round_seed,
             d_block0=d_block0)
         # share + clerk combine fused via linearity (see _share_sum_stage)
         combined = _share_sum_stage(scheme, f, M_host, masked, generator)
-        masked_total = _reconstruct_stage(scheme, f, L_host, combined, d_loc)
-        if mask_total is None:
-            return f.to_int64(masked_total)
-        return f.to_int64(f.sub(masked_total, mask_total))
+        return _reveal(scheme, f, L_host, None, combined, mask_total, d_loc)
 
     def round_fn(inputs, generator: torch.Generator):
         if generator.device.type != dev.type:
@@ -444,15 +448,13 @@ def single_chip_round(
         inputs = torch.as_tensor(inputs, device=dev)
         round_seed = _round_seed(generator) if chacha else None
         if dim_tile is None:
-            return one_tile(f.to_residues(inputs), generator,
-                            inputs.shape[1], round_seed)
+            return one_tile(inputs, generator, inputs.shape[1], round_seed)
         from ..fields.dimtile import scan_dim_tiles
 
         # per-tile residue conversion keeps the int64 working set to a tile
         return scan_dim_tiles(
             lambda blk, generator, i, width: one_tile(
-                f.to_residues(blk), generator, width, round_seed,
-                i * (width // 8)),
+                blk, generator, width, round_seed, i * (width // 8)),
             grain, dim_tile)(inputs, generator)
 
     return round_fn
@@ -607,10 +609,17 @@ def _reveal(scheme, f: FieldOps, L_host, survivors, gathered, mask_total,
             d_loc: int):
     """Gathered [n, B] clerk rows (and the [d_loc] mask total) -> [d_loc]
     int64 aggregate. A quorum reveal reads the surviving rows of the
-    GATHERED clerk axis."""
+    GATHERED clerk axis. Shamir reveals through ``fields.reveal``'s
+    ``reconstruct`` (over a Solinas prime one K7 pass, whichever lane the
+    round's sums ran on: the surviving rows read in place, the canonical
+    mask total subtracted there); additive sharing sums the rows."""
+    if isinstance(scheme, SHAMIR_SCHEMES):
+        return reconstruct(gathered, L_host, prime=scheme.prime_modulus,
+                           dimension=d_loc, mask=mask_total,
+                           rows_index=survivors)
     if survivors is not None:
         gathered = gathered[list(survivors)]
-    total = _reconstruct_stage(scheme, f, L_host, gathered, d_loc)
+    total = f.sum(gathered, axis=0)
     if mask_total is None:
         return f.to_int64(total)
     return f.to_int64(f.sub(total, mask_total))
@@ -756,7 +765,8 @@ class SimulatedPod:
             for di in range(d_shards):
                 block = inputs[j * P_loc:(j + 1) * P_loc,
                                di * d_loc:(di + 1) * d_loc]
-                x = f.to_residues(block.to(self.mesh.devices[pi, di]))
+                x = _fold_input(f, self.masking, self.pallas_active,
+                                block.to(self.mesh.devices[pi, di]))
                 # per-shard randomness; ChaCha seeds key on global ids
                 s, m = self._local_round(
                     x, _tile_seed(round_seed, pi, di), round_seed,

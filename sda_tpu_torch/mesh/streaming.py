@@ -54,11 +54,11 @@ from .simpod import (
     _check_mask_modulus,
     _check_masking_supported,
     _dim_grain,
+    _fold_input,
     _fold_ops,
     _fold_stage,
     _normalize_survivors,
     _pod_mesh,
-    _reconstruct_stage,
     _resolve_pallas,
     _reveal,
     _reveal_ops,
@@ -458,24 +458,22 @@ class StreamingAggregator:
         # tile's seed; pid0/dblk0 locate the tile in the ChaCha streams
         shares, mask_sum = _fold_stage(
             self.scheme, f, self._M_host, self.masking, self.pallas_active,
-            f.to_residues(block), tile_seed, round_seed=round_seed,
-            pid_base=pid0, d_block0=dblk0)
+            _fold_input(f, self.masking, self.pallas_active, block),
+            tile_seed, round_seed=round_seed, pid_base=pid0,
+            d_block0=dblk0)
         acc_shares = f.add(acc_shares, shares)
         if mask_sum is not None:
             acc_mask = f.add(acc_mask, mask_sum)
         return acc_shares, acc_mask
 
     def _final(self, acc_shares, acc_mask):
-        """[n, B] share and [d_size] mask accumulators -> [d_size] int64."""
-        s, f = self.scheme, self._field
-        d_size = acc_mask.shape[0]
-        if self.surviving_clerks is not None:
-            # clerk dropout: reveal from the quorum's rows only
-            acc_shares = acc_shares[list(self.surviving_clerks), :]
-        total = _reconstruct_stage(s, f, self._L_host, acc_shares, d_size)
-        if not isinstance(self.masking, NoMasking):
-            total = f.sub(total, acc_mask)
-        return f.to_int64(total)
+        """[n, B] share and [d_size] mask accumulators -> [d_size] int64
+        (K7 for Shamir over a Solinas prime; a clerk dropout reveals from
+        the quorum's rows only)."""
+        masked = not isinstance(self.masking, NoMasking)
+        return _reveal(self.scheme, self._field, self._L_host,
+                       self.surviving_clerks, acc_shares,
+                       acc_mask if masked else None, acc_mask.shape[0])
 
     # -- counted costs (obs.devprof) ---------------------------------------
     def _step_ops(self, block, *_args) -> int:
@@ -665,8 +663,9 @@ class StreamedPod:
         for j, pi in enumerate(comm.p_rows):
             for di in range(d_shards):
                 dev = self.mesh.devices[pi, di]
-                x = f.to_residues(block[j * Pc_loc:(j + 1) * Pc_loc,
-                                        di * d_loc:(di + 1) * d_loc].to(dev))
+                x = _fold_input(f, masking, self.pallas_active,
+                                block[j * Pc_loc:(j + 1) * Pc_loc,
+                                      di * d_loc:(di + 1) * d_loc].to(dev))
                 shares, mask_sum = _fold_stage(
                     s, f, self._M_host, masking, self.pallas_active, x,
                     _tile_seed(tile_seed, pi, di), round_seed=round_seed,

@@ -80,13 +80,13 @@ def test_large_committee_one_reconstruct_shape(monkeypatch):
     survivors."""
     monkeypatch.setattr(sharing, "HOST_PATH_MAX", 0)
     shapes = []
-    contraction = fields.packed_reconstruct
+    contraction = fields.reconstruct
 
     def recorded(shares, recon_matrix, **kw):
         shapes.append(tuple(shares.shape))
         return contraction(shares, recon_matrix, **kw)
 
-    monkeypatch.setattr(fields, "packed_reconstruct", recorded)
+    monkeypatch.setattr(fields, "reconstruct", recorded)
 
     t, p, w2, w3 = numtheory.generate_packed_params(3, 80, 20)
     s = PackedShamirSharing(3, 80, t, p, w2, w3)
