@@ -17,8 +17,11 @@ column instances of the ``batch_columns`` layout with internal draws, with
 26-clerk committee's k=7, t=8) or set at run time under k + t <= 8 or 16,
 masked and unmasked; the external-bits one; the generic one (any other
 layout). Each is held to the plain version (the column instances of other
-schemes at the main path's sizes too, and timed beside their bounds) and
-its registers, spills and resident warps an SM are printed. Each kernel's
+schemes at the main path's sizes too, and timed beside their bounds), and
+again into accumulators near p - 1 (the accumulate options a streamed
+step runs it with, written in place; the streamed tile's call timed
+fresh and into its accumulator), and its registers, spills and resident
+warps an SM are printed. Each kernel's
 operation bound is counted from the algorithm's work
 (``sda_tpu_torch/benchmarks/bounds.py``), beside the count K1's first
 CUDA version used; the participant loop's SASS opcode mix (``cuobjdump
@@ -40,8 +43,11 @@ its plain version and to the host spec (``fields.chacha``) for both
 PRGs, four moduli (one that forces the host replay), several widths and
 stream windows, its mask op (the round's ChaCha mask stage in one pass)
 at 1, 5 and 250 seeds of 8, 1,000,008 and 3,145,728 columns from three
-block counters (one wraps), int32 and int64 out; each operation timed
-beside its bound at the main path's shapes; the role crypto with ChaCha
+block counters (one wraps), int32 and int64 out, and in its derived mode
+(the seeds' keys from the round seed and the first global id, in the
+kernel: 32, 128 and 256 seed bits, ids across 2^32) fresh and into an
+accumulator near m - 1; each operation timed beside its bound at the
+main path's shapes, the mask op in both modes; the role crypto with ChaCha
 masks (P=50 x 1,000,008); ``single_chip_round`` with ChaCha masks (one
 mask op); K6, the device block provider's coordinate hash
 (``csrc/blockgen.cu``): its ptxas line (a spill fails), held to its
@@ -86,7 +92,11 @@ torch record with no comparable history), the instrumented round against
 the bare one with cost capture off and on, and the streamed round once
 more with cost capture and the profiler on for its peak device memory,
 busy share and device time by part (K3, K1, K6, the rest of the block
-provider, the rest). Then the multi-device modes: ``SimulatedPod`` at the
+provider, the rest), and its device events a tile by kernel name, which
+must be the block provider's, the mask op's (and its fold's) and the
+fused kernel's alone besides copies; no path of phases 14, 15, 17, 18
+and 22 may derive ChaCha seed words on the host. Then the multi-device
+modes: ``SimulatedPod`` at the
 flagship width on the card's 1x1 mesh and on a virtual 4x2 mesh
 (``[cuda:0] * 8``)
 with Full, ChaCha and no masks, on K1 and on the plain lane, and a quorum
@@ -244,6 +254,12 @@ K3_KERNELS = {"blocks": "chacha_blocks_kernel",
 K3_MASK_SEEDS = (1, 5, 250)
 K3_MASK_DIMS = (8, 1_000_008, 3_145_728)
 K3_MASK_COUNTERS = (0, 12_345, (1 << 32) - 2)
+#: the mask op's derived mode (phase 12): seed bits and first global ids
+#: (the last makes the tile's ids cross 2^32), held at these seeds and
+#: widths with and without an accumulator near m - 1
+K3_DERIVED_BITS = (32, 128, 256)
+K3_DERIVED_BASES = (0, 12_345, (1 << 32) - 3)
+K3_DERIVED_SHAPES = ((1, 8), (5, 96), (250, 1_000_008))
 #: the ChaCha phases' width (13-14): a whole number of ChaCha blocks
 D_CHACHA = 1_000_008
 #: the streamed round (phase 15): participants, dimension, participant
@@ -633,9 +649,42 @@ def _k3_reset():
     from sda_tpu_torch.fields import chacha_device
 
     k3 = chacha_device.chacha_kernel
-    k3.launches = 0
+    k3.launches = k3.derived_launches = 0
     k3.op_launches.update(dict.fromkeys(chacha_device.OPS, 0))
     return k3
+
+
+#: calls of the port's ChaCha seed-word derivation (the plain version of
+#: K3's derived keys), by the paths this script drives; holds call
+#: ``_SEED_WORDS["plain"]``, which is not counted
+_SEED_WORDS = {"plain": None, "calls": 0}
+
+
+def _count_seed_words():
+    """Wrap ``chacha_device.chacha_seed_words`` and its ``simpod`` name in
+    a counter (once); returns the count so far. On a card no path may call
+    it: K3's mask op derives the keys itself."""
+    from sda_tpu_torch.fields import chacha_device
+    from sda_tpu_torch.mesh import simpod
+
+    if _SEED_WORDS["plain"] is None:
+        plain = _SEED_WORDS["plain"] = chacha_device.chacha_seed_words
+
+        def counted(*args, **kwargs):
+            _SEED_WORDS["calls"] += 1
+            return plain(*args, **kwargs)
+        chacha_device.chacha_seed_words = counted
+        simpod._chacha_seed_words = counted
+    return _SEED_WORDS["calls"]
+
+
+def _seed_words(round_seed, ids, bits):
+    """The seed words of participants ``ids`` (the plain version, not
+    counted by ``_count_seed_words``)."""
+    from sda_tpu_torch.fields import chacha_device
+
+    fn = _SEED_WORDS["plain"] or chacha_device.chacha_seed_words
+    return fn(round_seed, ids, bits)
 
 
 def _host_window(seed, counter0, d, m):
@@ -651,30 +700,39 @@ def _host_window(seed, counter0, d, m):
 
 
 def _k3_window(case, dev, round_seed, p0, rows, counter0, width, modulus,
-               seed_bits=128, x=None, out_dtype=None):
+               seed_bits=128, x=None, out_dtype=None, acc=False):
     """K3's mask op at a shape and block counter a round launched it with,
-    on the seed words that round derived (``simpod``'s, from
-    ``round_seed`` and participant ids ``p0 ..``) and on ``x`` (the
-    round's residues there; random ones below the modulus when None),
-    held to the plain version with ``torch.equal``: the masked rows as
-    ``out_dtype`` (int64 when None) and the mask sum. ChaCha masks cancel
-    inside a round, so the round's exact sum cannot see a wrong window;
-    this check can. Returns the max |error| (0 when equal)."""
+    in the derived mode the round ran (the keys of participants ``p0 ..``
+    under ``round_seed`` derived in the kernel), on ``x`` (the round's
+    residues there; random ones below the modulus when None) and, with
+    ``acc``, into an accumulator of random residues (as a streamed step
+    adds), held to the plain version (``chacha_seed_words`` then
+    ``mask_plain``) with ``torch.equal``: the masked rows as ``out_dtype``
+    (int64 when None) and the mask sum. ChaCha masks cancel inside a
+    round, so the round's exact sum cannot see a wrong window; this check
+    can. Returns the max |error| (0 when equal)."""
     import torch
 
     from sda_tpu_torch.fields import chacha_device as cd
-    from sda_tpu_torch.mesh import simpod
 
     ids = p0 + torch.arange(rows, dtype=torch.int64, device=dev)
-    sw = simpod._chacha_seed_words(round_seed, ids, seed_bits)
+    sw = _seed_words(round_seed, ids, seed_bits)
+    gen = torch.Generator(device=dev).manual_seed(p0 + counter0)
     if x is None:
         x = torch.randint(0, modulus, (rows, width), dtype=torch.int64,
-                          device=dev, generator=torch.Generator(
-                              device=dev).manual_seed(p0 + counter0))
+                          device=dev, generator=gen)
     dtype = torch.int64 if out_dtype is None else out_dtype
-    got = cd.mask_residues_at(sw, counter0, x, modulus=modulus,
-                              out_dtype=dtype)
-    want = cd.mask_plain(sw, counter0, x, modulus, dtype)
+    acc_got = acc_want = None
+    if acc:
+        acc_got = torch.randint(0, modulus, (width,), dtype=torch.int64,
+                                device=dev, generator=gen)
+        acc_want = acc_got.clone()
+    got = cd.mask_residues_derived(round_seed, p0, seed_bits, counter0, x,
+                                   modulus=modulus, out_dtype=dtype,
+                                   acc_mask=acc_got)
+    want = cd.mask_plain(sw, counter0, x, modulus, dtype, acc_want)
+    _check(not acc or got[1].data_ptr() == acc_got.data_ptr(),
+           f"{case}: the mask op's accumulate did not write in place")
     err = 0
     for g, w, what in zip(got, want, ("masked rows", "mask sum")):
         _check(g.shape == w.shape and g.dtype == w.dtype,
@@ -685,7 +743,8 @@ def _k3_window(case, dev, round_seed, p0, rows, counter0, width, modulus,
     _check(err == 0, f"{case}: K3 mask [{rows}, {width}] of participants "
            f"{p0}.. at counter0={counter0} != plain (max |err| {err})")
     print(f"  {case}: K3 mask [{rows}, {width}] {dtype} of participants "
-          f"{p0}.. at counter0={counter0}: equal to plain")
+          f"{p0}.. at counter0={counter0}, derived keys"
+          f"{', into an accumulator' if acc else ''}: equal to plain")
     return err
 
 
@@ -766,10 +825,64 @@ def _k3_mask_holds(dev, p, equal, seeds=K3_MASK_SEEDS, dims=K3_MASK_DIMS,
     return plain_ms
 
 
+def _k3_derived_holds(dev, p, equal, bits=K3_DERIVED_BITS,
+                      bases=K3_DERIVED_BASES, shapes=K3_DERIVED_SHAPES):
+    """Phase 12: K3's mask op in its derived mode (the seeds' keys from the
+    round seed and the first global id, in the kernel) against its plain
+    version (``chacha_seed_words`` then ``mask_plain``) with
+    ``torch.equal`` at every first id and shape, every seed width (the
+    widest shape at 128 bits only), int32 and int64 out, fresh and into an
+    accumulator near m - 1 (written in place)."""
+    import torch
+
+    from sda_tpu_torch.fields import chacha_device as cd
+
+    gen = torch.Generator(device=dev).manual_seed(20)
+    round_seed = (1 << 62) - 12_345  # both key words in use
+    cases = 0
+    for S, d in shapes:
+        x = torch.randint(-(1 << 62), 1 << 62, (S, d), dtype=torch.int64,
+                          device=dev, generator=gen)  # raw, as a step's
+        near = p - 1 - torch.randint(0, 3, (d,), dtype=torch.int64,
+                                     device=dev, generator=gen)
+        for b in (bits if S * d < 1 << 20 else (128,)):
+            for base in bases:
+                ids = base + torch.arange(S, dtype=torch.int64, device=dev)
+                c0 = (base * 7) & 0xFFFFFFFF
+                masked, total = cd.mask_plain(_seed_words(round_seed, ids, b),
+                                              c0, x, p, torch.int64)
+                for dtype in (torch.int32, torch.int64):
+                    for acc in (False, True):
+                        case = (f"derived mask S={S} d={d} bits={b} "
+                                f"pid_base={base} {dtype}"
+                                f"{' acc' if acc else ''}")
+                        a_got = near.clone() if acc else None
+                        got = cd.mask_residues_derived(
+                            round_seed, base, b, c0, x, modulus=p,
+                            out_dtype=dtype, acc_mask=a_got)
+                        _check(got[0].dtype == dtype,
+                               f"{case}: masked {got[0].dtype}")
+                        _check(not acc or got[1].data_ptr()
+                               == a_got.data_ptr(),
+                               f"{case}: accumulator not written in place")
+                        equal(f"{case} masked", got[0], masked)
+                        equal(f"{case} sum", got[1],
+                              (near + total) % p if acc else total)
+                        cases += 1
+                        del got
+                del masked, total
+        del x
+        _empty_cache(dev)
+    print(f"  derived mask: {cases} cases (bits {list(bits)}, pid_base "
+          f"{list(bases)}, shapes {list(shapes)}, int32 and int64, with and "
+          "without an accumulator near m - 1): equal to plain")
+
+
 def chacha_kernels(dev, p, lib_path, ptxas_log, cuobjdump, dims=K3_DIMS,
                    s_combine=S_COMBINE, s_big=S_BIG, d_big=D_CHACHA,
                    mask_seeds=K3_MASK_SEEDS, mask_dims=K3_MASK_DIMS,
-                   tile=(STREAM_CHUNK, D_TILE)):
+                   tile=(STREAM_CHUNK, D_TILE),
+                   derived_shapes=K3_DERIVED_SHAPES):
     """Phase 12: K3 against its plain version (on the same device) and the
     host spec (numpy ``fields.chacha``, or the native C++ for the combine
     at full width), exactly, for both PRGs, and its mask op against its
@@ -885,6 +998,12 @@ def chacha_kernels(dev, p, lib_path, ptxas_log, cuobjdump, dims=K3_DIMS,
     t_mask = time.perf_counter()
     mask_plain_ms = _k3_mask_holds(dev, p, equal, mask_seeds, mask_dims,
                                    timed=(*tile, 12_345))
+    _k3_derived_holds(dev, p, equal, shapes=derived_shapes)
+    # the derived mode at the streamed tile, ids across 2^32, into an
+    # accumulator: the streamed step's call
+    _k3_window(f"streamed tile [{tile[0]}, {tile[1]}]", dev, 15,
+               (1 << 32) - tile[0] // 2, tile[0], 12_345, tile[1], p,
+               out_dtype=torch.int32, acc=True)
     gen = torch.Generator(device=dev)
     tile_words = torch.randint(0, 1 << 32, (tile[0], 8), dtype=torch.int64,
                                device=dev, generator=gen.manual_seed(13))
@@ -942,7 +1061,20 @@ def chacha_kernels(dev, p, lib_path, ptxas_log, cuobjdump, dims=K3_DIMS,
             mask_plain_ms if size == 4 else None,
             k3_bound(tile[0], tile[1], "mask", size),
             f"[{tile[0]}, {tile[1]}] {dtype}")
-    del x, tile_words
+    # the derived mode into an accumulator, as the streamed step runs it
+    # (the plain version: chacha_seed_words, mask_plain, the in-place add)
+    acc = torch.zeros(tile[1], dtype=torch.int64, device=dev)
+    derived_plain_ms = median_ms(lambda: cd.mask_plain(
+        _seed_words(15, torch.arange(tile[0], device=dev), 128), 12_345, x,
+        p, torch.int32, acc), dev, reps=1, warmup=0)
+    record("mask_derived", timed(lambda: cd.mask_residues_derived(
+        15, 0, 128, 12_345, x, modulus=p, out_dtype=torch.int32,
+        acc_mask=acc)), derived_plain_ms,
+        k3_bound(tile[0], tile[1], "mask", 4, derived=True,
+                 accumulate=True),
+        f"[{tile[0]}, {tile[1]}] int32, derived keys, accumulate",
+        ptxas=ptxas.get("mask"), seed_loop=loops.get("mask"))
+    del x, tile_words, acc
     _empty_cache(dev)
     plain_ms = median_ms(lambda: cd.combine_plain(sw, d_big, p, prg), dev,
                          reps=3, warmup=1)
@@ -988,6 +1120,7 @@ def chacha_round(dev, P, D, seed=0):
     fn = single_chip_round(scheme, ChaChaMasking(p, D, 128), device=dev)
     gen = torch.Generator(device=dev).manual_seed(seed)
     k3 = _k3_reset()
+    seed0 = _count_seed_words()
     out = fn(inputs, gen)
     launches = dict(k3.op_launches)
     _check(out.dtype == torch.int64 and out.shape == (D,),
@@ -995,8 +1128,10 @@ def chacha_round(dev, P, D, seed=0):
     _check(torch.equal(out, expect), "ChaCha round: != column sum mod p")
     on_card = dev.type == "cuda"
     _check(not on_card or (launches["mask"] == 1 and
-                           launches["expand"] == 0),
-           f"ChaCha round: K3 launches {launches}, want one mask op")
+                           launches["expand"] == 0 and
+                           k3.derived_launches == 1),
+           f"ChaCha round: K3 launches {launches} ({k3.derived_launches} "
+           "derived), want one mask op deriving its keys")
     # the mask op the round ran: its round seed is the generator's first
     # draw, its participants 0..P-1, its counter 0, its x the inputs
     from sda_tpu_torch.mesh import simpod
@@ -1007,7 +1142,11 @@ def chacha_round(dev, P, D, seed=0):
                      x=inputs.to(torch.int64))
     ms = _median_ms(lambda: fn(inputs, gen), reps=5, warmup=1) \
         if on_card else None
+    seed_calls = _count_seed_words() - seed0
+    _check(not on_card or seed_calls == 0, f"ChaCha round: the seed words "
+           f"derived on the host {seed_calls} times")
     return {"stage": "chacha_round", "participants": P, "dim": D,
+            "seed_word_calls": seed_calls,
             "exact": True, "k3_launches": launches,
             "k3_window_max_abs_err": err, "round_ms": ms,
             "elements_per_s": None if ms is None else P * D / (ms / 1e3)}
@@ -1399,12 +1538,15 @@ def streamed_round(dev, P, D, chunk, fold_rows=FOLD_ROWS,
         torch.cuda.synchronize(dev)
         base = torch.cuda.memory_allocated(dev)
         torch.cuda.reset_peak_memory_stats(dev)
+    seed_calls0 = _count_seed_words()
     t0 = time.perf_counter()
     out = agg.aggregate_blocks(prov, P, D, seed=round_seed)
     wall = time.perf_counter() - t0
+    seed_calls = _count_seed_words() - seed_calls0
     peak = (torch.cuda.max_memory_allocated(dev) - base) if on_card else None
     phases = _phases(utils)
     k1_launches, k3_launches = dict(K1.instance_launches), dict(k3.op_launches)
+    k3_derived = k3.derived_launches
     k6_round, k7_round, k8_round = k6.launches, k7.launches, k8.launches
     dc = agg.dim_chunk
     tiles = -(-P // chunk) * -(-D // dc)
@@ -1438,9 +1580,13 @@ def streamed_round(dev, P, D, chunk, fold_rows=FOLD_ROWS,
         _check(K1.launches == tiles and unmasked == tiles,
                f"streamed round: K1 instances {k1_launches}, want {tiles} "
                "on columns_unmasked")
-        _check(k3_launches["mask"] == tiles and k3_launches["expand"] == 0,
-               f"streamed round: K3 launches {k3_launches}, want {tiles} "
-               "mask ops and no expand")
+        _check(k3_launches["mask"] == tiles and k3_launches["expand"] == 0
+               and k3_derived == tiles,
+               f"streamed round: K3 launches {k3_launches} "
+               f"({k3_derived} derived), want {tiles} mask ops "
+               "deriving their keys and no expand")
+        _check(seed_calls == 0, f"streamed round: the seed words derived "
+               f"on the host {seed_calls} times")
         # the mask ops read the raw blocks (phase 17's trace of this round
         # holds no residue pass); one K7 finale a dim tile; no K8 on the
         # ChaCha lane
@@ -1467,7 +1613,7 @@ def streamed_round(dev, P, D, chunk, fold_rows=FOLD_ROWS,
         x[:, :d1 - d0] = prov(p0, p0 + rows, d0, d1)  # raw, as the round
         err = max(err, _k3_window("streamed round", dev, round_seed, p0,
                                   rows, d0 // 8, width, p, x=x,
-                                  out_dtype=torch.int32))
+                                  out_dtype=torch.int32, acc=True))
         del x
         _empty_cache(dev)
     # the device-tile clerk fold
@@ -1492,6 +1638,8 @@ def streamed_round(dev, P, D, chunk, fold_rows=FOLD_ROWS,
             "out_sha256": hashlib.sha256(out.tobytes()).hexdigest(),
             "phases_s": phases,
             "k1_launches": k1_launches, "k3_launches": k3_launches,
+            "k3_derived_launches": k3_derived,
+            "seed_word_calls": seed_calls,
             "k3_window_max_abs_err": err, "k6_launches": k6_round,
             "k6_launches_oracle": k6_oracle, "k6_max_abs_err": k6_err,
             "k7_launches": k7_round, "k8_launches": k8_round,
@@ -1657,7 +1805,7 @@ def streamed_profile(dev, P, D, chunk, out_sha256):
     byte for byte, and K6 must have launched once a tile. Returns the
     phase's JSON record."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     from sda_tpu_torch.mesh import (StreamingAggregator,
                                     synthetic_device_block_provider32)
@@ -1675,12 +1823,20 @@ def streamed_profile(dev, P, D, chunk, out_sha256):
     devprof.enable_cost_analysis()
     k6 = _k6_reset()
     k7, _ = _k7_k8_reset()
+    seed_calls0 = _count_seed_words()
     activities = [ProfilerActivity.CPU]
     if dev.type == "cuda":
         activities.append(ProfilerActivity.CUDA)
     try:
         with tempfile.TemporaryDirectory() as tmp:
-            with profile(activities=activities) as prof:
+            # a warm-up step first, so the device's tracing runs before the
+            # round starts (a trace started cold can miss the first tiles)
+            with profile(activities=activities,
+                         schedule=schedule(wait=0, warmup=1, active=1)
+                         ) as prof:
+                torch.ones(1, device=dev).add_(1)
+                _sync(dev)
+                prof.step()
                 t0 = time.perf_counter()
                 out = agg.aggregate_blocks(prov, P, D, seed=15)
                 wall = time.perf_counter() - t0
@@ -1713,6 +1869,37 @@ def streamed_profile(dev, P, D, chunk, out_sha256):
         {"block provider": "stream.feed"}).items()}
     remainder_events = sum(st["count"] for name, st in stats.items()
                            if "remainder" in name.lower())
+    # the device events a tile: what the hosts' ``stream.feed`` and
+    # ``stream.dispatch`` ranges launched, by name; the step is the
+    # reference's one donated program, so K6, K3's mask op (and its fold)
+    # and K1 launch there, and nothing else but copies
+    step_kernels = {"K6": K6_KERNEL, "K3 mask": "chacha_mask_kernel",
+                    "K3 fold": "chacha_fold_kernel", "K1": "fused_round"}
+    per_tile = collections.Counter()
+    for names in traceparse.device_events_in(
+            trace, {"feed": "stream.feed", "step": "stream.dispatch"}
+    ).values():
+        per_tile.update(names)
+    per_tile = {name: count / tiles for name, count in per_tile.items()}
+    by_kernel = {group: sum(c for name, c in per_tile.items() if hint in name)
+                 for group, hint in step_kernels.items()}
+    others = {name: c for name, c in per_tile.items()
+              if not any(h in name for h in step_kernels.values())
+              and not name.startswith(("gpu_memcpy", "gpu_memset"))}
+    if dev.type == "cuda":
+        _check(not others, f"streamed round under the profiler: a tile "
+               f"launches {others} beside K6, K3 and K1")
+        _check(all(by_kernel[g] == 1 for g in ("K6", "K3 mask", "K1")),
+               f"streamed round under the profiler: a tile's K6, K3 mask "
+               f"and K1 events {by_kernel}, want one each (the whole "
+               f"trace's: " + str({g: sum(st["count"] for name, st in
+                                        stats.items() if h in name)
+                                   for g, h in step_kernels.items()})
+               + f" in {tiles} tiles)")
+    seed_calls = _count_seed_words() - seed_calls0
+    _check(dev.type != "cuda" or seed_calls == 0,
+           f"streamed round under the profiler: the seed words derived on "
+           f"the host {seed_calls} times")
     _check(remainder_events == 0, f"streamed round under the profiler: "
            f"{remainder_events} device kernels named remainder (a residue "
            "pass the mask op should have folded)")
@@ -1723,6 +1910,10 @@ def streamed_profile(dev, P, D, chunk, out_sha256):
           f"K6 {k6_launches} launches, K7 {k7_launches}; device events "
           f"named remainder {remainder_events}; device time, ms: "
           + ", ".join(f"{k} {v:.3f}" for k, v in split.items()))
+    print(f"  device events a tile ({tiles} tiles): "
+          + ", ".join(f"{n[:60]} {c:g}" for n, c in sorted(
+              per_tile.items(), key=lambda kv: -kv[1]))
+          + f"; host seed-word derivations {seed_calls}")
     for name, st in top:
         print(f"    {st['total_us'] / 1e3:10.3f} ms {st['count']:6d} calls"
               f"  {name[:100]}")
@@ -1732,6 +1923,9 @@ def streamed_profile(dev, P, D, chunk, out_sha256):
             "k7_launches": k7_launches,
             "remainder_device_events": remainder_events,
             "device_events": sum(st["count"] for st in stats.values()),
+            "device_events_a_tile": per_tile,
+            "step_kernels_a_tile": by_kernel,
+            "seed_word_calls": seed_calls,
             "functions": devprof.report()}
 
 
@@ -1773,6 +1967,159 @@ def _k1_shard_hold(case, dev, scheme, masked, x, seed):
     return err
 
 
+def k1_accumulate(dev, rng):
+    """Phase 4: K1's accumulate options (the reference's donated streamed
+    accumulators, ``sda_tpu/mesh/streaming.py:503-505``) held to plain:
+    every instance a path runs, into accumulators near p - 1 (the mask
+    one of the unbatched d columns, a ragged last column's padding
+    dropped), each written in place and ``torch.equal`` to ``f.add`` of the
+    fresh call's outputs (the plain version's): the flagship and the other
+    schemes' column instances at P=33 x d=3003 (and the flagship at
+    P_MAIN x D_MAIN), masked and not, the streamed tile's unmasked call at
+    its full width (the plain version in column windows), external bits and
+    the generic layout. Then the streamed tile's call is timed fresh and
+    into its accumulator beside both bounds. Returns (the timing record,
+    max |error|)."""
+    import numpy as np
+    import torch
+
+    from sda_tpu_torch.benchmarks.bounds import k1_bound
+    from sda_tpu_torch.fields import fused_round, numtheory
+    from sda_tpu_torch.fields.fastfield import SolinasPrime
+    from sda_tpu_torch.fields.sharing import batch_columns, unbatch_columns
+    from sda_tpu_torch.utils.benchtime import median_ms
+
+    K1 = fused_round.fused_mask_share_combine
+    flagship, _, p = _flagship()
+    t = flagship.privacy_threshold
+    sp = SolinasPrime.try_from(p)
+    m_flag = numtheory.share_matrix_for(flagship)
+    err = 0
+
+    def words(shape):
+        return torch.from_numpy(
+            rng.integers(0, 1 << 32, size=shape, dtype=np.uint32)).to(dev)
+
+    def hold(case, instance, args, d, windows=1, **kw):
+        """K1 into accumulators against plain; with ``windows`` the plain
+        version runs on that many column windows (unmasked calls), each
+        with its own columns' Philox draws (``philox_bits(col0=)``)."""
+        nonlocal err
+        x_cols, s_sp, m_host, masked = args[0], args[2], args[3], args[5]
+        n_rows, B = np.shape(m_host)[0], x_cols.shape[2]
+        _check(windows == 1 or not (masked or kw),
+               f"{case}: column windows hold unmasked internal draws only")
+        g = torch.Generator(device=dev).manual_seed(d)
+        acc_s = s_sp.p - 1 - torch.randint(0, 3, (n_rows, B), device=dev,
+                                           generator=g)
+        acc_m = (s_sp.p - 1 - torch.randint(0, 3, (d,), device=dev,
+                                            generator=g)) if masked else None
+        into = (acc_s.clone(), None if acc_m is None else acc_m.clone())
+        before = dict(K1.instance_launches)
+        got = K1(*args, acc_shares=into[0], acc_mask=into[1], **kw)
+        ran = [i for i in fused_round.INSTANCES
+               if K1.instance_launches[i] != before[i]]
+        _check(dev.type != "cuda" or ran == [instance],
+               f"{case}: ran {ran}, want {instance}")
+        _check(got[0].data_ptr() == into[0].data_ptr() and (
+            acc_m is None or got[1].data_ptr() == into[1].data_ptr()),
+            f"{case}: an accumulator was not written in place")
+        width = -(-B // windows)
+        for b0 in range(0, B, width):
+            cols = slice(b0, min(B, b0 + width))
+            if windows == 1:
+                fresh = fused_round.fused_mask_share_combine_plain(*args,
+                                                                   **kw)
+                want = ((acc_s + fresh[0]) % s_sp.p,
+                        fresh[1] if acc_m is None else
+                        (acc_m + unbatch_columns(fresh[1], d)) % s_sp.p)
+                pair = got
+            else:
+                bits = fused_round.philox_bits(
+                    args[1], x_cols.shape[0], x_cols.shape[1], args[4],
+                    cols.stop - b0, False, dev, col0=b0)
+                fresh = fused_round.fused_mask_share_combine_plain(
+                    x_cols[:, :, cols], *args[1:], external_bits=bits)
+                del bits
+                want = ((acc_s[:, cols] + fresh[0]) % s_sp.p, fresh[1])
+                pair = (got[0][:, cols], got[1][:, cols])
+            _sync(dev)
+            for g_, w in zip(pair, want):
+                _check(g_.shape == w.shape and g_.dtype == w.dtype,
+                       f"{case}: {g_.dtype}{tuple(g_.shape)} vs "
+                       f"{w.dtype}{tuple(w.shape)}")
+                if not torch.equal(g_, w):
+                    err = max(err, int((g_ - w).abs().max()))
+                    _fail(f"{case}: kernel != plain version (max |err| "
+                          f"{err}, columns {b0}..)")
+            del fresh, want
+        print(f"  {case} [{instance}] into accumulators: equal"
+              + (f" ({windows} column windows of the plain version)"
+                 if windows > 1 else ""))
+
+    t0 = time.perf_counter()
+    cases = 0
+    for name, (k, ts, n_clerks, sharing) in (
+            ("columns", (3, t, 8, None)), *K1_SCHEMES.items()):
+        scheme = (flagship if sharing is None
+                  else _sim_scheme(k, n_clerks, sharing))
+        s_sp = SolinasPrime.try_from(scheme.prime_modulus)
+        m_host = numtheory.share_matrix_for(scheme)
+        for P, d in ((33, 3003),) + (((P_MAIN, D_MAIN),) if sharing is None
+                                     else ()):
+            x_cols = batch_columns(words((P, d)).view(torch.int32), k)
+            for masked in (True, False):
+                instance = name if masked else f"{name}_unmasked"
+                hold(f"K1 accumulate k={k} t={ts} n={n_clerks} P={P} d={d} "
+                     f"masked={masked}", instance,
+                     (x_cols, 77 + P, s_sp, m_host, ts, masked), d)
+                cases += 1
+            del x_cols
+    # the streamed tile's call (K3's int32 rows, unmasked, shares only) at
+    # its full width, the plain version in 4 column windows (its Philox
+    # draws of the whole tile need ~80 GB), external bits and the generic
+    # layout
+    _empty_cache(dev)
+    x_cols = batch_columns(words((STREAM_CHUNK, D_TILE)).view(torch.int32),
+                           3)
+    hold(f"K1 accumulate streamed tile P={STREAM_CHUNK} d={D_TILE}",
+         "columns_unmasked", (x_cols, 15, sp, m_flag, t, False), D_TILE,
+         windows=4)
+    del x_cols
+    _empty_cache(dev)
+    small = words((7, 3, 1000))
+    hold("K1 accumulate external bits P=7 B=1000", "external",
+         (small, 0, sp, m_flag, t, True), 2999,
+         external_bits=words((7, 2 * (3 + t), 1000)))
+    hold("K1 accumulate generic layout P=7 B=1000", "generic",
+         (small, 5, sp, m_flag, t, True), 3000)
+    cases += 3
+    print(f"  K1's accumulate options: {cases} holds in "
+          f"{time.perf_counter() - t0:.1f} s")
+    # the streamed step's K1 call timed fresh and into its accumulator
+    x_cols = batch_columns(words((STREAM_CHUNK, D_TILE)).view(torch.int32), 3)
+    tile_args = (x_cols, 15, sp, m_flag, t, False)
+    B_tile = x_cols.shape[-1]
+    tile_acc = torch.zeros((8, B_tile), dtype=torch.int64, device=dev)
+    on_card = dev.type == "cuda"
+    rec = {"shape": [STREAM_CHUNK, 3, B_tile], "holds": cases,
+           "ms": median_ms(lambda: K1(*tile_args), dev, reps=20)
+           if on_card else None,
+           "ms_accumulate": median_ms(lambda: K1(
+               *tile_args, acc_shares=tile_acc), dev, reps=20)
+           if on_card else None}
+    for key, acc_rows in (("bound_ms", 0), ("bound_ms_accumulate", 8)):
+        rec[key], rec[key.replace("ms", "by")], _ = k1_bound(
+            STREAM_CHUNK, B_tile, 3, t, True, 8, acc_rows=acc_rows)
+    print(f"  K1 at the streamed tile {rec['shape']} (columns_unmasked): "
+          f"{rec['ms']} ms fresh, {rec['ms_accumulate']} ms into its "
+          f"[8, {B_tile}] accumulator, median of 20; bounds "
+          f"{rec['bound_ms']:.4f} / {rec['bound_ms_accumulate']:.4f} ms")
+    del x_cols, tile_args, tile_acc
+    _empty_cache(dev)
+    return rec, err
+
+
 def pod_phase(dev, P=P_MAIN, D=D_MAIN, reps=POD_REPS):
     """Phase 18: ``SimulatedPod`` at the flagship width on the 1x1 mesh of
     ``dev`` and on a virtual 4x2 mesh (``[dev] * 8``), Full, ChaCha and no
@@ -1809,6 +2156,7 @@ def pod_phase(dev, P=P_MAIN, D=D_MAIN, reps=POD_REPS):
     k1, k3 = _k1_reset(), _k3_reset()
     rounds = []
     k1_total = 0  # every launch of the phase, timed repeats included
+    seed0 = _count_seed_words()
     for shape, mask, pallas, survivors, timed in cases:
         pod = SimulatedPod(scheme, masks[mask], mesh=meshes[shape],
                            use_pallas=pallas, surviving_clerks=survivors)
@@ -1872,7 +2220,11 @@ def pod_phase(dev, P=P_MAIN, D=D_MAIN, reps=POD_REPS):
     key = lambda r: (f"{r['mesh']} {r['mask']} "
                      f"{'K1' if r['k1'] else 'plain'}"
                      + ("" if r["survivors"] is None else " quorum"))
+    seed_calls = _count_seed_words() - seed0
+    _check(not on_card or seed_calls == 0,
+           f"pod: the seed words derived on the host {seed_calls} times")
     return {"stage": "pod_round", "participants": P, "dim": D,
+            "seed_word_calls": seed_calls,
             "rounds": rounds, "k1_launches_phase": k1_total,
             "k7_launches": {key(r): r["k7_launches"] for r in rounds},
             "k8_launches": {key(r): r["k8_launches"] for r in rounds},
@@ -2755,6 +3107,7 @@ def sim_phase(dev, smi="", P=P_MAIN, D=D_MAIN, chunk=SIM_CHUNK,
     base = ["--participants", str(P), "--dim", str(D), "--verify", *device]
     pallas = ["--pallas"] if on_card else []
     runs, launches = {}, {}
+    seed0 = _count_seed_words()
 
     def run(name, argv):
         rec, n, wall = _sim(name, argv, smi)
@@ -2973,7 +3326,11 @@ def sim_phase(dev, smi="", P=P_MAIN, D=D_MAIN, chunk=SIM_CHUNK,
         simpod._tile_seed(simpod._tile_seed(drec["seed"], 0, 0), ps - 1,
                           ds - 1)))
     _empty_cache(dev)
+    seed_calls = _count_seed_words() - seed0
+    _check(not on_card or seed_calls == 0,
+           f"sim: the seed words derived on the host {seed_calls} times")
     return {"stage": "sim", "participants": P, "dim": D,
+            "seed_word_calls": seed_calls,
             "participants_chunk": chunk, "streamed_tiles": tiles,
             "runs": runs, "launches": launches, "drills": drill_rec,
             "k1_launches": sum(n["k1"] for n in launches.values()),
@@ -4906,7 +5263,7 @@ def examples_phase(dev, smi=""):
             "device": str(dev)}
 
 
-def _k3_record(k3_rec, rec13, rec15, k3_launches, k3_err):
+def _k3_record(k3_rec, rec13, rec15, k3_launches, k3_err, seed_calls):
     """K3's entries of the script's kernel line, one an operation: its
     phase 12 times and bound (``k3_rec``, from ``chacha_kernels``), its
     launches on the path that runs it (the streamed round's mask ops in
@@ -4914,10 +5271,15 @@ def _k3_record(k3_rec, rec13, rec15, k3_launches, k3_err):
     K3's launches by phase and max |error| over every hold."""
     ops = k3_rec["ops"]
     rows = (
-        ("chacha_mask", "mask", "sda_tpu/mesh/simpod.py:214",
+        ("chacha_mask", "mask_derived",
+         "sda_tpu/mesh/simpod.py:214 with :192 _chacha_seed_words and the "
+         "accumulate of sda_tpu/mesh/streaming.py:503-505",
          rec15["k3_launches"]["mask"],
          {"launches_of": "the streamed round (phase 15)",
-          "int64_out": ops["mask_int64"]}),
+          "launches_derived": rec15["k3_derived_launches"],
+          "ms_of": "derived keys, into an accumulator, int32 out",
+          "given_seeds": ops["mask"], "int64_out": ops["mask_int64"],
+          "seed_word_calls_by_phase": seed_calls}),
         ("chacha_expand", "expand", "sda_tpu/fields/chacha_jax.py:78",
          rec13["k3_launches"]["expand"],
          {"launches_of": "the ChaCha role crypto (phase 13)"}),
@@ -4967,7 +5329,7 @@ def main() -> int:
     from sda_tpu_torch.benchmarks.bounds import philox_ops
     from sda_tpu_torch.fields import _build, fused_round, numtheory
     from sda_tpu_torch.fields.dimtile import tile_plan
-    from sda_tpu_torch.fields.sharing import batch_columns
+    from sda_tpu_torch.fields.sharing import batch_columns, unbatch_columns
     from sda_tpu_torch.fields.fastfield import SolinasPrime
     from sda_tpu_torch.mesh import single_chip_round
     from sda_tpu_torch.protocol import (BasicShamirSharing, FullMasking,
@@ -5201,6 +5563,10 @@ def main() -> int:
                     (x_cols, 99, s_sp, m_host, ts, masked))
     print(f"  the other schemes' instances: 32 holds and 8 timings in "
           f"{time.perf_counter() - t_others:.1f} s")
+
+    # K1's accumulate options (the streamed step's donated accumulators)
+    k1_tile, k1_acc_err = k1_accumulate(dev, rng)
+    max_err["K1"] = max(max_err["K1"], k1_acc_err)
     small = torch.from_numpy(
         rng.integers(0, 1 << 20, size=(7, 3001), dtype=np.uint32)).to(dev)
     small_fn = fused_round.single_chip_round_pallas(flagship, FullMasking(p),
@@ -5389,6 +5755,9 @@ def main() -> int:
     print(f"phases 10-11: {time.perf_counter() - t10:.1f} s")
 
     # -- 12. K3 vs its plain version and the host spec, timed --------------
+    # from here on the paths' host derivations of ChaCha seed words are
+    # counted (phases 14, 15, 17, 18 and 22 must make none)
+    _count_seed_words()
     print(f"K3 vs plain and host spec (tolerance: exact, torch.equal; {smi}):")
     k3_rec = chacha_kernels(dev, p, *built["chacha"], cuobjdump)
 
@@ -5604,6 +5973,10 @@ def main() -> int:
         "library_ms": None,
         "bound_ms_whole_rounds": whole_ms,
         "instances": k1_instances,
+        "accumulate": {
+            "replaces": "sda_tpu/mesh/streaming.py:503-505, :719-721",
+            "launches_streamed": sum(rec15["k1_launches"].values()),
+            "streamed_tile": k1_tile},
     }, {
         "name": "probe_call",
         "route": "cuda",
@@ -5618,7 +5991,12 @@ def main() -> int:
         "library_ms": lib_ms,
         "library_of": "fold_only",
         "variants": k5,
-    }, *_k3_record(k3_rec, rec13, rec15, k3_launches, k3_err), {
+    }, *_k3_record(k3_rec, rec13, rec15, k3_launches, k3_err, {
+        "chacha_round": rec14["seed_word_calls"],
+        "streamed_round": rec15["seed_word_calls"],
+        "streamed_profile": rec17s["seed_word_calls"],
+        "pod_round": rec18["seed_word_calls"],
+        "sim": rec22["seed_word_calls"]}), {
         "name": "coordinate_block",
         "route": "cuda",
         "source": "sda_tpu_torch/fields/csrc/blockgen.cu",

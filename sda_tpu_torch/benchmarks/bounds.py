@@ -65,13 +65,15 @@ def k1_pipe_ops(P, B, k, draws, do_x, external_bits=False) -> int:
 
 
 def k1_bound(P, B, k, draws, do_x, out_rows, muls=MULS, xors=XORS,
-             external_bits=False):
+             external_bits=False, acc_rows=0):
     """Least time (ms) the card could take for the work of a kernel of K1's
     shape at these shapes, and what bounds it: the larger of its bytes
     (input words once, int64 outputs once) at the memory rate and its
     integer operations (``k1_ops``) at a pipe's rate and at the issue
     rate. With ``external_bits`` the ``draws`` rows are read (two uint32
-    words each) instead of drawn. Returns (bound_ms, bound_by, detail)."""
+    words each) instead of drawn. ``acc_rows``: int64 rows of B read once
+    besides (the accumulators the outputs are added into: n shares, and k
+    masks when masked). Returns (bound_ms, bound_by, detail)."""
     fold_words = (k if do_x else 0) + 2 * draws
     if not draws or external_bits:
         muls = xors = 0
@@ -82,7 +84,8 @@ def k1_bound(P, B, k, draws, do_x, out_rows, muls=MULS, xors=XORS,
     fma_half = fma_ops + P * B * muls
     half_ms = max(max(fma_half, alu_ops) / PIPE_OPS_PER_S,
                   (fma_half + alu_ops) / INSTR_PER_S) * 1e3
-    bytes_moved = ((P * k * B * 4 if do_x else 0) + out_rows * B * 8
+    bytes_moved = ((P * k * B * 4 if do_x else 0)
+                   + (out_rows + acc_rows) * B * 8
                    + (P * 2 * draws * B * 4 if external_bits else 0))
     bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
     detail = (f"{bytes_moved} bytes -> {bytes_ms:.4f} ms; {fma_ops:.0f} "
@@ -113,6 +116,11 @@ DRAW_MULS = 7
 DRAW_EITHER_OPS = 4 + 2 + 8 + 3
 DRAW_ACCUMULATE_OPS = 6
 RAW_RESIDUE_EITHER_OPS = 1 + (DRAW_EITHER_OPS - 3) + DRAW_ACCUMULATE_OPS
+#: the mask op's derived keys (``derive_keys`` in chacha.cu): two
+#: Philox4x32-10 blocks a seed, each 10 rounds of 2 wide multiplies (FMA
+#: pipe) and 2 three-input xors (ALU pipe); the function needs them once a
+#: seed (the kernel repeats them in each column strip)
+DERIVE_MULS = DERIVE_XORS = 2 * 10 * 2
 #: K3's operations, and the accumulates mod m each does a draw (``blocks``
 #: makes keystream words and draws nothing)
 K3_ACCUMULATES = {"blocks": 0, "expand": 0, "combine": 1, "mask": 2}
@@ -120,15 +128,19 @@ K3_ACCUMULATES = {"blocks": 0, "expand": 0, "combine": 1, "mask": 2}
 K3_RAW_REDUCTIONS = {"blocks": 0, "expand": 0, "combine": 0, "mask": 1}
 
 
-def _k3_ops(seeds: int, dimension: int, op: str):
+def _k3_ops(seeds: int, dimension: int, op: str, derived: bool = False):
     """(blocks, ALU-pipe-only, FMA-pipe-only, all) operations of K3's
     ``op`` on ``seeds`` streams of ``dimension`` draws (``blocks``: one
-    key's dimension / 8 blocks)."""
+    key's dimension / 8 blocks); ``derived``: the mask op deriving its
+    keys."""
     blocks = seeds * -(-dimension // 8)
     draws = 0 if op == "blocks" else seeds * dimension
     raw = K3_RAW_REDUCTIONS[op]
     alu = blocks * CHACHA_ALU_OPS
     fma = draws * DRAW_MULS * (1 + raw)
+    if derived:
+        alu += seeds * DERIVE_XORS
+        fma += seeds * DERIVE_MULS
     total = (alu + fma + blocks * CHACHA_EITHER_OPS
              + draws * (DRAW_EITHER_OPS
                         + raw * RAW_RESIDUE_EITHER_OPS
@@ -136,16 +148,18 @@ def _k3_ops(seeds: int, dimension: int, op: str):
     return blocks, alu, fma, total
 
 
-def k3_pipe_ops(seeds: int, dimension: int, op: str) -> int:
+def k3_pipe_ops(seeds: int, dimension: int, op: str,
+                derived: bool = False) -> int:
     """K3's operations on its busier pipe for ``op`` (``expand``,
     ``combine`` or ``mask``): the ALU-only or FMA-only work, or half of all
     work where the either-pipe operations fill both (the issue rate is two
     pipes' rate)."""
-    _, alu, fma, total = _k3_ops(seeds, dimension, op)
+    _, alu, fma, total = _k3_ops(seeds, dimension, op, derived)
     return max(alu, fma, -(-total // 2))
 
 
-def k3_bound(seeds: int, dimension: int, op: str, out_itemsize: int = 8):
+def k3_bound(seeds: int, dimension: int, op: str, out_itemsize: int = 8,
+             derived: bool = False, accumulate: bool = False):
     """Least time (ms) the card could take for K3's ``op`` on ``seeds``
     streams of ``dimension`` draws, and what bounds it: the larger of its
     bytes at the memory rate and its integer operations, ALU-pipe work at
@@ -153,18 +167,22 @@ def k3_bound(seeds: int, dimension: int, op: str, out_itemsize: int = 8):
     seed read once, and ``blocks``: 16 words a block written; ``expand``:
     the [S, d] int64 residues written; ``combine``: the [d] int64 sum
     written; ``mask``: x [S, d] int64 read, the masked [S, d] written at
-    ``out_itemsize`` bytes and the [d] int64 sum written. Returns
-    (bound_ms, bound_by, detail)."""
+    ``out_itemsize`` bytes and the [d] int64 sum written. The mask op's
+    options: ``derived`` keys are computed (two Philox blocks a seed),
+    not read; with ``accumulate`` the [d] accumulator is read too.
+    Returns (bound_ms, bound_by, detail)."""
     if op not in K3_ACCUMULATES:
         raise ValueError(f"unknown K3 operation {op!r}")
-    blocks, alu, _, total = _k3_ops(seeds, dimension, op)
-    ops_ms = k3_pipe_ops(seeds, dimension, op) / PIPE_OPS_PER_S * 1e3
+    blocks, alu, _, total = _k3_ops(seeds, dimension, op, derived)
+    ops_ms = (k3_pipe_ops(seeds, dimension, op, derived) / PIPE_OPS_PER_S
+              * 1e3)
     elements = seeds * dimension
-    bytes_moved = seeds * 8 * 4 + {
+    bytes_moved = (0 if derived else seeds * 8 * 4) + {
         "blocks": blocks * 16 * 4,
         "expand": elements * 8,
         "combine": dimension * 8,
-        "mask": elements * (8 + out_itemsize) + dimension * 8}[op]
+        "mask": elements * (8 + out_itemsize) + dimension * 8}[op] + (
+            dimension * 8 if accumulate else 0)
     bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
     detail = (f"{bytes_moved} bytes -> {bytes_ms:.4f} ms; {blocks} blocks, "
               f"{total:.0f} integer ops ({alu:.0f} ALU-pipe only, "

@@ -16,6 +16,13 @@ Hopper (``csrc/chacha.cu``, built by ``_build``). This module holds
   ``mesh/simpod.py::_mask_stage`` (``stream_u64_at`` -> ``from_u64`` ->
   ``add`` and ``sum``, one fused XLA pass there) as one fused kernel pass:
   the masked rows and the mask sum, with no [S, d] mask tensor;
+- ``mask_residues_derived``: the same op with the seeds' keys derived in
+  the kernel from the round seed and the participants' global ids (the
+  reference's ``_chacha_seed_words`` inside its jitted step), so a step
+  passes no [S, 8] seed tensor, the sum optionally added in place into the
+  caller's accumulator (the streamed step's donated ``acc_mask``);
+  ``chacha_seed_words`` is that derivation in int64 torch, the derived
+  mode's plain version;
 - ``chacha_kernel``: the wrapper of the C entries. For a CUDA tensor it
   launches the kernel on the current stream (and raises on a launch
   error); for a CPU tensor it runs the plain version. It counts its
@@ -48,6 +55,9 @@ from ..device import resolve_device
 
 _MASK32 = 0xFFFFFFFF
 _U64_MAX = (1 << 64) - 1
+#: Philox counter word separating the ChaCha-seed stream (``kSeedTag`` in
+#: ``csrc/chacha.cu``)
+SEED_TAG = 0x5EED
 _CONSTANTS = tuple(int(c) for c in chacha._CONSTANTS)
 #: blocks the plain version expands at once (its working set is ~40
 #: int64 words a block)
@@ -177,16 +187,53 @@ def expand_plain(seed_words, counter0: int, dimension: int, modulus: int,
                         _hi_first(prg), _zone(prg, modulus))
 
 
-def mask_plain(seed_words, counter0: int, x, modulus: int, out_dtype):
+def chacha_seed_words(round_seed: int, global_ids, seed_bitsize: int):
+    """[S] global participant ids -> [S, 8] int64 seed words in [0, 2^32):
+    the derived mode's keys in plain torch (port of the JAX package's
+    ``mesh/simpod.py::_chacha_seed_words``, in Philox form).
+
+    Seed i's words are Philox4x32-10 of counter (id mod 2^32, id >> 32,
+    ``SEED_TAG``, pair) under key (round_seed mod 2^32, round_seed >> 32
+    mod 2^32), words 0-3 from pair 0 and 4-7 from pair 1. The seed depends
+    only on (round seed, participant id): every dim tile of one
+    participant derives the SAME seed and expands disjoint windows of one
+    stream, which is the whole point of seed-compressed masks. Words from
+    ceil(seed_bitsize/32) on are zero, matching the host spec's
+    zero-padded ChaCha key (fields/chacha.py).
+    """
+    from .fused_round import philox4x32_10
+
+    words = (int(seed_bitsize) + 31) // 32
+    if words > 8:
+        raise ValueError("seed_bitsize > 256 unsupported")
+    ids = torch.as_tensor(global_ids, dtype=torch.int64)
+    key0, key1 = round_seed & _MASK32, (round_seed >> 32) & _MASK32
+    tag = torch.full_like(ids, SEED_TAG)
+    out = []
+    for pair in range(2):
+        out += philox4x32_10(ids & _MASK32, ids >> 32, tag,
+                             torch.full_like(ids, pair), key0, key1)
+    seeds = torch.stack(out, dim=1)
+    seeds[:, words:] = 0
+    return seeds
+
+
+def mask_plain(seed_words, counter0: int, x, modulus: int, out_dtype,
+               acc=None):
     """The kernel's ``mask`` in plain torch: ([S, d] ``(x + w) mod m`` as
     ``out_dtype``, [d] int64 ``sum_s w mod m``) for any int64 ``x`` (its
     floor mod m taken first, the round's residue pass) and ``w`` the
     CHACHA_PRG_V1 windows of the S seeds from block ``counter0``:
-    ``torch.remainder`` -> ``expand_plain`` -> mod add -> mod sum."""
+    ``torch.remainder`` -> ``expand_plain`` -> mod add -> mod sum. With
+    ``acc`` ([d] int64 canonical residues) the sum is added mod m into it
+    in place, and ``acc`` comes back as the second result."""
     masks, _ = _draws_plain(seed_words, counter0, x.shape[1], modulus, False)
     masked = torch.remainder(x, modulus) + masks
     masked = torch.where(masked >= modulus, masked - modulus, masked)
-    return masked.to(out_dtype), modsum(masks, modulus, axis=0)
+    total = modsum(masks, modulus, axis=0)
+    if acc is not None:
+        total = torch.remainder(acc.add_(total), modulus, out=acc)
+    return masked.to(out_dtype), total
 
 
 def combine_plain(seed_words, dimension: int, modulus: int, prg: str):
@@ -224,10 +271,13 @@ def _library() -> ctypes.CDLL:
                                        ptr, i32, ptr, ptr]
     lib.sda_chacha_mask.argtypes = [ptr, i32, u32, i64, u64, u64, ptr, i64,
                                     i32, ptr, ptr, i32, ptr, ptr]
+    lib.sda_chacha_mask_into.argtypes = [ptr, ptr, u64, i32, i32, u32, i64,
+                                         u64, u64, ptr, i64, i32, ptr, ptr,
+                                         i32, i32, ptr, ptr]
     lib.sda_chacha_chunks.argtypes = [i32, i32, i64, u64, ptr]
     for fn in (lib.sda_chacha_blocks, lib.sda_chacha_expand,
                lib.sda_chacha_combine, lib.sda_chacha_mask,
-               lib.sda_chacha_chunks):
+               lib.sda_chacha_mask_into, lib.sda_chacha_chunks):
         fn.restype = ctypes.c_int
     return lib
 
@@ -272,16 +322,33 @@ def _check_seed_words(seed_words):
         raise ValueError("too many seeds for one launch")
 
 
-def _check_mask_args(seed_words, x, modulus: int, prg: str, out_dtype):
+def check_accumulator(acc, shape, device, what: str) -> None:
+    """An accumulator a kernel adds into in place: a contiguous int64
+    tensor of ``shape`` on ``device``; anything else raises (it is never
+    copied, which would lose the sum)."""
+    if not isinstance(acc, torch.Tensor):
+        raise TypeError(f"{what} must be a tensor, got {type(acc).__name__}")
+    if acc.dtype != torch.int64 or acc.device != device:
+        raise ValueError(f"{what} must be int64 on {device}, got {acc.dtype}"
+                         f" on {acc.device}")
+    if tuple(acc.shape) != tuple(shape):
+        raise ValueError(f"{what} must be {list(shape)}, got "
+                         f"{list(acc.shape)}")
+    if not acc.is_contiguous():
+        raise ValueError(f"{what} must be contiguous")
+
+
+def _check_mask_args(S: int, dev, x, modulus: int, prg: str, out_dtype,
+                     acc):
     if x is None:
         raise ValueError("the mask op needs x")
-    if x.dim() != 2 or x.shape[0] != seed_words.shape[0]:
-        raise ValueError(f"x must be [S, d] with S = {seed_words.shape[0]}, "
+    if x.dim() != 2 or x.shape[0] != S:
+        raise ValueError(f"x must be [S, d] with S = {S}, "
                          f"got {tuple(x.shape)}")
     if x.dtype != torch.int64:
         raise ValueError(f"x must be int64, got {x.dtype}")
-    if x.device != seed_words.device:
-        raise ValueError(f"x on {x.device}, seeds on {seed_words.device}")
+    if x.device != dev:
+        raise ValueError(f"x on {x.device}, seeds on {dev}")
     if x.shape[1] % 8:
         raise ValueError(
             "dimension must be a multiple of 8 (one ChaCha block)")
@@ -291,12 +358,27 @@ def _check_mask_args(seed_words, x, modulus: int, prg: str, out_dtype):
         raise ValueError("int32 out needs a modulus below 2^31")
     if prg != chacha.CHACHA_PRG_V1:
         raise ValueError("the mask op takes the CHACHA_PRG_V1 window")
+    if acc is not None:
+        check_accumulator(acc, (x.shape[1],), dev, "acc_mask")
+
+
+def _check_derive(derive, x):
+    """(round seed, first global id, seed bits) of the derived mode."""
+    round_seed, pid_base, bits = (int(v) for v in derive)
+    if not 0 <= round_seed < 1 << 64:
+        raise ValueError(f"round seed {round_seed} outside [0, 2^64)")
+    if not 0 < bits <= 256:
+        raise ValueError(f"seed_bitsize {bits} outside (0, 256]")
+    S = 0 if x is None else x.shape[0]
+    if pid_base < 0 or pid_base + S > (1 << 63) - 1:
+        raise ValueError(f"participant ids {pid_base}.. outside int64")
+    return round_seed, pid_base, bits
 
 
 def chacha_kernel(op: str, seed_words, *, counter0: int = 0,
                   dimension: int = 0, nblocks: int = 0, modulus: int = 1,
                   prg: str = chacha.CHACHA_PRG_V1, flags: bool = True,
-                  x=None, out_dtype=None):
+                  x=None, out_dtype=None, derive=None, acc=None):
     """One K3 call on ``seed_words`` ([S, 8] int64 words in [0, 2^32); for
     ``blocks``, S = 1) on their device:
 
@@ -310,24 +392,45 @@ def chacha_kernel(op: str, seed_words, *, counter0: int = 0,
       their floor mod ``modulus``; d a multiple of 8), ([S, d] ``(x + w)
       mod m`` as ``out_dtype``, int32 only for m < 2^31, or int64 (None);
       [d] int64 ``sum_s w mod m``), w the CHACHA_PRG_V1 windows from block
-      ``counter0`` without rejection.
+      ``counter0`` without rejection. ``derive``: (round seed, first
+      global id, seed bits) in place of ``seed_words`` (None): the keys of
+      ``chacha_seed_words`` for ids first .. first + S - 1, which the
+      kernel derives itself. ``acc`` (derived mode only): a contiguous [d]
+      int64 accumulator of canonical residues the sum is added into mod m,
+      in place; it comes back as the second result.
 
     A CUDA tensor launches the kernel (a launch error raises); a CPU tensor
     runs the plain version.
     """
-    _check_seed_words(seed_words)
-    seed_words = seed_words.to(torch.int64) & _MASK32
+    if derive is not None:
+        if op != "mask" or seed_words is not None:
+            raise ValueError("derived seeds are the mask op's, in place of "
+                             "seed words")
+        derive = _check_derive(derive, x)
+        if x is None:
+            raise ValueError("the mask op needs x")
+        S, dev = x.shape[0], x.device
+    else:
+        _check_seed_words(seed_words)
+        seed_words = seed_words.to(torch.int64) & _MASK32
+        S, dev = seed_words.shape[0], seed_words.device
     counter0 = int(counter0) & _MASK32
-    dev = seed_words.device
     if op not in OPS:
         raise ValueError(f"unknown K3 operation {op!r}")
     if op != "blocks":
         _check_modulus(modulus)
         _check_prg(prg)
+    if acc is not None and derive is None:
+        raise ValueError("only the derived mask mode accumulates")
     if op == "mask":
         out_dtype = torch.int64 if out_dtype is None else out_dtype
-        _check_mask_args(seed_words, x, modulus, prg, out_dtype)
+        _check_mask_args(S, dev, x, modulus, prg, out_dtype, acc)
     if dev.type == "cpu":
+        if derive is not None:
+            round_seed, pid_base, bits = derive
+            seed_words = chacha_seed_words(
+                round_seed, pid_base + torch.arange(S, dtype=torch.int64),
+                bits)
         if op == "blocks":
             return block_words_plain(seed_words[:1], counter0, nblocks)[0]
         if op == "expand":
@@ -335,12 +438,12 @@ def chacha_kernel(op: str, seed_words, *, counter0: int = 0,
                                       modulus, prg)
             return masks, (rej if flags else None)
         if op == "mask":
-            return mask_plain(seed_words, counter0, x, modulus, out_dtype)
+            return mask_plain(seed_words, counter0, x, modulus, out_dtype,
+                              acc)
         return combine_plain(seed_words, dimension, modulus, prg)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    S = seed_words.shape[0]
-    keys = _u32_storage(seed_words)
+    keys = None if derive is not None else _u32_storage(seed_words)
     lib = _library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -355,8 +458,8 @@ def chacha_kernel(op: str, seed_words, *, counter0: int = 0,
                                         out.data_ptr(), stream)
             result = out.to(torch.int64) & _MASK32
         elif op == "mask":
-            err, result = _launch_mask(lib, keys, S, counter0, x, modulus,
-                                       out_dtype, dev, stream)
+            err, result = _launch_mask(lib, keys, derive, S, counter0, x,
+                                       modulus, out_dtype, acc, dev, stream)
         else:
             mu, zone = _U64_MAX // modulus, _zone(prg, modulus)
             rej = torch.zeros(S, dtype=torch.int32, device=dev)
@@ -380,28 +483,42 @@ def chacha_kernel(op: str, seed_words, *, counter0: int = 0,
         raise RuntimeError(f"K3 {op} kernel launch failed: CUDA error {err}")
     chacha_kernel.launches += 1
     chacha_kernel.op_launches[op] += 1
+    if derive is not None:
+        chacha_kernel.derived_launches += 1
     return result
 
 
-def _launch_mask(lib, keys, S: int, counter0: int, x, modulus: int,
-                 out_dtype, dev, stream):
+def _launch_mask(lib, keys, derive, S: int, counter0: int, x, modulus: int,
+                 out_dtype, acc, dev, stream):
     """The mask op's C entry on the current stream: (CUDA error code,
-    (masked, mask sum)). ``x`` is read in place when its rows are 16-byte
-    aligned with unit column stride (any contiguous tensor, or rows of
-    one), else copied contiguous first."""
+    (masked, mask sum or ``acc``)). ``x`` is read in place when its rows
+    are 16-byte aligned with unit column stride (any contiguous tensor, or
+    rows of one), else copied contiguous first. ``keys``: the int32 key
+    words, or None with ``derive`` (round seed, first id, seed bits), whose
+    round keys go to the kernel by value."""
+    from .fused_round import philox_round_keys
+
     d = x.shape[1]
     if S and (x.stride(1) != 1 or x.stride(0) % 2 or x.stride(0) < d
               or x.data_ptr() % 16):
         x = x.contiguous()
     out = torch.empty((S, d), dtype=out_dtype, device=dev)
-    sums = torch.empty(d, dtype=torch.int64, device=dev)
+    sums = torch.empty(d, dtype=torch.int64, device=dev) if acc is None \
+        else acc
     out32 = out_dtype == torch.int32
     chunks = _chunks(lib, "mask32" if out32 else "mask64", S, d, modulus)
     partials = _scratch(chunks, d, dev)
-    err = lib.sda_chacha_mask(
-        keys.data_ptr(), S, counter0, d, modulus, _U64_MAX // modulus,
+    round_keys, pid_base, words = None, 0, 8
+    if derive is not None:
+        round_seed, pid_base, bits = derive
+        round_keys = philox_round_keys(round_seed)
+        words = (bits + 31) // 32
+    err = lib.sda_chacha_mask_into(
+        _ptr(keys), None if round_keys is None else round_keys.ctypes.data,
+        pid_base, words, S, counter0, d, modulus, _U64_MAX // modulus,
         x.data_ptr(), x.stride(0) if S else d, int(out32), out.data_ptr(),
-        sums.data_ptr(), chunks, _ptr(partials), stream)
+        sums.data_ptr(), int(acc is not None), chunks, _ptr(partials),
+        stream)
     return err, (out, sums)
 
 
@@ -410,6 +527,9 @@ chacha_kernel.launches = 0
 chacha_kernel.op_launches = dict.fromkeys(OPS, 0)
 #: seeds K3 flagged that ``combine_masks`` replayed on the host
 chacha_kernel.replayed = 0
+#: mask ops that derived their seeds' keys in the kernel (of ``op_launches``
+#: "mask")
+chacha_kernel.derived_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -470,6 +590,23 @@ def mask_residues_at(seed_words, counter0, x, *, modulus: int,
     exist."""
     return chacha_kernel("mask", seed_words, counter0=counter0,
                          modulus=modulus, x=x, out_dtype=out_dtype)
+
+
+def mask_residues_derived(round_seed: int, pid_base: int, seed_bitsize: int,
+                          counter0, x, *, modulus: int, out_dtype=None,
+                          acc_mask=None):
+    """``mask_residues_at`` on the seeds of global participants
+    ``pid_base .. pid_base + S - 1`` under ``round_seed``
+    (``chacha_seed_words``' keys), derived inside the kernel: the whole
+    ChaCha part of the reference's jitted streamed step in one launch, with
+    no seed tensor. On the CPU: ``chacha_seed_words`` then ``mask_plain``.
+    ``acc_mask``: a contiguous [d] int64 accumulator of canonical residues
+    on x's device that the sum is added into mod ``modulus`` in place (the
+    step's donated accumulator, returned in place of a fresh sum)."""
+    return chacha_kernel("mask", None, counter0=counter0, modulus=modulus,
+                         x=x, out_dtype=out_dtype,
+                         derive=(round_seed, pid_base, seed_bitsize),
+                         acc=acc_mask)
 
 
 def combine_masks(seeds, dimension: int, modulus: int, *, prg: str,

@@ -26,7 +26,14 @@
 //   where w is the V1 window of each seed from block counter0. One pass:
 //   each element of x is read once and reduced mod m in registers (the
 //   residue pass of the round's step folded in: raw_residue), each element
-//   of masked written once; no [S, d] mask exists.
+//   of masked written once; no [S, d] mask exists. Two options make it the
+//   whole ChaCha part of the reference's jitted streamed step
+//   (sda_tpu/mesh/streaming.py:482-512): the seeds' keys derived in the
+//   kernel from the round seed (sda_tpu/mesh/simpod.py:192
+//   _chacha_seed_words, here the port's Philox form: derive_keys), in
+//   place of an [S, 8] tensor of them; and mask_sum added mod m into the
+//   caller's [d] accumulator in place (the step's donated accumulate,
+//   streaming.py:503-505), in place of a fresh vector.
 //
 // What bounds it on this card: integer operations. A block is 20 rounds
 // of 4 quarter-rounds of 4 adds, 4 xors and 4 rotates, 960 operations,
@@ -61,6 +68,8 @@
 #include <cstdint>
 #include <type_traits>
 #include <cuda_runtime.h>
+
+#include "philox.cuh"
 
 namespace {
 
@@ -186,6 +195,36 @@ __device__ __forceinline__ void stage_keys(const uint32_t* __restrict__ seeds,
   const uint4* src = reinterpret_cast<const uint4*>(seeds) + 2 * s0;
   for (int i = threadIdx.x; i < 2 * n; i += blockDim.x)
     keys[i] = __ldg(src + i);
+}
+
+// The mask op's derived keys: seed s's 8 key words are Philox4x32-10 of
+// counter (gid mod 2^32, gid >> 32, kSeedTag, pair) under the round seed's
+// round keys, gid = pid_base + s, words 0-3 from pair 0 and 4-7 from pair
+// 1, words from `words` on zero (the host's zero-padded key of
+// ceil(seed_bitsize / 32) words). Twin: chacha_device.chacha_seed_words.
+constexpr uint32_t kSeedTag = 0x5EED;
+
+struct Derive {
+  PhiloxKeys key;               // the round seed's round keys
+  unsigned long long pid_base;  // global id of seed 0
+  int words;                    // key words kept, 0..8
+};
+
+// The derived keys of seeds [s0, s0 + n), n <= kKeyBatch, into shared
+// memory as stage_keys leaves them: one Philox block a uint4.
+__device__ __forceinline__ void derive_keys(const Derive& dv, long long s0,
+                                            int n, uint4* keys) {
+  for (int i = threadIdx.x; i < 2 * n; i += blockDim.x) {
+    const unsigned long long gid =
+        dv.pid_base + (unsigned long long)(s0 + (i >> 1));
+    const int pair = i & 1, w0 = 4 * pair;
+    uint32_t c0 = (uint32_t)gid, c1 = (uint32_t)(gid >> 32), c2 = kSeedTag,
+             c3 = (uint32_t)pair;
+    philox4x32_10(c0, c1, c2, c3, dv.key);
+    keys[i] = make_uint4(w0 < dv.words ? c0 : 0u, w0 + 1 < dv.words ? c1 : 0u,
+                         w0 + 2 < dv.words ? c2 : 0u,
+                         w0 + 3 < dv.words ? c3 : 0u);
+  }
 }
 
 __device__ __forceinline__ void key_of(const uint4* keys, int i,
@@ -390,15 +429,16 @@ chacha_combine_kernel(const uint32_t* __restrict__ seeds, int S, int per,
 // per)): out[s, i] = (x[s, i] mod m + w[s, i]) mod m as int32 (OUT32) or
 // int64, and the chunk's mask sum into sums (y = 0) or partials row y - 1.
 // d is a multiple of 8 (every block whole); x rows are x_stride apart and
-// 16-byte aligned.
+// 16-byte aligned. With seeds null the keys are derived (dv); with
+// `accumulate` chunk 0 adds its sum mod m to what sums holds.
 template <bool OUT32, bool SMALL>
 __global__ void __launch_bounds__(kStrip)
-chacha_mask_kernel(const uint32_t* __restrict__ seeds, int S, int per,
-                   uint32_t counter0, long long d, long long nblocks,
-                   Modulus md, const long long* __restrict__ x,
-                   long long x_stride, void* __restrict__ out,
-                   long long* __restrict__ sums,
-                   long long* __restrict__ partials) {
+chacha_mask_kernel(const uint32_t* __restrict__ seeds, const Derive dv,
+                   int S, int per, uint32_t counter0, long long d,
+                   long long nblocks, Modulus md,
+                   const long long* __restrict__ x, long long x_stride,
+                   void* __restrict__ out, long long* __restrict__ sums,
+                   int accumulate, long long* __restrict__ partials) {
   using R = Res<SMALL>;
   constexpr int kOutSlots = OUT32 ? 64 : 128;
   __shared__ uint4 keys[2 * kKeyBatch];
@@ -436,7 +476,10 @@ chacha_mask_kernel(const uint32_t* __restrict__ seeds, int S, int per,
   for (int i = 0; i < n; ++i) {
     if (i % kKeyBatch == 0) {
       __syncthreads();
-      stage_keys(seeds, s0 + i, min(kKeyBatch, n - i), keys);
+      if (seeds != nullptr)
+        stage_keys(seeds, s0 + i, min(kKeyBatch, n - i), keys);
+      else
+        derive_keys(dv, s0 + i, min(kKeyBatch, n - i), keys);
       __syncthreads();
     }
     copy_wait<1>();  // seed i's tile has landed (this lane's copies) ...
@@ -493,9 +536,17 @@ chacha_mask_kernel(const uint32_t* __restrict__ seeds, int S, int per,
   }
   copy_wait<0>();
   if (!in) return;
-  long long* dst = blockIdx.y == 0
-                       ? sums
-                       : partials + (long long)(blockIdx.y - 1) * d;
+  if (blockIdx.y == 0) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      typename R::T v = acc[j];
+      if (accumulate)
+        v = R::add(R::reduce((uint64_t)sums[8 * b + j], md), v, md);
+      sums[8 * b + j] = (long long)v;
+    }
+    return;
+  }
+  long long* dst = partials + (long long)(blockIdx.y - 1) * d;
 #pragma unroll
   for (int j = 0; j < 8; ++j) dst[8 * b + j] = (long long)acc[j];
 }
@@ -672,10 +723,57 @@ extern "C" int sda_chacha_combine(const uint32_t* seeds, int S, long long d,
 }
 
 // The mask op: out [S, d] (int32 when out32, which needs m < 2^31, else
-// int64) = (x + w) mod m and sums [d] = sum_s w mod m, w the V1 window of
-// each seed from block counter0; d a multiple of 8; x [S, d] any int64
-// (its floor mod m taken in the kernel), rows x_stride int64 apart and
-// 16-byte aligned; `chunks` and partials as for the combine.
+// int64) = (x + w) mod m and sums [d] = sum_s w mod m (with accumulate:
+// sums = (sums + sum_s w) mod m, in place), w the V1 window of each seed
+// from block counter0; d a multiple of 8; x [S, d] any int64 (its floor
+// mod m taken in the kernel), rows x_stride int64 apart and 16-byte
+// aligned; `chunks` and partials as for the combine. The seeds' keys are
+// the [S, 8] words `seeds` or, with seeds null, derived in the kernel:
+// derive_keys under the host [2][10] round keys `round_keys` of the round
+// seed (chacha_device.py), gid = pid_base + s, `words` key words kept.
+extern "C" int sda_chacha_mask_into(
+    const uint32_t* seeds, const unsigned int* round_keys,
+    unsigned long long pid_base, int words, int S, uint32_t counter0,
+    long long d, unsigned long long m, unsigned long long mu,
+    const long long* x, long long x_stride, int out32, void* out,
+    long long* sums, int accumulate, int chunks, long long* partials,
+    cudaStream_t stream) {
+  if (S < 0 || d < 0 || d % 8 || m == 0 || m >= (1ull << 62) ||
+      (out32 && m >= (1ull << 31)) || x_stride < d || x_stride % 2 ||
+      (reinterpret_cast<uintptr_t>(x) & 15) || chunks < 1 ||
+      (chunks > 1 && partials == nullptr) ||
+      (S > 0 && (seeds == nullptr) == (round_keys == nullptr)) ||
+      words < 0 || words > 8 ||
+      pid_base > (1ull << 63) - 1 - (unsigned long long)S)
+    return (int)cudaErrorInvalidValue;
+  if (d == 0 || (S == 0 && accumulate)) return (int)cudaSuccess;
+  if (S == 0)
+    return (int)cudaMemsetAsync(sums, 0, d * sizeof(long long), stream);
+  Derive dv = {};
+  if (round_keys != nullptr) {
+    for (int r = 0; r < kPhiloxRounds; ++r) {
+      dv.key.k0[r] = round_keys[r];
+      dv.key.k1[r] = round_keys[kPhiloxRounds + r];
+    }
+    dv.pid_base = pid_base;
+    dv.words = words;
+  }
+  const long long nblocks = d / 8;
+  int per = 0;
+  const dim3 grid = strip_grid(nblocks, S, chunks, &per);
+  const Modulus md{m, mu, ~0ull, (m - (1ull << 63) % m) % m};
+  dispatch(out32, small(m), [&](auto o32, auto sm) {
+    chacha_mask_kernel<decltype(o32)::value, decltype(sm)::value>
+        <<<grid, kStrip, 0, stream>>>(seeds, dv, S, per, counter0, d,
+                                      nblocks, md, x, x_stride, out, sums,
+                                      accumulate, partials);
+  });
+  const int err = (int)cudaGetLastError();
+  return err != 0 ? err : fold(grid, partials, d, md, sums, stream);
+}
+
+// The mask op on given seeds, fresh sums: sda_chacha_mask_into's first
+// interface (the A/B tools bind it on older builds too).
 extern "C" int sda_chacha_mask(const uint32_t* seeds, int S,
                                uint32_t counter0, long long d,
                                unsigned long long m, unsigned long long mu,
@@ -683,23 +781,7 @@ extern "C" int sda_chacha_mask(const uint32_t* seeds, int S,
                                int out32, void* out, long long* sums,
                                int chunks, long long* partials,
                                cudaStream_t stream) {
-  if (S < 0 || d < 0 || d % 8 || m == 0 || m >= (1ull << 62) ||
-      (out32 && m >= (1ull << 31)) || x_stride < d || x_stride % 2 ||
-      (reinterpret_cast<uintptr_t>(x) & 15) || chunks < 1 ||
-      (chunks > 1 && partials == nullptr))
-    return (int)cudaErrorInvalidValue;
-  if (d == 0) return (int)cudaSuccess;
-  if (S == 0)
-    return (int)cudaMemsetAsync(sums, 0, d * sizeof(long long), stream);
-  const long long nblocks = d / 8;
-  int per = 0;
-  const dim3 grid = strip_grid(nblocks, S, chunks, &per);
-  const Modulus md{m, mu, ~0ull, (m - (1ull << 63) % m) % m};
-  dispatch(out32, small(m), [&](auto o32, auto sm) {
-    chacha_mask_kernel<decltype(o32)::value, decltype(sm)::value>
-        <<<grid, kStrip, 0, stream>>>(seeds, S, per, counter0, d, nblocks, md,
-                                      x, x_stride, out, sums, partials);
-  });
-  const int err = (int)cudaGetLastError();
-  return err != 0 ? err : fold(grid, partials, d, md, sums, stream);
+  return sda_chacha_mask_into(seeds, nullptr, 0, 8, S, counter0, d, m, mu, x,
+                              x_stride, out32, out, sums, 0, chunks, partials,
+                              stream);
 }

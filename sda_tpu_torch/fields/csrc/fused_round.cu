@@ -7,7 +7,11 @@
 // residues per participant (2 uint32 words each, residue
 // (hi * 2^32 + lo) mod p), add the masks, and contract the n x (k+t) share
 // matrix (its zero column dropped) with [sum values; sum randomness]. Out:
-// shares [n, B] and mask totals [k, B], canonical residues as int64.
+// shares [n, B] and mask totals [k, B], canonical residues as int64; or,
+// as the reference's jitted streamed step does with its donated
+// accumulators (sda_tpu/mesh/streaming.py:503-505, :719-721), both added
+// mod p in place into the caller's accumulators: the shares' [n, B] and
+// the masks' unbatched [d] (Out).
 //
 // What bounds it on this card: with external bits it reads
 // P*(k + 2*draws)*B words once and writes (n+k)*B results, so it is
@@ -72,6 +76,39 @@ struct ShareMatrix {
 // shares[i] = sum_c M[i][c] v[c] mod p for canonical v[c] < p < 2^32
 // (32 x 32 -> 64-bit products); products < p^2 < 2^58 and at most 16 of
 // them, so the sum fits uint64
+// Where a column's results go. Shares: [n, B], written, or with
+// acc_shares added mod p to what they hold. Mask totals: with mask_d == 0
+// the [k, B] totals, written; else the [mask_d] accumulator of the
+// unbatched masks, total (c, b) added mod p at b*k + c, where that is
+// below mask_d (a padded column's is dropped).
+struct Out {
+  long long* shares;
+  long long* mask;
+  long long mask_d;
+  int acc_shares;
+
+  __device__ __forceinline__ void share(int i, long long b, long long B,
+                                        unsigned long long v,
+                                        const Solinas& sp) const {
+    long long* dst = shares + i * B + b;
+    if (acc_shares) v = mod_p((unsigned long long)*dst + v, sp);
+    *dst = (long long)v;
+  }
+  __device__ __forceinline__ void mask_total(int c, long long b, int k,
+                                             long long B,
+                                             unsigned long long v,
+                                             const Solinas& sp) const {
+    if (mask_d == 0) {
+      mask[c * B + b] = (long long)v;
+      return;
+    }
+    const long long j = b * k + c;
+    if (j < mask_d) {
+      mask[j] = (long long)mod_p((unsigned long long)mask[j] + v, sp);
+    }
+  }
+};
+
 template <int ROWS>
 __device__ __forceinline__ long long share_row(const ShareMatrix& mat, int i,
                                                const uint32_t (&v)[ROWS],
@@ -88,9 +125,7 @@ __device__ __forceinline__ long long share_row(const ShareMatrix& mat, int i,
 // and shares stored.
 template <class F>
 __device__ __forceinline__ void store_column(const F& f, long long b,
-                                             bool active,
-                                             long long* __restrict__ shares,
-                                             long long* __restrict__ mask_tot,
+                                             bool active, const Out& out,
                                              int n, long long B,
                                              const Solinas& sp,
                                              const ShareMatrix& mat) {
@@ -105,7 +140,7 @@ __device__ __forceinline__ void store_column(const F& f, long long b,
     if (c < k) {
       const uint32_t m = F::MASKED ? vd[c] : 0u;
       v[c] = (uint32_t)mod_p((unsigned long long)vx[c] + m, sp);
-      mask_tot[c * B + b] = (long long)m;
+      out.mask_total(c, b, k, B, m, sp);
     }
   }
 #pragma unroll
@@ -113,7 +148,7 @@ __device__ __forceinline__ void store_column(const F& f, long long b,
     if (c >= k) v[c] = c < rows ? vd[c] : 0u;
   }
   for (int i = 0; i < n; ++i) {
-    shares[i * B + b] = share_row(mat, i, v, rows, sp);
+    out.share(i, b, B, share_row(mat, i, v, rows, sp), sp);
   }
 }
 
@@ -142,14 +177,13 @@ struct Tuning<7, 8, false> {
 template <class Shape>
 __device__ __forceinline__ void column_round(
     const Shape& shape, const uint32_t* __restrict__ x, long long sx_p,
-    long long* __restrict__ shares, long long* __restrict__ mask_tot, int P,
-    int n, long long B, const PhiloxKeys& key, const Solinas& sp,
-    const ShareMatrix& mat) {
+    const Out& out, int P, int n, long long B, const PhiloxKeys& key,
+    const Solinas& sp, const ShareMatrix& mat) {
   const long long b = blockIdx.x * (long long)kThreads + threadIdx.x;
   const bool active = b < B;
   columns::Fold<Shape, true, true, 1> f(shape);
   f.run(x, sx_p, P, (uint32_t)b, active, (uint32_t)(B - 1), 0, key);
-  store_column(f, b, active, shares, mask_tot, n, B, sp, mat);
+  store_column(f, b, active, out, n, B, sp, mat);
 }
 
 // One of the two threads of a column under G = 2: it draws the pairs of
@@ -181,8 +215,7 @@ __device__ __forceinline__ void fold_half(
 // every other share.
 template <int K, int T, bool MASKED>
 __device__ __forceinline__ void split_round(
-    const uint32_t* __restrict__ x, long long sx_p,
-    long long* __restrict__ shares, long long* __restrict__ mask_tot, int P,
+    const uint32_t* __restrict__ x, long long sx_p, const Out& out, int P,
     int n, long long B, const PhiloxKeys& key, const Solinas& sp,
     const ShareMatrix& mat) {
   constexpr int C = kThreads / 2, R = K + T;
@@ -205,12 +238,12 @@ __device__ __forceinline__ void split_round(
   for (int c = 0; c < K; ++c) {
     const uint32_t m = MASKED ? vs[K + c][j] : 0u;
     v[c] = (uint32_t)mod_p((unsigned long long)vs[c][j] + m, sp);
-    if (g == 0) mask_tot[c * B + b] = (long long)m;
+    if (g == 0) out.mask_total(c, b, K, B, m, sp);
   }
 #pragma unroll
   for (int c = K; c < R; ++c) v[c] = vs[K + c][j];
   for (int i = g; i < n; i += 2) {
-    shares[i * B + b] = share_row(mat, i, v, R, sp);
+    out.share(i, b, B, share_row(mat, i, v, R, sp), sp);
   }
 }
 
@@ -218,30 +251,27 @@ template <int K, int T, bool MASKED>
 __global__ void __launch_bounds__(kThreads,
                                   Tuning<K, T, MASKED>::MIN_BLOCKS)
 fused_round_columns(const uint32_t* __restrict__ x, long long sx_p,
-                    long long* __restrict__ shares,
-                    long long* __restrict__ mask_tot, int P, int n,
-                    long long B, const PhiloxKeys key, const Solinas sp,
+                    const Out out, int P, int n, long long B,
+                    const PhiloxKeys key, const Solinas sp,
                     const ShareMatrix mat) {
   static_assert(Tuning<K, T, MASKED>::G == 1 ||
                 Tuning<K, T, MASKED>::G == 2);
   if constexpr (Tuning<K, T, MASKED>::G == 1) {
-    column_round(columns::Fixed<K, T, MASKED>{}, x, sx_p, shares, mask_tot,
-                 P, n, B, key, sp, mat);
+    column_round(columns::Fixed<K, T, MASKED>{}, x, sx_p, out, P, n, B, key,
+                 sp, mat);
   } else {
-    split_round<K, T, MASKED>(x, sx_p, shares, mask_tot, P, n, B, key, sp,
-                              mat);
+    split_round<K, T, MASKED>(x, sx_p, out, P, n, B, key, sp, mat);
   }
 }
 
 template <int R, bool MASKED>
 __global__ void __launch_bounds__(kThreads, columns::kMinBlocks)
 fused_round_bounded(const uint32_t* __restrict__ x, long long sx_p,
-                    long long* __restrict__ shares,
-                    long long* __restrict__ mask_tot, int P, int k, int t,
-                    int n, long long B, const PhiloxKeys key,
-                    const Solinas sp, const ShareMatrix mat) {
-  column_round(columns::Bounded<R, MASKED>{k, k + t}, x, sx_p, shares,
-               mask_tot, P, n, B, key, sp, mat);
+                    const Out out, int P, int k, int t, int n, long long B,
+                    const PhiloxKeys key, const Solinas sp,
+                    const ShareMatrix mat) {
+  column_round(columns::Bounded<R, MASKED>{k, k + t}, x, sx_p, out, P, n, B,
+               key, sp, mat);
 }
 
 // The epilogue of the row-array instances: sums of the inputs (xs) and of
@@ -249,9 +279,8 @@ fused_round_bounded(const uint32_t* __restrict__ x, long long sx_p,
 template <int MAXR>
 __device__ __forceinline__ void store_rows(
     const unsigned long long (&xs)[MAXR], const unsigned long long (&hs)[MAXR],
-    const unsigned long long (&ls)[MAXR], long long b,
-    long long* __restrict__ shares, long long* __restrict__ mask_tot, int k,
-    int rows, int n, long long B, int masked, const Solinas& sp,
+    const unsigned long long (&ls)[MAXR], long long b, const Out& out,
+    int k, int rows, int n, long long B, int masked, const Solinas& sp,
     const ShareMatrix& mat) {
   uint32_t v[MAXR];
 #pragma unroll
@@ -260,14 +289,14 @@ __device__ __forceinline__ void store_rows(
         mod_p(mod_p(hs[c], sp) * sp.c32 + mod_p(ls[c], sp), sp);
     if (c < k) {
       const unsigned long long m = masked ? drawn : 0ull;
-      mask_tot[c * B + b] = (long long)m;
+      out.mask_total(c, b, k, B, m, sp);
       v[c] = (uint32_t)mod_p(mod_p(xs[c], sp) + m, sp);
     } else {
       v[c] = c < rows ? (uint32_t)drawn : 0u;
     }
   }
   for (int i = 0; i < n; ++i) {
-    shares[i * B + b] = share_row(mat, i, v, rows, sp);
+    out.share(i, b, B, share_row(mat, i, v, rows, sp), sp);
   }
 }
 
@@ -313,11 +342,9 @@ template <int MAXR>
 __global__ void __launch_bounds__(kThreads)
 fused_round_external(const uint32_t* __restrict__ x, long long sx_p,
                      long long sx_j, long long sx_b,
-                     const uint32_t* __restrict__ bits,
-                     long long* __restrict__ shares,
-                     long long* __restrict__ mask_tot, int P, int k, int t,
-                     int n, long long B, int masked, const Solinas sp,
-                     const ShareMatrix mat) {
+                     const uint32_t* __restrict__ bits, const Out out,
+                     int P, int k, int t, int n, long long B, int masked,
+                     const Solinas sp, const ShareMatrix mat) {
   extern __shared__ uint32_t stage[];
   const long long b = blockIdx.x * (long long)kThreads + threadIdx.x;
   const long long bc = b < B ? b : B - 1;  // past the edge: read, not stored
@@ -372,8 +399,7 @@ fused_round_external(const uint32_t* __restrict__ x, long long sx_p,
     }
   }
   if (b < B) {
-    store_rows(xs, hs, ls, b, shares, mask_tot, k, rows, n, B, masked, sp,
-               mat);
+    store_rows(xs, hs, ls, b, out, k, rows, n, B, masked, sp, mat);
   }
 }
 
@@ -383,11 +409,10 @@ fused_round_external(const uint32_t* __restrict__ x, long long sx_p,
 template <int MAXR>
 __global__ void __launch_bounds__(kThreads)
 fused_round_kernel(const uint32_t* __restrict__ x, long long sx_p,
-                   long long sx_j, long long sx_b,
-                   long long* __restrict__ shares,
-                   long long* __restrict__ mask_tot, int P, int k, int t,
-                   int n, long long B, int masked, const PhiloxKeys key,
-                   const Solinas sp, const ShareMatrix mat) {
+                   long long sx_j, long long sx_b, const Out out, int P,
+                   int k, int t, int n, long long B, int masked,
+                   const PhiloxKeys key, const Solinas sp,
+                   const ShareMatrix mat) {
   const long long b = blockIdx.x * (long long)blockDim.x + threadIdx.x;
   if (b >= B) return;
   const int rows = k + t;
@@ -426,7 +451,7 @@ fused_round_kernel(const uint32_t* __restrict__ x, long long sx_p,
       }
     }
   }
-  store_rows(xs, hs, ls, b, shares, mask_tot, k, rows, n, B, masked, sp, mat);
+  store_rows(xs, hs, ls, b, out, k, rows, n, B, masked, sp, mat);
 }
 
 // Instances as *instance and sda_fused_round_occupancy number them
@@ -453,7 +478,7 @@ struct Call {
   const uint32_t* x;
   long long sx_p, sx_j, sx_b;
   const uint32_t* bits;
-  long long *sh, *mt;
+  Out out;
   int P, k, t, n;
   long long B;
   int masked;
@@ -467,13 +492,13 @@ void columns_launch(const Call& a) {
   constexpr int cols = kThreads / Tuning<K, T, MASKED>::G;  // a block
   const dim3 grid((unsigned)((a.B + cols - 1) / cols));
   fused_round_columns<K, T, MASKED><<<grid, kThreads, 0, a.s>>>(
-      a.x, a.sx_p, a.sh, a.mt, a.P, a.n, a.B, a.key, a.sp, a.mat);
+      a.x, a.sx_p, a.out, a.P, a.n, a.B, a.key, a.sp, a.mat);
 }
 
 template <int R, bool MASKED>
 void bounded_launch(const Call& a) {
   fused_round_bounded<R, MASKED><<<a.grid, kThreads, 0, a.s>>>(
-      a.x, a.sx_p, a.sh, a.mt, a.P, a.k, a.t, a.n, a.B, a.key, a.sp, a.mat);
+      a.x, a.sx_p, a.out, a.P, a.k, a.t, a.n, a.B, a.key, a.sp, a.mat);
 }
 
 template <int R>
@@ -486,15 +511,15 @@ void external_launch(const Call& a) {
                          (int)smem);
   }
   fused_round_external<R><<<a.grid, kThreads, smem, a.s>>>(
-      a.x, a.sx_p, a.sx_j, a.sx_b, a.bits, a.sh, a.mt, a.P, a.k, a.t, a.n,
-      a.B, a.masked, a.sp, a.mat);
+      a.x, a.sx_p, a.sx_j, a.sx_b, a.bits, a.out, a.P, a.k, a.t, a.n, a.B,
+      a.masked, a.sp, a.mat);
 }
 
 template <int R>
 void generic_launch(const Call& a) {
   fused_round_kernel<R><<<a.grid, kThreads, 0, a.s>>>(
-      a.x, a.sx_p, a.sx_j, a.sx_b, a.sh, a.mt, a.P, a.k, a.t, a.n, a.B,
-      a.masked, a.key, a.sp, a.mat);
+      a.x, a.sx_p, a.sx_j, a.sx_b, a.out, a.P, a.k, a.t, a.n, a.B, a.masked,
+      a.key, a.sp, a.mat);
 }
 
 // The instance a call runs.
@@ -531,19 +556,24 @@ void launch(Instance i, const Call& a) {
 
 // x: [P, k, B] 32-bit words at element strides (sx_p, sx_j, sx_b);
 // bits: null (internal Philox) or contiguous [P, 2*draws, B] words;
-// shares: [n, B] int64; mask_tot: [k, B] int64; keys: host [2][10] round
+// shares: [n, B] int64, written, or with acc_shares a canonical
+// accumulator the shares are added to mod p; mask_tot: with mask_d == 0
+// [k, B] int64, written, else a canonical [mask_d] accumulator of the
+// unbatched masks (k (B - 1) < mask_d <= k B); keys: host [2][10] round
 // keys of the seed; p = 2^e - c; matrix: host [n][k + t] canonical
 // residues. Sets *instance to the instance the call runs (Instance).
 // Returns cudaGetLastError() after the launch.
-extern "C" int sda_fused_mask_share_combine(
+extern "C" int sda_fused_mask_share_combine_into(
     const void* x, long long sx_p, long long sx_j, long long sx_b,
     const void* bits, void* shares, void* mask_tot, int P, int k, int t,
     int n, long long B, int masked, const unsigned int* keys,
     unsigned long long p, int e, unsigned long long c,
-    const unsigned int* matrix, int* instance, void* stream) {
+    const unsigned int* matrix, int acc_shares, long long mask_d,
+    int* instance, void* stream) {
   if (k < 1 || t < 0 || k + t > kMaxRows || n < 1 || n > kMaxShares ||
       P < 0 || B < 0 || e < 2 || e > 32 || c >= (1ull << e) ||
-      p != (1ull << e) - c || p < 2) {
+      p != (1ull << e) - c || p < 2 || mask_d < 0 ||
+      (mask_d > 0 && (mask_d > k * B || mask_d <= k * (B - 1)))) {
     return (int)cudaErrorInvalidValue;
   }
   Call a = {};
@@ -562,8 +592,8 @@ extern "C" int sda_fused_mask_share_combine(
   a.sx_j = sx_j;
   a.sx_b = sx_b;
   a.bits = static_cast<const uint32_t*>(bits);
-  a.sh = static_cast<long long*>(shares);
-  a.mt = static_cast<long long*>(mask_tot);
+  a.out = {static_cast<long long*>(shares), static_cast<long long*>(mask_tot),
+           mask_d, acc_shares};
   a.P = P;
   a.k = k;
   a.t = t;
@@ -575,6 +605,20 @@ extern "C" int sda_fused_mask_share_combine(
   if (B == 0) return (int)cudaSuccess;
   launch(i, a);
   return (int)cudaGetLastError();
+}
+
+// sda_fused_mask_share_combine_into with fresh outputs: its first
+// interface (k1_ab binds it on older builds too).
+extern "C" int sda_fused_mask_share_combine(
+    const void* x, long long sx_p, long long sx_j, long long sx_b,
+    const void* bits, void* shares, void* mask_tot, int P, int k, int t,
+    int n, long long B, int masked, const unsigned int* keys,
+    unsigned long long p, int e, unsigned long long c,
+    const unsigned int* matrix, int* instance, void* stream) {
+  return sda_fused_mask_share_combine_into(x, sx_p, sx_j, sx_b, bits, shares,
+                                           mask_tot, P, k, t, n, B, masked,
+                                           keys, p, e, c, matrix, 0, 0,
+                                           instance, stream);
 }
 
 template <class Kernel>

@@ -10,7 +10,10 @@ inputs. Here that kernel is hand-written CUDA for Hopper
   launches the kernel (or raises); for a CPU tensor it runs the plain
   version. It counts its launches in ``fused_mask_share_combine.launches``,
   and by which of the kernel's instances ran (``INSTANCES``) in
-  ``fused_mask_share_combine.instance_launches``;
+  ``fused_mask_share_combine.instance_launches``. With ``acc_shares`` and
+  ``acc_mask`` it adds its results mod p into the caller's accumulators in
+  place, as the reference's jitted streamed step does with its donated
+  ones (``sda_tpu/mesh/streaming.py:503-505``, ``:719-721``);
 - ``philox_round_keys`` and ``kernel_scalars``: what the host hands the
   kernel besides the tensors (the seed's Philox round keys, p = 2^e - c);
 - ``fused_mask_share_combine_plain``: the same function in plain torch
@@ -54,9 +57,10 @@ from .fastfield import (
     modsum32,
     uniform_from_bits,
 )
+from .chacha_device import check_accumulator
 from .residues import residues_int32
 from .reveal import reveal
-from .sharing import batch_columns
+from .sharing import batch_columns, unbatch_columns
 from ..device import resolve_device
 
 _MASK32 = 0xFFFFFFFF
@@ -125,9 +129,11 @@ def philox_round_keys(seed: int) -> np.ndarray:
 
 
 def philox_bits(seed: int, P: int, k: int, t: int, B: int, masked: bool,
-                device):
+                device, col0: int = 0):
     """[P, 2*draws, B] int64 words: the kernel's internal-mode draws laid
-    out as ``external_bits``, so the plain version reproduces them.
+    out as ``external_bits``, so the plain version reproduces them; with
+    ``col0`` those of columns col0 .. col0 + B - 1 (a column window of a
+    wider call).
 
     Value row c of column b for participant q (rows [0, k) are masks,
     [k, k+t) share randomness) takes words (0, 1) of Philox block
@@ -138,7 +144,8 @@ def philox_bits(seed: int, P: int, k: int, t: int, B: int, masked: bool,
     key0, key1 = seed & _MASK32, seed >> 32
     nmask = k if masked else 0
     draws = nmask + t
-    b = torch.arange(B, dtype=torch.int64, device=device)[None, :]
+    b = torch.arange(col0, col0 + B, dtype=torch.int64,
+                     device=device)[None, :]
     q = torch.arange(P, dtype=torch.int64, device=device)[:, None]
     c0 = (b & _MASK32).expand(P, B)
     c1 = (b >> 32).expand(P, B)
@@ -174,19 +181,40 @@ def draw_sum(bits, rows: int, row0: int, sp: SolinasPrime):
 # ---------------------------------------------------------------------------
 # K1: plain version and kernel wrapper
 
+def _check_accumulators(acc_shares, acc_mask, n: int, k: int, B: int,
+                        masked: bool, dev) -> None:
+    """K1's accumulate options: ``acc_shares`` a contiguous [n, B] int64
+    tensor on the kernel's device, ``acc_mask`` a contiguous [d] one with
+    k (B - 1) < d <= k B (the unbatched masks), masked calls only."""
+    if acc_shares is not None:
+        check_accumulator(acc_shares, (n, B), dev, "acc_shares")
+    if acc_mask is not None:
+        if not masked:
+            raise ValueError("acc_mask needs a masked call")
+        d = acc_mask.shape[0] if acc_mask.dim() == 1 else -1
+        if not k * (B - 1) < d <= k * B:
+            raise ValueError(f"acc_mask must be [d] with {k * (B - 1)} < d "
+                             f"<= {k * B}, got {list(acc_mask.shape)}")
+        check_accumulator(acc_mask, (d,), dev, "acc_mask")
+
+
 def fused_mask_share_combine_plain(x_cols, seed, sp: SolinasPrime, m_host,
                                    privacy_threshold: int, masked: bool,
-                                   external_bits=None):
+                                   external_bits=None, *, acc_shares=None,
+                                   acc_mask=None):
     """[P, k, B] 32-bit words -> ([n, B] combined shares, [k, B] mask
     totals), canonical int64 residues; plain torch on any device.
 
     Canons and sums the inputs over P, draws from ``external_bits`` (or
     from ``philox_bits(seed, ...)``), adds the masks and contracts with
     the share matrix minus its zero column. Mask totals are zero when
-    unmasked.
+    unmasked. The accumulate options as for the kernel's wrapper, in place
+    (``out=``), so the CPU sees the card's aliasing.
     """
     P, k, B, n, draws = _check_shapes(
         x_cols, m_host, privacy_threshold, masked, external_bits)
+    _check_accumulators(acc_shares, acc_mask, n, k, B, masked,
+                        x_cols.device)
     t = privacy_threshold
     dev = x_cols.device
     xsum = modsum32(canon32(_words64(x_cols), sp), sp, axis=0)      # [k, B]
@@ -209,6 +237,12 @@ def fused_mask_share_combine_plain(x_cols, seed, sp: SolinasPrime, m_host,
         modmatmul32_limbs(mh[:, k:], ml[:, k:], randsum, sp),
         sp,
     )
+    if acc_shares is not None:
+        shares = torch.remainder(acc_shares.add_(shares), sp.p,
+                                 out=acc_shares)
+    if acc_mask is not None:
+        flat = unbatch_columns(masksum, acc_mask.shape[0])
+        masksum = torch.remainder(acc_mask.add_(flat), sp.p, out=acc_mask)
     return shares, masksum
 
 
@@ -260,6 +294,11 @@ def bind_library(lib: ctypes.CDLL) -> ctypes.CDLL:
                    i64, i32, ptr, u64, i32, u64, ptr,
                    ctypes.POINTER(ctypes.c_int), ptr]
     fn.restype = ctypes.c_int
+    # the accumulate options' entry (a build before them has none)
+    into = getattr(lib, "sda_fused_mask_share_combine_into", None)
+    if into is not None:
+        into.argtypes = fn.argtypes[:18] + [i32, i64] + fn.argtypes[18:]
+        into.restype = ctypes.c_int
     lib.sda_fused_round_occupancy.argtypes = [i32,
                                               ctypes.POINTER(ctypes.c_int)]
     lib.sda_fused_round_occupancy.restype = ctypes.c_int
@@ -297,7 +336,8 @@ def resident_blocks(instance: str) -> int:
 
 def fused_mask_share_combine(x_cols, seed, sp: SolinasPrime, m_host,
                              privacy_threshold: int, masked: bool,
-                             external_bits=None):
+                             external_bits=None, *, acc_shares=None,
+                             acc_mask=None):
     """[P, k, B] 32-bit words -> ([n, B] combined shares, [k, B] mask
     totals), canonical int64 residues.
 
@@ -306,6 +346,14 @@ def fused_mask_share_combine(x_cols, seed, sp: SolinasPrime, m_host,
     ``batch_columns`` returns is read in place. ``external_bits``:
     optional contiguous [P, 2*(k+t) or 2*t, B] words (mask rows first when
     masked); without them the kernel draws Philox words keyed by ``seed``.
+
+    ``acc_shares``: a contiguous [n, B] int64 accumulator of canonical
+    residues on the kernel's device; the shares are added into it mod p in
+    place and it is returned in their place. ``acc_mask`` (masked calls):
+    a contiguous [d] int64 accumulator of the unbatched mask totals
+    (``unbatch_columns``' order, k (B - 1) < d <= k B: total (j, b) at
+    b k + j, a padded column's dropped), added into the same way. Any
+    other accumulator raises; none is copied.
 
     A CUDA tensor launches the kernel (errors raise); a CPU tensor runs
     :func:`fused_mask_share_combine_plain`.
@@ -316,7 +364,9 @@ def fused_mask_share_combine(x_cols, seed, sp: SolinasPrime, m_host,
     dev = x_cols.device
     if dev.type == "cpu":
         return fused_mask_share_combine_plain(
-            x_cols, seed, sp, m_host, t, masked, external_bits)
+            x_cols, seed, sp, m_host, t, masked, external_bits,
+            acc_shares=acc_shares, acc_mask=acc_mask)
+    _check_accumulators(acc_shares, acc_mask, n, k, B, masked, dev)
     m_active = kernel_operands(x_cols, sp, m_host, t)
     if external_bits is not None:
         if external_bits.device != dev or \
@@ -326,17 +376,21 @@ def fused_mask_share_combine(x_cols, seed, sp: SolinasPrime, m_host,
                             f"{external_bits.device}")
         if not external_bits.is_contiguous():
             raise ValueError("external_bits must be contiguous")
-    shares = torch.empty((n, B), dtype=torch.int64, device=dev)
-    mask_tot = torch.empty((k, B), dtype=torch.int64, device=dev)
+    shares = torch.empty((n, B), dtype=torch.int64, device=dev) \
+        if acc_shares is None else acc_shares
+    mask_tot = torch.empty((k, B), dtype=torch.int64, device=dev) \
+        if acc_mask is None else acc_mask
     keys, p, e, c = kernel_scalars(sp, seed)
     instance = ctypes.c_int()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _library().sda_fused_mask_share_combine(
+        err = _library().sda_fused_mask_share_combine_into(
             x_cols.data_ptr(), *x_cols.stride(),
             None if external_bits is None else external_bits.data_ptr(),
             shares.data_ptr(), mask_tot.data_ptr(), P, k, t, n, B,
             int(masked), keys.ctypes.data, p, e, c, m_active.ctypes.data,
+            int(acc_shares is not None),
+            0 if acc_mask is None else acc_mask.shape[0],
             ctypes.byref(instance), stream)
     if err != 0:
         raise RuntimeError(

@@ -13,7 +13,8 @@ qualifies AND the caller's cross-device sums provably fit 32 bits
 next canonicalize). Torch has no uint64 arithmetic, so the reference's
 ``from_u64`` (the reduction of uint64 stream draws) is fused into K3's
 windowed stream, ``fields.chacha_device.stream_residues_at``, and into its
-mask op, ``mask_residues_at`` (the round's ChaCha mask stage).
+mask op, ``mask_residues_at`` and ``mask_residues_derived`` (the round's
+ChaCha mask stage).
 """
 
 from __future__ import annotations

@@ -331,8 +331,9 @@ class _MultihostCheckpointer:
                 start = tuple(int(v) for v in payload[f"{name}_{j}_start"])
                 blocks[start] = payload[f"{name}_{j}_data"]
                 j += 1
+            # owned copies the kernels may write in place
             return [[torch.from_numpy(blocks[(pi * row_height, di * width)])
-                     .to(devs[pi, di]) for di in range(d_shards)]
+                     .to(devs[pi, di], copy=True) for di in range(d_shards)]
                     for pi in self.comm.p_rows]
 
         return (rebuild("accS", self.spod.scheme.output_size),

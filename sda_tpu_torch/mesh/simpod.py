@@ -3,9 +3,10 @@
 
 One round is mask -> share -> clerk combine -> reconstruct -> unmask. The
 stages below are plain torch on int64 residues (the Solinas or generic lane
-of ``fields.ops.FieldOps``), but for ChaCha seed masks, which K3 expands,
-adds and sums in one pass (``fields.chacha_device.mask_residues_at``) at
-each shard's offset in every participant's stream; with
+of ``fields.ops.FieldOps``), but for ChaCha seed masks, whose seeds K3
+derives and whose windows it expands, adds and sums in one pass
+(``fields.chacha_device.mask_residues_derived``) at each shard's offset in
+every participant's stream; with
 ``use_pallas=True`` a shard's mask, share and combine run on K1, the
 fused CUDA kernel (``_pallas_stage``, ``fields.fused_round``).
 
@@ -31,12 +32,13 @@ devices).
 Randomness: torch has no ``fold_in``. Per-shard and per-tile randomness is
 keyed by ``_tile_seed`` (a hash of the round seed and the indices) and the
 ChaCha seed words of participant i by Philox4x32-10 under the round seed
-at counter (i, word pair, ``_SEED_TAG``): both are pure functions of the
-round seed and the indices, as the reference's keys are of its round key,
-so a participant's ChaCha seed does not depend on the mesh's shape. The
-bits differ from threefry's; masks cancel within the round, so the
-aggregate is exact either way, and parity tests feed both packages the
-same inputs and hold both to the exact sum.
+at counter (i, word pair, ``SEED_TAG``; ``_chacha_seed_words``, which K3's
+mask op derives itself on a card): both are pure functions of the round
+seed and the indices, as the reference's keys are of its round key, so a
+participant's ChaCha seed does not depend on the mesh's shape. The bits
+differ from threefry's; masks cancel within the round, so the aggregate
+is exact either way, and parity tests feed both packages the same inputs
+and hold both to the exact sum.
 """
 
 from __future__ import annotations
@@ -127,11 +129,8 @@ def _dim_grain(scheme, masking) -> int:
 # ---------------------------------------------------------------------------
 # Round randomness: pure functions of (round seed, indices)
 
-#: Philox counter word separating the ChaCha-seed stream
-_SEED_TAG = 0x5EED
 #: hash domain of per-tile seeds, apart from the ChaCha-seed stream
 _TILE_TAG = 0x711E
-_MASK32 = 0xFFFFFFFF
 
 
 def _round_seed(generator: torch.Generator) -> int:
@@ -150,29 +149,10 @@ def _tile_seed(round_seed: int, *indices: int) -> int:
     return int.from_bytes(h.digest(), "little") >> 1
 
 
-def _chacha_seed_words(round_seed: int, global_ids, seed_bitsize: int):
-    """[S] global participant ids -> [S, 8] int64 seed words in [0, 2^32).
-
-    The seed depends only on (round seed, participant id) — every dim tile
-    of one participant derives the SAME seed and expands disjoint windows
-    of one stream, which is the whole point of seed-compressed masks.
-    Words beyond ceil(seed_bitsize/32) are zero, matching the host spec's
-    zero-padded ChaCha key (fields/chacha.py).
-    """
-    words = (int(seed_bitsize) + 31) // 32
-    if words > 8:
-        raise ValueError("seed_bitsize > 256 unsupported")
-    ids = torch.as_tensor(global_ids, dtype=torch.int64)
-    key0, key1 = round_seed & _MASK32, (round_seed >> 32) & _MASK32
-    tag = torch.full_like(ids, _SEED_TAG)
-    out = []
-    for pair in range(2):
-        out += fused_round.philox4x32_10(
-            ids & _MASK32, ids >> 32, tag, torch.full_like(ids, pair),
-            key0, key1)
-    seeds = torch.stack(out, dim=1)
-    seeds[:, words:] = 0
-    return seeds
+#: [S] global participant ids -> [S, 8] int64 ChaCha seed words in
+#: [0, 2^32) (the reference's ``_chacha_seed_words``): the plain version of
+#: the keys K3's mask op derives in the kernel, which runs on the CPU only
+_chacha_seed_words = chacha_device.chacha_seed_words
 
 
 # ---------------------------------------------------------------------------
@@ -193,34 +173,31 @@ def _fold_input(f: FieldOps, masking, pallas: bool, block):
     return f.to_residues(block)
 
 
-def _chacha_mask(f: FieldOps, seeds, d_block0: int, x, out_dtype=None):
-    """[S, 8] seed words and an [S, d_loc] int64 block -> (x + masks as
-    ``out_dtype``, int64 when None; the masks' sum [d_loc]), the masks the
-    window of each CHACHA_PRG_V1 stream at block ``d_block0`` (= dim
-    offset / 8): K3's fused mask op, one pass with no [S, d_loc] mask."""
-    return chacha_device.mask_residues_at(seeds, d_block0, x, modulus=f.m,
-                                          out_dtype=out_dtype)
-
-
 def _mask_stage(masking, f: FieldOps, x, generator, *, round_seed=None,
-                pid_base: int = 0, d_block0: int = 0, out_dtype=None):
+                pid_base: int = 0, d_block0: int = 0, out_dtype=None,
+                acc_mask=None):
     """-> (masked [S, d_loc], local_mask_sum [d_loc] or None).
 
     Full masks are drawn from ``generator``. ChaCha masks are a function of
     (``round_seed``, global participant id, dim offset): ``pid_base`` is
     the global id of the first row, ``d_block0`` the ChaCha block counter
-    at this tile's dim offset; they are added and summed by K3 in one
-    pass, which writes the masked rows as ``out_dtype`` (int64 when None;
-    int32 for a modulus below 2^31)."""
-    S, d_loc = x.shape
+    at this tile's dim offset; K3's mask op derives the seeds of the rows
+    from them, adds and sums the masks in one pass (the reference's
+    ``_chacha_seed_words`` and mask stage, one launch) and writes the
+    masked rows as ``out_dtype`` (int64 when None; int32 for a modulus
+    below 2^31). ``acc_mask``: the step's [d_loc] mask accumulator; the
+    sum is added into it (in place by K3 for ChaCha masks) and it, or the
+    new sum, is returned in the sum's place (None masks leave it)."""
     if isinstance(masking, FullMasking):
         masks = f.uniform(generator, x.shape)
-        return f.add(x, masks), f.sum(masks, axis=0)
+        total = f.sum(masks, axis=0)
+        return f.add(x, masks), (total if acc_mask is None
+                                 else f.add(acc_mask, total))
     if isinstance(masking, ChaChaMasking):
-        gids = pid_base + torch.arange(S, dtype=torch.int64, device=x.device)
-        seeds = _chacha_seed_words(round_seed, gids, masking.seed_bitsize)
-        return _chacha_mask(f, seeds, d_block0, x, out_dtype)
-    return x, None
+        return chacha_device.mask_residues_derived(
+            round_seed, pid_base, masking.seed_bitsize, d_block0, x,
+            modulus=f.m, out_dtype=out_dtype, acc_mask=acc_mask)
+    return x, acc_mask
 
 
 def _share_sum_stage(scheme, f: FieldOps, M_host, masked, generator):
@@ -278,10 +255,13 @@ def _resolve_pallas(scheme, masking, f: FieldOps, use_pallas: bool,
 
 
 def _pallas_stage(scheme, f: FieldOps, M_host, masking, x, seed: int, *,
-                  round_seed=None, pid_base: int = 0, d_block0: int = 0):
+                  round_seed=None, pid_base: int = 0, d_block0: int = 0,
+                  acc_shares=None, acc_mask=None):
     """[S, d_loc] block from ``_fold_input`` -> (combined shares [n, B0],
     mask sum [d_loc] | None) on K1 (``fields.fused_round``), keyed by
-    ``seed``.
+    ``seed``; with the step's accumulators (``acc_shares`` [n, B0],
+    ``acc_mask`` [d_loc]) the kernels add into them in place and return
+    them instead (the reference's donated accumulators).
 
     Drop-in replacement for the _mask_stage + _share_sum_stage pair: the
     round result is exact for ANY mask/share randomness — masks cancel in
@@ -293,44 +273,57 @@ def _pallas_stage(scheme, f: FieldOps, M_host, masking, x, seed: int, *,
     mask-free on the pre-masked input (the ``columns_unmasked`` instance
     for the flagship scheme).
     """
-    chacha_mask_sum = None
+    chacha_mask_sum = acc_mask
     if isinstance(masking, ChaChaMasking):
         x, chacha_mask_sum = _mask_stage(
             masking, f, x, None, round_seed=round_seed, pid_base=pid_base,
-            d_block0=d_block0, out_dtype=torch.int32)
+            d_block0=d_block0, out_dtype=torch.int32, acc_mask=acc_mask)
         masking = NoMasking()
     d_loc = x.shape[1]
     masked = isinstance(masking, FullMasking)
     # no copy for the mask op's int32 rows: a view of them (d % k == 0)
     x_cols = sharing.batch_columns(x.to(torch.int32), scheme.secret_count)
     shares, mask_tot = fused_round.fused_mask_share_combine(
-        x_cols, seed, f.sp, M_host, scheme.privacy_threshold, masked)
+        x_cols, seed, f.sp, M_host, scheme.privacy_threshold, masked,
+        acc_shares=acc_shares, acc_mask=acc_mask if masked else None)
     if not masked:
         return shares, chacha_mask_sum
+    if acc_mask is not None:
+        return shares, mask_tot
     return shares, sharing.unbatch_columns(mask_tot, d_loc)
 
 
 def _fold_stage(scheme, f: FieldOps, M_host, masking, pallas: bool, x,
                 seed: int, *, round_seed=None, pid_base: int = 0,
-                d_block0: int = 0):
+                d_block0: int = 0, acc_shares=None, acc_mask=None):
     """[S, d_loc] block from ``_fold_input`` -> (participant-summed shares
     [n, B], mask sum [d_loc] | None), keyed by ``seed``: K1 when
     ``pallas``, else the plain mask and share stages drawing from a
     generator on ``x``'s device seeded with ``seed``. ``pid_base`` and
     ``d_block0`` locate the block in the global ChaCha streams, so every
-    tiling of a round sees the same masks."""
+    tiling of a round sees the same masks.
+
+    ``acc_shares`` and ``acc_mask``: a streamed step's accumulators, both
+    or neither; the fold is added into them and (acc_shares, acc_mask)
+    come back. On the K1 lane the kernels add in their stores, in place
+    (K3's mask op for ChaCha masks, K1 for the shares and Full masks); the
+    plain lane adds with ``f.add``, as the reference's XLA lane does."""
     if pallas:
         return _pallas_stage(scheme, f, M_host, masking, x, seed,
                              round_seed=round_seed, pid_base=pid_base,
-                             d_block0=d_block0)
+                             d_block0=d_block0, acc_shares=acc_shares,
+                             acc_mask=acc_mask)
     generator = torch.Generator(device=x.device)
     generator.manual_seed(seed)
     masked, mask_sum = _mask_stage(masking, f, x, generator,
                                    round_seed=round_seed, pid_base=pid_base,
-                                   d_block0=d_block0)
+                                   d_block0=d_block0, acc_mask=acc_mask)
     # share + participant-combine fused via linearity (_share_sum_stage):
     # no [S, n, B] tensor
-    return _share_sum_stage(scheme, f, M_host, masked, generator), mask_sum
+    shares = _share_sum_stage(scheme, f, M_host, masked, generator)
+    if acc_shares is not None:
+        shares = f.add(acc_shares, shares)
+    return shares, mask_sum
 
 
 def _scan_combine(f: FieldOps, scheme, masking, M_host, x, seed: int,

@@ -26,9 +26,19 @@ reference's names), with their costs counted from the block shapes.
 
 Randomness: a tile's Full masks, share rows and K1 key come from
 ``simpod._tile_seed(round seed, participant tile, dim tile)`` and ChaCha
-seeds from ``simpod._chacha_seed_words(round seed, participant id)``, pure
-functions of the round seed and the tile's indices, so a resumed run is
-bit-identical to an uninterrupted one.
+seeds from ``simpod._chacha_seed_words(round seed, participant id)`` (K3
+derives them in the kernel on a card), pure functions of the round seed
+and the tile's indices, so a resumed run is bit-identical to an
+uninterrupted one.
+
+The accumulators: as the reference jits its step with donated
+accumulators (``jax.jit(step, donate_argnums=(5, 6))``), the K1 lane's
+step hands them down to the kernels, which add into them in their stores,
+in place: K3's mask op the ChaCha mask sums, K1 the shares and Full mask
+totals. A step on that lane is K6 (the device provider's block), K3's mask
+op (and its chunk fold) and K1: no other launch. The plain lane adds with
+``f.add``. Accumulators are owned contiguous int64 tensors on the step's
+device (fresh zeros, or a snapshot's copies on resume).
 """
 
 from __future__ import annotations
@@ -455,16 +465,13 @@ class StreamingAggregator:
         """Fold one [rows, d_size] block into the accumulators."""
         f = self._field
         # fused mask + share + combine on K1 when active, keyed by the
-        # tile's seed; pid0/dblk0 locate the tile in the ChaCha streams
-        shares, mask_sum = _fold_stage(
+        # tile's seed, added into the accumulators in the kernels' stores;
+        # pid0/dblk0 locate the tile in the ChaCha streams
+        return _fold_stage(
             self.scheme, f, self._M_host, self.masking, self.pallas_active,
             _fold_input(f, self.masking, self.pallas_active, block),
             tile_seed, round_seed=round_seed, pid_base=pid0,
-            d_block0=dblk0)
-        acc_shares = f.add(acc_shares, shares)
-        if mask_sum is not None:
-            acc_mask = f.add(acc_mask, mask_sum)
-        return acc_shares, acc_mask
+            d_block0=dblk0, acc_shares=acc_shares, acc_mask=acc_mask)
 
     def _final(self, acc_shares, acc_mask):
         """[n, B] share and [d_size] mask accumulators -> [d_size] int64
@@ -508,8 +515,9 @@ class StreamingAggregator:
         return _host(acc_shares), _host(acc_mask)
 
     def _restore_accs(self, acc_shares, acc_mask):
-        return (torch.from_numpy(acc_shares).to(self.device),
-                torch.from_numpy(acc_mask).to(self.device))
+        # copies the kernels may write in place (never the loaded arrays)
+        return (torch.from_numpy(acc_shares).to(self.device, copy=True),
+                torch.from_numpy(acc_mask).to(self.device, copy=True))
 
     # -- driver ----------------------------------------------------------
     def aggregate_blocks(
@@ -640,13 +648,16 @@ class StreamedPod:
         B_loc = acc_shares.shape[1] // d_shards
         d_loc = acc_mask.shape[1] // d_shards
         devs = self.mesh.devices
+        # owned contiguous copies the kernels may write in place
         return (
             [[torch.from_numpy(np.ascontiguousarray(
                 acc_shares[pi * n:(pi + 1) * n,
-                           di * B_loc:(di + 1) * B_loc])).to(devs[pi, di])
+                           di * B_loc:(di + 1) * B_loc])).to(
+                    devs[pi, di], copy=True)
               for di in range(d_shards)] for pi in range(p_shards)],
             [[torch.from_numpy(np.ascontiguousarray(
-                acc_mask[pi, di * d_loc:(di + 1) * d_loc])).to(devs[pi, di])
+                acc_mask[pi, di * d_loc:(di + 1) * d_loc])).to(
+                    devs[pi, di], copy=True)
               for di in range(d_shards)] for pi in range(p_shards)],
         )
 
@@ -666,14 +677,12 @@ class StreamedPod:
                 x = _fold_input(f, masking, self.pallas_active,
                                 block[j * Pc_loc:(j + 1) * Pc_loc,
                                       di * d_loc:(di + 1) * d_loc].to(dev))
-                shares, mask_sum = _fold_stage(
+                acc_shares[j][di], acc_mask[j][di] = _fold_stage(
                     s, f, self._M_host, masking, self.pallas_active, x,
                     _tile_seed(tile_seed, pi, di), round_seed=round_seed,
                     pid_base=p0 + pi * Pc_loc,
-                    d_block0=dblk0 + di * (d_loc // 8))
-                acc_shares[j][di] = f.add(acc_shares[j][di], shares)
-                if mask_sum is not None:
-                    acc_mask[j][di] = f.add(acc_mask[j][di], mask_sum)
+                    d_block0=dblk0 + di * (d_loc // 8),
+                    acc_shares=acc_shares[j][di], acc_mask=acc_mask[j][di])
         return acc_shares, acc_mask
 
     def _final(self, acc_shares, acc_mask, *, comm):

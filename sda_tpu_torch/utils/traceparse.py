@@ -112,15 +112,11 @@ def busy_share(trace: dict) -> Optional[float]:
     return busy / window if window > 0 else None
 
 
-def device_split(trace: dict, kernels: Dict[str, str],
-                 ranges: Dict[str, str]) -> Dict[str, float]:
-    """Device time (us) of a trace split into groups: a device event goes
-    to the first group of ``kernels`` ({group: a substring of the kernel's
-    name}) its name holds, else to the first group of ``ranges`` ({group:
-    the name of a host ``record_function`` range, such as a
-    ``utils.timed_phase``}) one of whose ranges encloses the host call
-    that launched it (matched by the events' ``correlation``), else to
-    "rest". Every group is in the result, "rest" included."""
+def _range_of(trace: dict, ranges: Dict[str, str]):
+    """-> fn(device event) -> the first group of ``ranges`` ({group: the
+    name of a host ``record_function`` range}) one of whose ranges
+    encloses the host call that launched the event (matched by the
+    events' ``correlation``), or None."""
     events = trace.get("traceEvents", [])
     spans = {group: sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]))
                            for e in events
@@ -133,13 +129,49 @@ def device_split(trace: dict, kernels: Dict[str, str],
         if (e.get("ph") == "X" and corr is not None
                 and e.get("cat") not in _NOT_HOST):
             launched[corr] = float(e["ts"])
+
+    def group_of(e):
+        ts = launched.get((e.get("args") or {}).get("correlation"))
+        return next((g for g, sp in spans.items() if ts is not None
+                     and any(a <= ts <= b for a, b in sp)), None)
+    return group_of
+
+
+def device_split(trace: dict, kernels: Dict[str, str],
+                 ranges: Dict[str, str]) -> Dict[str, float]:
+    """Device time (us) of a trace split into groups: a device event goes
+    to the first group of ``kernels`` ({group: a substring of the kernel's
+    name}) its name holds, else to the first group of ``ranges`` ({group:
+    the name of a host ``record_function`` range, such as a
+    ``utils.timed_phase``}) one of whose ranges encloses the host call
+    that launched it (matched by the events' ``correlation``), else to
+    "rest". Every group is in the result, "rest" included."""
+    group_of = _range_of(trace, ranges)
     out = dict.fromkeys([*kernels, *ranges, "rest"], 0.0)
     for e in _device_events(trace):
         name, dur = e.get("name", ""), float(e["dur"])
         group = next((g for g, hint in kernels.items() if hint in name), None)
         if group is None:
-            ts = launched.get((e.get("args") or {}).get("correlation"))
-            group = next((g for g, sp in spans.items() if ts is not None
-                          and any(a <= ts <= b for a, b in sp)), "rest")
+            group = group_of(e) or "rest"
         out[group] += dur
+    return out
+
+
+def device_events_in(trace: dict, ranges: Dict[str, str]
+                     ) -> Dict[str, Dict[str, int]]:
+    """{group: {device event name: count}} of the device events (kernels,
+    copies, memsets; a copy's or memset's name prefixed by its ``cat``)
+    launched inside the host ranges of each group of ``ranges`` ({group:
+    the name of a ``record_function`` range}), as ``device_split``
+    attributes them. Every group is in the result."""
+    group_of = _range_of(trace, ranges)
+    out = {group: {} for group in ranges}
+    for e in _device_events(trace):
+        group = group_of(e)
+        if group is None:
+            continue
+        cat = e.get("cat")
+        name = e.get("name", "")
+        key = name if cat == "kernel" else f"{cat}: {name}"
+        out[group][key] = out[group].get(key, 0) + 1
     return out

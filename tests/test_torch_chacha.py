@@ -355,3 +355,138 @@ def test_fold_ops_count_the_mask_op():
     none = SimpleNamespace(**{**vars(pod), "masking": NoMasking()})
     assert (simpod._fold_ops(pod, 10, 48) - simpod._fold_ops(none, 10, 48)
             == bounds.k3_pipe_ops(10, 48, "mask"))
+
+
+# -- the mask op's derived keys and accumulator (the streamed step's) --------
+
+_PHILOX_M = (0xD2511F53, 0xCD9E8D57)
+
+
+def _philox_with_round_keys(ctr, keys):
+    """Philox4x32-10 in Python ints on ``keys`` [2, 10], the round keys
+    the kernels take (``philox_round_keys``; csrc/philox.cuh)."""
+    c0, c1, c2, c3 = ctr
+    for r in range(10):
+        p0, p1 = _PHILOX_M[0] * c0, _PHILOX_M[1] * c2
+        c0, c1, c2, c3 = ((p1 >> 32) ^ c1 ^ int(keys[0][r]),
+                          p1 & 0xFFFFFFFF,
+                          (p0 >> 32) ^ c3 ^ int(keys[1][r]),
+                          p0 & 0xFFFFFFFF)
+    return [c0, c1, c2, c3]
+
+
+@pytest.mark.parametrize("round_seed", [0, 15, (1 << 62) - 12_345])
+@pytest.mark.parametrize("pid_base", [0, 12_345, (1 << 32) - 3])
+def test_seed_words_are_the_kernels_key_schedule(round_seed, pid_base):
+    """``chacha_seed_words`` (the derived mode's plain version) is what
+    csrc/chacha.cu's ``derive_keys`` computes from the round keys it is
+    handed: Philox4x32-10 of (gid mod 2^32, gid >> 32, 0x5EED, pair) under
+    ``philox_round_keys(round_seed)``, words 0-3 from pair 0, 4-7 from
+    pair 1; ids past 2^32 carry into the second counter word."""
+    from sda_tpu_torch.fields.fused_round import philox_round_keys
+
+    keys = philox_round_keys(round_seed)
+    ids = pid_base + torch.arange(5)
+    got = chacha_device.chacha_seed_words(round_seed, ids, 256)
+    for row, gid in zip(got.tolist(), ids.tolist()):
+        want = []
+        for pair in (0, 1):
+            want += _philox_with_round_keys(
+                (gid & 0xFFFFFFFF, gid >> 32, chacha_device.SEED_TAG, pair),
+                keys)
+        assert row == want
+
+
+@pytest.mark.parametrize("bits", [32, 128, 256])
+@pytest.mark.parametrize("pid_base", [0, 12_345, (1 << 32) - 3])
+@pytest.mark.parametrize("out_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("acc", [False, True])
+def test_derived_mask_op_is_seed_words_then_mask(bits, pid_base, out_dtype,
+                                                 acc):
+    """The derived mode (``mask_residues_derived``) equals ``mask_plain`` on
+    ``chacha_seed_words`` of ids pid_base .. pid_base + S - 1, whose masks
+    are the JAX package's ``stream_u64_at`` windows of those keys (added
+    to x and summed by its ``FieldOps``); with an accumulator near m - 1
+    the sum is added into it in place. Words past ceil(bits / 32) are
+    zero."""
+    from sda_tpu.fields.ops import FieldOps as RefFieldOps
+
+    S, d, c0, round_seed = 6, 48, 12_345, (1 << 62) - 7
+    rng = np.random.default_rng(bits + pid_base % 97)
+    x = rng.integers(-(1 << 62), 1 << 62, size=(S, d))  # raw, as a step's
+    ids = pid_base + torch.arange(S)
+    sw = chacha_device.chacha_seed_words(round_seed, ids, bits)
+    assert (sw[:, -(-bits // 32):] == 0).all()
+    f = RefFieldOps.create(P29)
+    masks = f.from_u64(chacha_jax.stream_u64_at(
+        sw.numpy().astype(np.uint32), np.uint32(c0), dimension=d))
+    want_masked = np.asarray(f.add(f.to_residues(x), masks), np.int64)
+    want_sum = np.asarray(f.sum(masks, axis=0), np.int64)
+    near = torch.from_numpy(P29 - 1 - rng.integers(0, 3, size=d))
+    into = near.clone() if acc else None
+    got, got_sum = chacha_device.mask_residues_derived(
+        round_seed, pid_base, bits, c0, torch.from_numpy(x), modulus=P29,
+        out_dtype=out_dtype, acc_mask=into)
+    assert got.dtype == out_dtype
+    np.testing.assert_array_equal(got.numpy().astype(np.int64), want_masked)
+    if acc:
+        assert got_sum is into
+        want_sum = np.asarray(f.add(near.numpy(), want_sum), np.int64)
+    np.testing.assert_array_equal(got_sum.numpy(), want_sum)
+    plain = chacha_device.mask_plain(sw, c0, torch.from_numpy(x), P29,
+                                     out_dtype, near.clone() if acc else None)
+    assert torch.equal(plain[0], got) and torch.equal(plain[1], got_sum)
+
+
+@pytest.mark.parametrize("case,kw,match", [
+    ("acc dtype", dict(seeds=None, derive=(1, 0, 128),
+                       acc=torch.zeros(16, dtype=torch.int32)),
+     "acc_mask must be int64"),
+    ("acc shape", dict(seeds=None, derive=(1, 0, 128),
+                       acc=torch.zeros(15, dtype=torch.int64)),
+     "acc_mask must be \\[16\\]"),
+    ("acc strided", dict(seeds=None, derive=(1, 0, 128),
+                         acc=torch.zeros(32, dtype=torch.int64)[::2]),
+     "acc_mask must be contiguous"),
+    ("acc on another op", dict(op="expand", dimension=16,
+                               acc=torch.zeros(16, dtype=torch.int64)),
+     "only the derived mask mode accumulates"),
+    ("acc with given seeds", dict(acc=torch.zeros(16, dtype=torch.int64)),
+     "only the derived mask mode accumulates"),
+    ("derive with seeds", dict(derive=(1, 0, 128)),
+     "in place of seed words"),
+    ("derive bits", dict(seeds=None, derive=(1, 0, 257)),
+     "seed_bitsize 257"),
+    ("derive ids", dict(seeds=None, derive=(1, (1 << 63) - 1, 128)),
+     "outside int64"),
+    ("derive seed", dict(seeds=None, derive=(1 << 64, 0, 128)),
+     "round seed"),
+])
+def test_mask_op_options_are_checked(case, kw, match):
+    """The derived mode and the accumulator are the mask op's, the
+    accumulator the derived mode's only, checked before any work: an
+    accumulator that is not a contiguous int64 [d] tensor on the op's
+    device raises (it is never copied)."""
+    seeds = kw.pop("seeds", torch.zeros((2, 8), dtype=torch.int64))
+    with pytest.raises((ValueError, TypeError), match=match):
+        chacha_device.chacha_kernel(
+            kw.pop("op", "mask"), seeds,
+            x=torch.zeros((2, 16), dtype=torch.int64), modulus=P29, **kw)
+
+
+def test_k3_bound_counts_derived_keys_and_the_accumulator():
+    """The derived mode reads no key words but derives two Philox blocks a
+    seed, once a seed whatever the kernel's strips repeat; the accumulate
+    reads the [d] sums."""
+    from sda_tpu_torch.benchmarks import bounds
+
+    S, d = 250, 3_145_728
+    nbytes = lambda b: int(b[2].split(" bytes")[0])
+    given = bounds.k3_bound(S, d, "mask", 4)
+    derived = bounds.k3_bound(S, d, "mask", 4, derived=True,
+                              accumulate=True)
+    assert nbytes(derived) - nbytes(given) == d * 8 - S * 32
+    _, alu, fma, _ = bounds._k3_ops(S, d, "mask", derived=True)
+    _, alu0, fma0, _ = bounds._k3_ops(S, d, "mask")
+    assert alu - alu0 == fma - fma0 == S * 40
+    assert derived[1] == "operations" and derived[0] > given[0]

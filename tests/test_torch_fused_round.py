@@ -173,6 +173,28 @@ def test_philox_bits_layout():
     assert not torch.equal(full, other)
 
 
+@pytest.mark.parametrize("col0,width", [(0, 70), (1, 30), (40, 30),
+                                         (69, 1)])
+def test_philox_bits_column_window(col0, width):
+    """``col0`` gives a column window's draws of a wider call: its slice of
+    the whole call's words, and (as ``external_bits``) the plain version's
+    shares of that window."""
+    s = SCHEMES["packed"]
+    k, t, P, B, seed = s.secret_count, s.privacy_threshold, 5, 70, 2**40 + 5
+    whole = fused_round.philox_bits(seed, P, k, t, B, False, "cpu")
+    window = fused_round.philox_bits(seed, P, k, t, width, False, "cpu",
+                                     col0=col0)
+    assert torch.equal(window, whole[:, :, col0:col0 + width])
+    x, _ = _inputs(s, P, B, False, seed=4)
+    x_cols = torch.from_numpy(x)
+    args = (seed, SolinasPrime.try_from(s.prime_modulus),
+            ref_nt.share_matrix_for(s), t, False)
+    full = fused_round.fused_mask_share_combine_plain(x_cols, *args)
+    part = fused_round.fused_mask_share_combine_plain(
+        x_cols[:, :, col0:col0 + width], *args, external_bits=window)
+    assert torch.equal(part[0], full[0][:, col0:col0 + width])
+
+
 @pytest.mark.parametrize("scheme,masked", [("packed", True), ("packed", False),
                                            ("basic", True), ("packed26", True),
                                            ("packed26", False)])
@@ -264,3 +286,122 @@ def test_build_key_covers_included_headers_and_flags(monkeypatch, tmp_path):
     assert all(edited[name].name.startswith(f"lib{name}_") for name in names)
     monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ("-G",))
     assert all(_build.library_path(name) != edited[name] for name in names)
+
+
+# -- the accumulate options (the streamed step's donated accumulators) -------
+
+def _near_top(shape, p, seed):
+    """Canonical residues within 2 of p - 1: every add wraps."""
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(p - 1 - rng.integers(0, 3, size=shape))
+
+
+@pytest.mark.parametrize("scheme", sorted(SCHEMES))
+@pytest.mark.parametrize("masked", [True, False])
+@pytest.mark.parametrize("ragged", [False, True])
+def test_accumulate_options_add_in_place(pallas_x64, scheme, masked, ragged):
+    """K1 with ``acc_shares`` / ``acc_mask`` adds its outputs mod p into the
+    caller's accumulators in place (the same storage comes back): the
+    shares as ``f.add`` of the Pallas kernel's, fed the same bits, and the
+    mask totals at their unbatched positions b k + j of the [d]
+    accumulator, a padded column's dropped (``ragged``: d < k B)."""
+    from sda_tpu.fields.ops import FieldOps as RefFieldOps
+    from sda_tpu.fields.sharing import unbatch_columns as ref_unbatch
+
+    s = SCHEMES[scheme]
+    k, p = s.secret_count, s.prime_modulus
+    P, B = 5, 128
+    d = k * B - (k - 1 if ragged else 0)
+    x, bits = _inputs(s, P, B, masked, seed=B + k + masked)
+    acc_s = _near_top((s.share_count, B), p, 1)
+    acc_m = _near_top((d,), p, 2) if masked else None
+    into = (acc_s.clone(), None if acc_m is None else acc_m.clone())
+    ptrs = (into[0].data_ptr(), None if acc_m is None else into[1].data_ptr())
+    sp = SolinasPrime.try_from(p)
+    got = fused_round.fused_mask_share_combine(
+        torch.from_numpy(x), 0, sp, ref_nt.share_matrix_for(s),
+        s.privacy_threshold, masked, external_bits=torch.from_numpy(bits),
+        acc_shares=into[0], acc_mask=into[1])
+    assert got[0] is into[0] and got[0].data_ptr() == ptrs[0]
+    shares, mask_tot = _pallas(s, x, bits, masked, p_block=16)
+    f = RefFieldOps.create(p)
+    np.testing.assert_array_equal(
+        got[0].numpy(), np.asarray(f.add(acc_s.numpy(), shares), np.int64))
+    if masked:
+        assert got[1] is into[1] and got[1].data_ptr() == ptrs[1]
+        np.testing.assert_array_equal(got[1].numpy(), np.asarray(f.add(
+            acc_m.numpy(), ref_unbatch(mask_tot, d)), np.int64))
+    else:  # no mask accumulator: the [k, B] totals, zero
+        assert got[1].shape == (k, B) and not got[1].any()
+
+
+@pytest.mark.parametrize("scheme,masked", [("packed", True), ("basic", False),
+                                           ("packed26", True)])
+def test_accumulate_options_in_internal_mode(scheme, masked):
+    """With internal draws the accumulate equals ``f.add`` of the fresh
+    call's outputs (the kernel's plain version on a CPU tensor), twice in
+    a row into the same accumulators, as a streamed dim tile's steps do."""
+    from sda_tpu_torch.fields.ops import FieldOps
+    from sda_tpu_torch.fields.sharing import unbatch_columns
+
+    s = SCHEMES[scheme]
+    k, p, n = s.secret_count, s.prime_modulus, s.share_count
+    x, _ = _inputs(s, 6, 64, masked, seed=9)
+    sp = SolinasPrime.try_from(p)
+    args = (torch.from_numpy(x), 0, sp, ref_nt.share_matrix_for(s),
+            s.privacy_threshold, masked)
+    acc_s, acc_m = _near_top((n, 64), p, 3), _near_top((k * 64,), p, 4)
+    want_s, want_m = acc_s.clone(), acc_m.clone()
+    f = FieldOps.create(p)
+    for seed in (11, 12):
+        fresh = fused_round.fused_mask_share_combine(*args[:1], seed,
+                                                     *args[2:])
+        want_s = f.add(want_s, fresh[0])
+        want_m = f.add(want_m, unbatch_columns(fresh[1], k * 64))
+        fused_round.fused_mask_share_combine(
+            *args[:1], seed, *args[2:], acc_shares=acc_s,
+            acc_mask=acc_m if masked else None)
+    assert torch.equal(acc_s, want_s)
+    if masked:
+        assert torch.equal(acc_m, want_m)
+
+
+@pytest.mark.parametrize("case,kw,match", [
+    ("shares dtype", dict(acc_shares=torch.zeros((8, 10), dtype=torch.int32)),
+     "acc_shares must be int64"),
+    ("shares shape", dict(acc_shares=torch.zeros((8, 11), dtype=torch.int64)),
+     "acc_shares must be \\[8, 10\\]"),
+    ("shares strided", dict(acc_shares=torch.zeros(
+        (10, 8), dtype=torch.int64).t()), "acc_shares must be contiguous"),
+    ("mask too short", dict(acc_mask=torch.zeros(27, dtype=torch.int64)),
+     "acc_mask must be \\[d\\] with 27 < d <= 30"),
+    ("mask 2-D", dict(acc_mask=torch.zeros((3, 10), dtype=torch.int64)),
+     "acc_mask must be \\[d\\]"),
+    ("mask strided", dict(acc_mask=torch.zeros(60, dtype=torch.int64)[::2]),
+     "acc_mask must be contiguous"),
+    ("mask unmasked", dict(acc_mask=torch.zeros(30, dtype=torch.int64),
+                           masked=False), "acc_mask needs a masked call"),
+])
+def test_accumulate_options_are_checked_never_copied(case, kw, match):
+    """An accumulator that is not a contiguous int64 tensor of its shape on
+    the kernel's device raises (a copy would lose the sum)."""
+    s = SCHEMES["packed"]
+    sp = SolinasPrime.try_from(P29)
+    masked = kw.pop("masked", True)
+    with pytest.raises(ValueError, match=match):
+        fused_round.fused_mask_share_combine(
+            torch.zeros((2, 3, 10), dtype=torch.int32), 0, sp,
+            ref_nt.share_matrix_for(s), T, masked, **kw)
+
+
+def test_k1_bound_counts_the_accumulators():
+    """``bounds.k1_bound``'s ``acc_rows``: the accumulators' int64 rows are
+    read once besides (8 a column at the streamed tile's n = 8)."""
+    from sda_tpu_torch.benchmarks import bounds
+
+    B = 1_048_576
+    fresh = bounds.k1_bound(250, B, 3, 4, True, 8)
+    acc = bounds.k1_bound(250, B, 3, 4, True, 8, acc_rows=8)
+    nbytes = lambda b: int(b[2].split(" bytes")[0])
+    assert nbytes(acc) - nbytes(fresh) == 8 * B * 8
+    assert acc[1] == "operations" and acc[0] == fresh[0]

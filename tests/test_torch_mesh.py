@@ -408,25 +408,27 @@ def test_pod_k1_lane_matches_sum_and_reference(mesh_shape, masking):
 def test_pod_calls_each_kernel_once_a_shard(monkeypatch, masking):
     """The K1 lane calls K1's wrapper once a shard (a launch each on a
     card), and ChaCha masks call K3's mask op once a shard at that shard's
-    participant ids and block counter, writing the int32 words K1 reads."""
+    participant ids and block counter (its derived mode: the seeds' keys
+    from the round seed and the first id), writing the int32 words K1
+    reads."""
     s = fast_scheme()
     p = s.prime_modulus
     mask = FullMasking(p) if masking == "full" else ChaChaMasking(p, 96, 128)
     k1_shapes, k3_windows = [], []
     real_k1 = fused_round.fused_mask_share_combine
-    real_k3 = chacha_device.mask_residues_at
+    real_k3 = chacha_device.mask_residues_derived
 
     def k1(x_cols, *args, **kw):
         k1_shapes.append(tuple(x_cols.shape))
         return real_k1(x_cols, *args, **kw)
 
-    def k3(seeds, counter0, x, **kw):
-        k3_windows.append((tuple(seeds.shape), counter0, x.shape[1]))
-        assert kw["out_dtype"] == torch.int32
-        return real_k3(seeds, counter0, x, **kw)
+    def k3(round_seed, pid_base, bits, counter0, x, **kw):
+        k3_windows.append((pid_base, tuple(x.shape), counter0))
+        assert kw["out_dtype"] == torch.int32 and bits == 128
+        return real_k3(round_seed, pid_base, bits, counter0, x, **kw)
 
     monkeypatch.setattr(fused_round, "fused_mask_share_combine", k1)
-    monkeypatch.setattr(chacha_device, "mask_residues_at", k3)
+    monkeypatch.setattr(chacha_device, "mask_residues_derived", k3)
     pod = port_pod(s, mask, (4, 2), use_pallas=True)
     inputs = np.random.default_rng(5).integers(0, 1 << 20, size=(16, 96))
     np.testing.assert_array_equal(pod.aggregate(inputs, 1).numpy(),
@@ -434,7 +436,7 @@ def test_pod_calls_each_kernel_once_a_shard(monkeypatch, masking):
     assert k1_shapes == [(4, 3, 16)] * 8
     if masking == "chacha":
         assert sorted(k3_windows) == sorted(
-            ((4, 8), di * 6, 48) for _ in range(4) for di in range(2))
+            (4 * pi, (4, 48), di * 6) for pi in range(4) for di in range(2))
     else:
         assert k3_windows == []
 

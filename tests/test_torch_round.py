@@ -200,16 +200,21 @@ def test_chacha_round_ignores_the_wire_prg(prg):
 
 def test_chacha_round_masks_depend_on_the_round_seed(monkeypatch):
     """One round seed a round, drawn from the generator; every tile sees
-    the same seed words at its own block offset."""
+    the same seed words at its own block offset (K3's mask op derives them
+    from the round seed and the rows' first global id)."""
+    from sda_tpu_torch.fields import chacha_device
+
     s = _port("flagship")
     seen = []
-    real = simpod._chacha_mask
+    real = chacha_device.mask_residues_derived
 
-    def spy(f, seeds, d_block0, x, out_dtype=None):
-        seen.append((seeds.clone(), d_block0, x.shape[1]))
-        return real(f, seeds, d_block0, x, out_dtype)
+    def spy(round_seed, pid_base, bits, d_block0, x, **kw):
+        seen.append((chacha_device.chacha_seed_words(
+            round_seed, pid_base + torch.arange(x.shape[0]), bits),
+            d_block0, x.shape[1]))
+        return real(round_seed, pid_base, bits, d_block0, x, **kw)
 
-    monkeypatch.setattr(simpod, "_chacha_mask", spy)
+    monkeypatch.setattr(chacha_device, "mask_residues_derived", spy)
     x = _inputs(5, 480, 1)
     fn = single_chip_round(s, _chacha(proto, s, 480), dim_tile=240,
                            device="cpu")

@@ -6,6 +6,7 @@ bit against the JAX stage on the same seed words; checkpoint resume
 bit-identical. ``use_pallas=True`` runs K1 through its plain version (the
 wrapper's CPU leg) and ChaCha masks through K3's."""
 
+import functools
 import os
 
 import jax
@@ -19,11 +20,13 @@ from sda_tpu.mesh import StreamingAggregator as RefStreamingAggregator
 from sda_tpu.mesh import simpod as ref_simpod
 from sda_tpu.mesh import streaming as ref_streaming
 
-from sda_tpu_torch.fields import fastfield, numtheory
+from sda_tpu_torch.fields import chacha_device, fastfield, numtheory
 from sda_tpu_torch.fields.ops import FieldOps
 from sda_tpu_torch.mesh import (
+    StreamedPod,
     StreamingAggregator,
     array_block_provider,
+    make_mesh,
     synthetic_block_provider,
     synthetic_block_provider32,
     synthetic_device_block_provider32,
@@ -202,7 +205,9 @@ def test_streamed_round_equals_jax_streamed_round(masking, lane):
 def test_chacha_mask_stage_matches_jax_on_fed_seed_words(
         monkeypatch, scheme_kind, pid_base, d_block0):
     """Fed the JAX round key's seed words, the port's ChaCha mask stage
-    gives the JAX stage's masked rows and mask sum bit for bit."""
+    gives the JAX stage's masked rows and mask sum bit for bit (on the CPU
+    K3's derived mode takes its keys from ``chacha_seed_words``, the plain
+    version of the kernel's own derivation)."""
     scheme = fast_scheme() if scheme_kind == "fast" else GOLDEN
     m = scheme.prime_modulus
     S, d_loc = 6, 48
@@ -222,7 +227,7 @@ def test_chacha_mask_stage_matches_jax_on_fed_seed_words(
         fed.append((round_seed, gids.tolist(), bits))
         return torch.from_numpy(words)
 
-    monkeypatch.setattr(simpod, "_chacha_seed_words", seed_words)
+    monkeypatch.setattr(chacha_device, "chacha_seed_words", seed_words)
     f = FieldOps.create(m)
     got, got_sum = simpod._mask_stage(
         ChaChaMasking(m, 4096, 96), f, f.to_residues(torch.from_numpy(x)),
@@ -355,6 +360,65 @@ def test_streaming_checkpoint_resume_bit_identical(tmp_path, masking, lane):
     assert not os.path.exists(ck)  # removed on completion
     total_chunks = (-(-23 // 4)) * (-(-100 // 24))
     assert calls["n"] < total_chunks  # resume skipped folded chunks
+
+
+@pytest.mark.parametrize("driver,masking", [
+    ("single", "chacha"), ("single", "full"), ("pod", "chacha"),
+    ("pod", "full")])
+@pytest.mark.parametrize("lane", ["plain", "k1"])
+def test_checkpointed_every_chunk_and_resumed_is_bit_identical(
+        tmp_path, driver, masking, lane):
+    """The steps add into their accumulators in place (on the K1 lane K3's
+    mask op and K1 write them, as the reference's donated buffers are): a
+    round snapshotted after every chunk, crashed twice and resumed each
+    time gives the bytes of an uninterrupted run, and its sum is the JAX
+    package's streamed round's exact sum at the same sizes (masks cancel,
+    so any draws give it). ``StreamingAggregator`` and ``StreamedPod``
+    (2x2 mesh of the CPU)."""
+    from sda_tpu import mesh as ref_mesh
+
+    t, p, w2, w3 = numtheory.generate_packed_params(3, 8, 28)
+    P, d, pc, dc = 22, 144, 4, 48
+    prov = synthetic_block_provider32(p, seed=6, max_value=1 << 20)
+    ck = str(tmp_path / "round.ckpt.npz")
+
+    def agg():
+        scheme = PackedShamirSharing(3, 8, t, p, w2, w3)
+        mask = (FullMasking(p) if masking == "full"
+                else ChaChaMasking(p, d, 128))
+        if driver == "single":
+            return _agg(scheme, mask, participants_chunk=pc, dim_chunk=dc,
+                        use_pallas=lane == "k1")
+        return StreamedPod(scheme, mask, mesh=make_mesh(
+            2, 2, devices=["cpu"] * 4), participants_chunk=pc,
+            dim_chunk=dc, use_pallas=lane == "k1")
+
+    ref = agg().aggregate_blocks(prov, P, d, 11)
+    for fail_at in (4, 7):   # two crashes, each resumed from its snapshot
+        flaky, _ = _flaky(prov, fail_at)
+        with pytest.raises(RuntimeError):
+            agg().aggregate_blocks(flaky, P, d, 11, checkpoint_path=ck,
+                                   checkpoint_every_chunks=1)
+        assert os.path.exists(ck)
+    resumed = agg()
+    out = resumed.aggregate_blocks(prov, P, d, 11, checkpoint_path=ck,
+                                   checkpoint_every_chunks=1)
+    assert resumed.last_resumed and not os.path.exists(ck)
+    np.testing.assert_array_equal(out, ref)
+    ref_scheme = ref_proto.PackedShamirSharing(3, 8, t, p, w2, w3)
+    ref_mask = (ref_proto.FullMasking(p) if masking == "full"
+                else ref_proto.ChaChaMasking(p, d, 128))
+    ref_cls = (RefStreamingAggregator if driver == "single" else
+               functools.partial(ref_mesh.StreamedPod,
+                                 mesh=ref_mesh.make_mesh(2, 2)))
+    want = ref_cls(ref_scheme, ref_mask, participants_chunk=pc,
+                   dim_chunk=dc).aggregate_blocks(
+        ref_streaming.synthetic_block_provider32(p, seed=6,
+                                                 max_value=1 << 20),
+        P, d, jax.random.PRNGKey(11))
+    np.testing.assert_array_equal(out, np.asarray(want))
+    np.testing.assert_array_equal(
+        out, prov(0, P, 0, d).astype(np.int64).sum(axis=0) % p)
 
 
 def test_resumed_accumulators_are_the_interrupted_ones(tmp_path, monkeypatch):
