@@ -59,13 +59,27 @@ the residue pass (``csrc/residues.cu``): their ptxas lines (a spill
 fails), K7 held to its plain version at every scheme, quorum and mask
 layout a path makes, K8 at int64 blocks with the +-2^63 edges, int32 and
 uint32, K3's mask op on raw int64 blocks, each timed beside its bound
-(K8 also beside ``torch.remainder(x, p).to(torch.int32)``); the streamed
+(K8 also beside ``torch.remainder(x, p).to(torch.int32)``); K9, the pods'
+clerk combine (``csrc/shardsum.cu``: the p shards' partials of a d column
+summed and canonicalized in one pass, the psum_scatter, all_gather and
+mask psum of the reference's jitted pod programs), and K10, the clerk's
+device-tile fold (``csrc/residues.cu``): their ptxas lines, K9 held to
+its plain version at 1 to 8 p shards on Solinas and generic moduli with
+every partial at m - 1 at the headroom edge, K10 on raw int64 bundles up
+to m = 2^63, each timed beside its bound, its plain version and the
+nearest PyTorch expression; K8 and K3's mask op on a ragged tile read at
+its own width (the model-scale round's last tile, which no copy pads);
+the streamed
 round (``StreamingAggregator(use_pallas=True)``, P=10,000 x 10,000,008
 from the device block provider) on K6, K1 and K3's mask op (160 launches
 each on raw blocks, no expand, one K7 a dim tile; phase 17's trace of
 the same round has no device kernel named remainder), its device peak,
 its oracle on K6 with K6 held to plain at the round's first, last and
-ragged tiles, and the device-tile clerk fold, each exact, with K3's
+ragged tiles, and the device-tile clerk fold at its watermark tile and
+at 4 tiles (the last ragged) with one K10 launch a tile a bundle, K10 held
+to plain at those tiles, and the tiled fold under the profiler, where
+each tile's host-to-device copy through the pinned staging buffers must
+overlap the previous tile's K10, each exact, with K3's
 mask op at the shapes, block counters and rows the two ChaCha rounds
 launched it with held to the plain version
 (their masks cancel, so the rounds' sums cannot show them). Then
@@ -100,13 +114,17 @@ modes: ``SimulatedPod`` at the
 flagship width on the card's 1x1 mesh and on a virtual 4x2 mesh
 (``[cuda:0] * 8``)
 with Full, ChaCha and no masks, on K1 and on the plain lane, and a quorum
-reveal without clerk 5, each exact with its K1 and K3 launches a round,
-and K1 and K3 held to their plain versions at a shard's shape and
-offsets; ``run_devscale`` at ``BENCH_r15_devscale.json``'s configuration
+reveal without clerk 5, each exact with its K1, K3 and K9 launches a
+round (one K9 a d column, and never the old combine chain), the K1
+rounds profiled for their device events, and K1, K3 and K9 held to their
+plain versions at a shard's shape and offsets and at the d columns; ``run_devscale`` at ``BENCH_r15_devscale.json``'s configuration
 (dim 1e8, P=8 on the virtual 4x2 mesh, full masks, K1, seed 20260804)
 with its ``DeviceTileSink``-fed lane, exact against the sampled oracle,
-its peak device memory against the watermark, K6's launches and K6 held
-to plain at its first tile's block; and ``mesh.multihost`` at
+its peak device memory against the watermark, K6's and K9's launches
+(one K9 a d column of each finale) and K6 and K9 held to plain at its
+first tile's block and a finale's d column, and ``ModelScaleRound`` on
+K1 at P=8 x 1,000,000 with each shard's last tile ragged, with Full,
+ChaCha and no masks; and ``mesh.multihost`` at
 world size 1 over NCCL, one round and a streamed round stopped and
 resumed from its snapshots, both exact. Then FedAvg on the card: 100
 participants train MobileLite (3,731,890 parameters) and the LoRA
@@ -327,6 +345,43 @@ K8_BLOCKS = (("int64", 7, 1003, None), ("int64", 3, 1_000_003, 5),
 K7_KERNELS = ("reveal_kernelILi4EE", "reveal_kernelILi16EE")
 K8_KERNELS = ("residues_kernelIxEE", "residues_kernelIiEE",
               "residues_kernelIjEE")
+#: K9's checks (phase 14d): (case, p shards, n, B, mask columns or None,
+#: modulus or None for the flagship's, partials): "random" canonical
+#: residues, "edge" (every partial m - 1, at the largest generic modulus
+#: the p shards admit when the modulus is None) or "strided" (column
+#: windows of wider rows, read in place)
+K9_CASES = (("1 shard", 1, 8, 1001, 3003, None, "random"),
+            ("4 shards, odd widths", 4, 8, 1001, 3001, None, "random"),
+            ("4 shards at m - 1", 4, 8, 1001, 3003, None, "edge"),
+            ("8 shards at m - 1, generic edge", 8, 8, 4099, 12297, 0, "edge"),
+            ("2 shards, 26 clerks, generic", 2, 26, 997, 6979,
+             (1 << 61) - 1, "random"),
+            ("4 shards, strided rows", 4, 8, 3000, 9000, None, "strided"),
+            ("4 shards, no masks", 4, 8, 1001, None, 433, "random"),
+            ("1 value", 1, 1, 1, 1, None, "edge"))
+#: K9 timed (phase 14d): (case, p shards, n, B_loc, d_loc): the pod's d
+#: column at the flagship width on the 1x1 and virtual 4x2 meshes (phase
+#: 18) and a model-scale d column of the 1e8 rung (phase 19)
+K9_TIMED = (("4x2 flagship column", 4, 8, 166_667, 500_001),
+            ("1x1 flagship column", 1, 8, 333_333, 999_999),
+            ("model-scale column", 4, 8, 10_984_168, 32_952_504))
+#: K10's checks (phase 14d): (rows, cols, offset of a strided view or None,
+#: modulus or None for the flagship's); moduli from 2^62 up are held to
+#: Python ints (the plain version's int64 adds stop there)
+K10_CASES = ((1, 1, None, None), (3, 1003, 5, None), (25, 1_000_008, None,
+                                                      None),
+             (25, 213_576, 7, None), (7, 10_001, None, 433),
+             (5, 4_099, 3, (1 << 61) - 1), (4, 300, None, (1 << 62) + 1),
+             (4, 300, 1, 1 << 63), (100, 999, None, (1 << 31) - 1))
+#: the second device-tile fold's tile (phase 15): 1,000,008 columns in 4
+#: tiles, the last ragged (213,576)
+FOLD_TILE = 262_144
+#: K9's and K10's kernels in the ptxas logs
+K9_KERNEL, K10_KERNEL = "shardsum_kernel", "fold_columns_kernel"
+#: a model-scale round on the card (phase 19): P x d on the virtual 4x2
+#: mesh at a dim tile of 393,216, so a shard's 500,000 columns run in 3
+#: tiles, the last ragged (106,784)
+MSR_P, MSR_D, MSR_TILE = 8, 1_000_000, 393_216
 #: timed rounds of the pod phase (18)
 POD_REPS = 5
 #: the model-scale rung of ``BENCH_r15_devscale.json`` (phase 19)
@@ -700,7 +755,8 @@ def _host_window(seed, counter0, d, m):
 
 
 def _k3_window(case, dev, round_seed, p0, rows, counter0, width, modulus,
-               seed_bits=128, x=None, out_dtype=None, acc=False):
+               seed_bits=128, x=None, out_dtype=None, acc=False,
+               ragged=None):
     """K3's mask op at a shape and block counter a round launched it with,
     in the derived mode the round ran (the keys of participants ``p0 ..``
     under ``round_seed`` derived in the kernel), on ``x`` (the round's
@@ -710,7 +766,9 @@ def _k3_window(case, dev, round_seed, p0, rows, counter0, width, modulus,
     ``mask_plain``) with ``torch.equal``: the masked rows as ``out_dtype``
     (int64 when None) and the mask sum. ChaCha masks cancel inside a
     round, so the round's exact sum cannot see a wrong window; this check
-    can. Returns the max |error| (0 when equal)."""
+    can. ``ragged``: the kernel reads only x's first ``ragged`` columns
+    (``width=``), the plain version x with its other columns zeroed.
+    Returns the max |error| (0 when equal)."""
     import torch
 
     from sda_tpu_torch.fields import chacha_device as cd
@@ -727,9 +785,14 @@ def _k3_window(case, dev, round_seed, p0, rows, counter0, width, modulus,
         acc_got = torch.randint(0, modulus, (width,), dtype=torch.int64,
                                 device=dev, generator=gen)
         acc_want = acc_got.clone()
-    got = cd.mask_residues_derived(round_seed, p0, seed_bits, counter0, x,
-                                   modulus=modulus, out_dtype=dtype,
-                                   acc_mask=acc_got)
+    if ragged is not None:
+        x = x.clone()
+        x[:, ragged:] = 0
+    got = cd.mask_residues_derived(
+        round_seed, p0, seed_bits, counter0,
+        x if ragged is None else x[:, :ragged], modulus=modulus,
+        out_dtype=dtype, acc_mask=acc_got,
+        width=None if ragged is None else width)
     want = cd.mask_plain(sw, counter0, x, modulus, dtype, acc_want)
     _check(not acc or got[1].data_ptr() == acc_got.data_ptr(),
            f"{case}: the mask op's accumulate did not write in place")
@@ -1500,16 +1563,230 @@ def reveal_kernels(dev, p, reveal_ptxas, residues_ptxas, cases=K7_CASES,
     return rec
 
 
+def _k9_k10_reset():
+    from sda_tpu_torch.fields.residues import fold_columns
+    from sda_tpu_torch.fields.shardsum import shard_combine
+
+    shard_combine.launches = fold_columns.launches = 0
+    return shard_combine, fold_columns
+
+
+#: calls of ``simpod._sum_on`` (the pods' old combine chain) in phases 18,
+#: 19 and 21, counted by the wrapper ``_count_sum_on`` installs
+_SUM_ON = {"plain": None, "calls": 0}
+
+
+def _count_sum_on():
+    """Wrap ``simpod._sum_on`` in a counter (once); returns the count so
+    far. On a card the pods' combine is K9 and never reaches it."""
+    from sda_tpu_torch.mesh import simpod
+
+    if _SUM_ON["plain"] is None:
+        plain = _SUM_ON["plain"] = simpod._sum_on
+
+        def counted(*args, **kwargs):
+            _SUM_ON["calls"] += 1
+            return plain(*args, **kwargs)
+        simpod._sum_on = counted
+    return _SUM_ON["calls"]
+
+
+def _k9_partials(dev, p_shards, n, B, d, m, kind="random", seed=0):
+    """p_shards share partials [n, B] and mask partials [d] (None without
+    ``d``) of canonical residues mod ``m`` on ``dev``: random, all m - 1
+    ("edge") or column windows of wider rows ("strided")."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def draw(shape):
+        if kind == "edge":
+            return torch.full(shape, m - 1, dtype=torch.int64, device=dev)
+        if kind == "strided" and len(shape) == 2:
+            wide = torch.randint(0, m, (shape[0], shape[1] + 10),
+                                 dtype=torch.int64, device=dev,
+                                 generator=gen)
+            return wide[:, 3:3 + shape[1]]
+        return torch.randint(0, m, shape, dtype=torch.int64, device=dev,
+                             generator=gen)
+    return ([draw((n, B)) for _ in range(p_shards)],
+            None if d is None else [draw((d,)) for _ in range(p_shards)])
+
+
+def _k9_hold(case, dev, p_shards, n, B, d, m, kind="random", seed=0):
+    """K9 (``shard_combine``) against its plain version at one d column's
+    shape, ``torch.equal`` on the gathered rows and the mask total;
+    returns the max |error| (0)."""
+    from sda_tpu_torch.fields.shardsum import (shard_combine,
+                                               shard_combine_plain)
+
+    parts, masks = _k9_partials(dev, p_shards, n, B, d, m, kind, seed)
+    got = shard_combine(parts, masks, m)
+    want = shard_combine_plain(parts, masks, m)
+    err = _equal(f"{case}: K9 rows", got[0], want[0])
+    if masks is not None:
+        err = max(err, _equal(f"{case}: K9 mask total", got[1], want[1]))
+    print(f"  {case}: K9 over {p_shards} partials [{n}, {B}]"
+          + ("" if d is None else f" and [{d}]") + f" mod {m} ({kind}): "
+          "equal to plain")
+    del parts, masks, got, want
+    return err
+
+
+def shardsum_fold_kernels(dev, p, shardsum_ptxas, residues_ptxas,
+                          cases=K9_CASES, timed=K9_TIMED,
+                          fold_cases=K10_CASES,
+                          fold_timed=(FOLD_ROWS // FOLD_BUNDLES, D_CHACHA),
+                          ragged=((8, 106_784, 196_608), (3, 72, 96)),
+                          reps=20):
+    """Phase 14d: K9, the pod's clerk combine (``csrc/shardsum.cu``), and
+    K10, the clerk's device-tile fold (``csrc/residues.cu``): their ptxas
+    lines (a spill fails); K9 held to its plain version (the old eager
+    chain) with ``torch.equal`` at ``cases`` (1 to 8 p shards, Solinas and
+    generic moduli, every partial at m - 1 at the headroom edge, strided
+    rows, no masks) and timed at ``timed`` (the pods' d columns) beside its
+    bound, its plain version and ``torch.remainder(torch.stack(parts).
+    sum(0), m)``; K10 held to its plain version (to Python ints from 2^62)
+    on bundles of raw int64 words (negative, >= m, the +-2^63 edges) at
+    ``fold_cases`` and timed at ``fold_timed`` (phase 15's bundle) beside
+    its bound, plain and ``torch.remainder(acc + torch.remainder(blk,
+    m).sum(0), m)``; and the ragged tile: K8 (``residues_int32(...,
+    width=)``) and K3's mask op (``width=``) on a tile narrower than its
+    width, held to the plain versions on the zero-padded tile. Returns
+    the phase's JSON record."""
+    import numpy as np
+    import torch
+
+    from sda_tpu_torch.benchmarks.bounds import k9_bound, k10_bound
+    from sda_tpu_torch.fields.fastfield import SolinasPrime
+    from sda_tpu_torch.fields.residues import (fold_columns,
+                                               fold_columns_plain,
+                                               residues_int32,
+                                               residues_int32_plain)
+    from sda_tpu_torch.fields.shardsum import (shard_combine,
+                                               shard_combine_plain)
+    from sda_tpu_torch.utils.benchtime import median_ms
+
+    rec = {"stage": "k9_k10", "ptxas": {
+        "K9": _ptxas_lines(shardsum_ptxas, (K9_KERNEL,), "K9"),
+        "K10": _ptxas_lines(residues_ptxas, (K10_KERNEL,), "K10")}}
+    sp = SolinasPrime.try_from(p)
+    rng = np.random.default_rng(21)
+    t0 = time.perf_counter()
+    k9_err = 0
+    for i, (case, ps, n, B, d, m, kind) in enumerate(cases):
+        if m is None:
+            m = p
+        elif m == 0:   # the largest generic modulus ps shards admit
+            m = (1 << 63) // ps - 1
+        k9_err = max(k9_err, _k9_hold(case, dev, ps, n, B, d, m, kind, i))
+    rec["k9_holds"] = len(cases)
+    k9_timed = []
+    for case, ps, n, B, d in timed:
+        parts, masks = _k9_partials(dev, ps, n, B, d, p, seed=7)
+        k9_err = max(k9_err, _equal(
+            f"{case}: K9 rows", shard_combine(parts, masks, p)[0],
+            shard_combine_plain(parts, masks, p)[0]))
+        ms = median_ms(lambda: shard_combine(parts, masks, p), dev,
+                       reps=reps)
+        plain_ms = median_ms(lambda: shard_combine_plain(parts, masks, p),
+                             dev, reps=3, warmup=1)
+        library_ms = median_ms(lambda: (
+            torch.remainder(torch.stack(parts).sum(0), p),
+            torch.remainder(torch.stack(masks).sum(0), p)), dev, reps=5,
+            warmup=1)
+        bound_ms, bound_by, detail = k9_bound(ps, n, B, d)
+        k9_timed.append({"case": case, "p_shards": ps, "shape": [n, B, d],
+                         "ms": ms, "plain_ms": plain_ms,
+                         "library_ms": library_ms, "bound_ms": bound_ms,
+                         "bound_by": bound_by, "share": bound_ms / ms})
+        print(f"  K9 {case} ({ps} partials [{n}, {B}] + [{d}]): {ms:.4f} "
+              f"ms median of {reps} (CUDA events); bound {bound_ms:.4f} ms "
+              f"({detail}; {bound_ms / ms:.0%}); plain {plain_ms:.3f} ms, "
+              f"library torch.remainder(torch.stack(parts).sum(0), m) "
+              f"{library_ms:.3f} ms")
+        del parts, masks
+        _empty_cache(dev)
+    rec["k9_timed"] = k9_timed
+    rec["k9_max_abs_err"] = k9_err
+    # K10 on raw bundles
+    k10_err = 0
+    for rows, cols, offset, m in fold_cases:
+        m = p if m is None else m
+        blk = _raw_block(rng, "int64", rows, cols, offset).to(dev)
+        acc0 = torch.from_numpy(rng.integers(
+            0, min(m, 1 << 63), size=cols, dtype=np.uint64).astype(
+                np.int64)).to(dev)
+        got = fold_columns(acc0.clone(), blk, m)
+        if m < 1 << 62:
+            want = fold_columns_plain(acc0, blk, m)
+        else:
+            want = torch.from_numpy(((acc0.cpu().numpy().astype(object)
+                                      + (blk.cpu().numpy().astype(object)
+                                         % m).sum(axis=0)) % m).astype(
+                np.uint64).astype(np.int64)).to(dev)
+        k10_err = max(k10_err, _equal(f"K10 [{rows}, {cols}] mod {m}", got,
+                                      want))
+        print(f"  K10 [{rows}, {cols}] mod {m}"
+              + ("" if offset is None else f" (a view at column {offset})")
+              + ": equal to " + ("plain" if m < 1 << 62 else "Python ints"))
+        del blk, got, want
+    rec["k10_holds"] = len(fold_cases)
+    rows, cols = fold_timed
+    blk = _raw_block(rng, "int64", rows, cols).to(dev)
+    acc = torch.zeros(cols, dtype=torch.int64, device=dev)
+    ms = median_ms(lambda: fold_columns(acc, blk, p), dev, reps=reps)
+    plain_ms = median_ms(lambda: fold_columns_plain(acc, blk, p), dev,
+                         reps=3, warmup=1)
+    library_ms = median_ms(lambda: torch.remainder(
+        acc + torch.remainder(blk, p).sum(0), p), dev, reps=5, warmup=1)
+    bound_ms, bound_by, detail = k10_bound(rows, cols)
+    rec["k10"] = {"shape": [rows, cols], "ms": ms, "plain_ms": plain_ms,
+                  "library_ms": library_ms, "bound_ms": bound_ms,
+                  "bound_by": bound_by, "share": bound_ms / ms}
+    print(f"  K10 at [{rows}, {cols}] (phase 15's bundle): {ms:.4f} ms "
+          f"median of {reps} (CUDA events); bound {bound_ms:.4f} ms "
+          f"({detail}; {bound_ms / ms:.0%}); plain {plain_ms:.3f} ms, "
+          f"library torch.remainder(acc + torch.remainder(blk, m).sum(0), "
+          f"m) {library_ms:.3f} ms")
+    del blk, acc
+    rec["k10_max_abs_err"] = k10_err
+    # the ragged tile: K8 and K3 read it at its own width
+    ragged_err = 0
+    for i, (S, cols, width) in enumerate(ragged):
+        for dtype in ("int64", "uint32"):
+            x = _raw_block(rng, dtype, S, cols, 3).to(dev)
+            ragged_err = max(ragged_err, _equal(
+                f"K8 ragged {dtype} [{S}, {cols}] -> {width}",
+                residues_int32(x, sp, width=width),
+                residues_int32_plain(x, sp, width=width)))
+            del x
+        ragged_err = max(ragged_err, _k3_window(
+            f"ragged tile {i}", dev, 21, 1000 * i, S, 12_345 + i, width, p,
+            out_dtype=torch.int32, acc=True, ragged=cols))
+        print(f"  K8 (int64, uint32) and K3's mask op on a ragged [{S}, "
+              f"{cols}] tile of width {width}: equal to plain")
+    rec["ragged_max_abs_err"] = ragged_err
+    rec["phase_s"] = time.perf_counter() - t0
+    _empty_cache(dev)
+    return rec
+
+
 def streamed_round(dev, P, D, chunk, fold_rows=FOLD_ROWS,
-                   fold_dim=D_CHACHA, fold_bundles=FOLD_BUNDLES):
+                   fold_dim=D_CHACHA, fold_bundles=FOLD_BUNDLES,
+                   fold_tile=FOLD_TILE):
     """Phase 15: ``StreamingAggregator(use_pallas=True)`` with ChaCha
     masking over the device block provider, exact against the plain column
     sum recomputed on the device chunk by chunk from the same provider
     (K6), with K6 held to its plain version at the round's first, last and
     ragged tiles; K1, K3 and K6 must have launched on every tile. Then
     ``DeviceTileCombiner`` folds ``fold_rows`` rows in ``fold_bundles``
-    bundles, exact against ``mod_combine``. Returns the phase's JSON
-    record."""
+    bundles, exact against ``mod_combine``, at its watermark tile and at
+    ``fold_tile`` (at least 4 tiles, the last ragged), with one K10
+    launch a tile a bundle, K10 held to its plain version at the tiles of
+    the second fold, and that fold once more under the profiler, where
+    tile j+1's host-to-device copy must overlap tile j's K10
+    (``fold_profile``). Returns the phase's JSON record."""
     import numpy as np
     import torch
 
@@ -1616,21 +1893,56 @@ def streamed_round(dev, P, D, chunk, fold_rows=FOLD_ROWS,
                                   out_dtype=torch.int32, acc=True))
         del x
         _empty_cache(dev)
-    # the device-tile clerk fold
+    # the device-tile clerk fold, at the watermark's tile and at fold_tile
+    from sda_tpu_torch.fields.residues import (fold_columns,
+                                               fold_columns_plain)
+
     rng = np.random.default_rng(15)
     rows = rng.integers(0, p, size=(fold_rows, fold_dim))
-    comb = DeviceTileCombiner(p, device=dev)
-    t1 = time.perf_counter()
-    for bundle in np.array_split(rows, fold_bundles):
-        comb.fold(bundle)
-    folded = comb.result()
-    fold_s = time.perf_counter() - t1
-    _check(np.array_equal(folded, mod_combine(list(rows), p,
-                                              torch.device("cpu"))),
-           "DeviceTileCombiner != mod_combine")
-    print(f"DeviceTileCombiner: {fold_rows} rows x d={fold_dim} in "
-          f"{fold_bundles} bundles (tile {comb._dim_tile}) == mod_combine, "
-          f"{fold_s:.3f} s")
+    bundles = np.array_split(rows, fold_bundles)
+    want = mod_combine(list(rows), p, torch.device("cpu"))
+    folds = []
+    for dim_tile in (None, fold_tile):
+        comb = DeviceTileCombiner(p, dim_tile=dim_tile, device=dev)
+        _, k10 = _k9_k10_reset()
+        t1 = time.perf_counter()
+        for bundle in bundles:
+            comb.fold(bundle)
+        folded = comb.result()
+        fold_s = time.perf_counter() - t1
+        n_tiles = comb._plan_t.n_tiles
+        _check(np.array_equal(folded, want),
+               f"DeviceTileCombiner (tile {comb._dim_tile}) != mod_combine")
+        _check(not on_card or k10.launches == n_tiles * fold_bundles,
+               f"DeviceTileCombiner: K10 launched {k10.launches} times, "
+               f"want {n_tiles} tiles x {fold_bundles} bundles")
+        folds.append({"tile": comb._dim_tile, "tiles": n_tiles,
+                      "ragged": fold_dim - (n_tiles - 1) * comb._dim_tile,
+                      "k10_launches": k10.launches, "exact": True,
+                      "wall_s": fold_s})
+        print(f"DeviceTileCombiner: {fold_rows} rows x d={fold_dim} in "
+              f"{fold_bundles} bundles (tile {comb._dim_tile} x {n_tiles}) "
+              f"== mod_combine, K10 {k10.launches} launches, {fold_s:.3f} s")
+    _check(folds[1]["tiles"] >= 4 and folds[1]["ragged"] < fold_tile,
+           f"the second fold's tiles {folds[1]}: want 4 or more, the last "
+           "ragged")
+    # K10 at the second fold's tiles, on the last bundle's columns there
+    k10_err = 0
+    last = bundles[-1]
+    for j in (0, folds[1]["tiles"] - 1):
+        lo = j * fold_tile
+        blk = torch.from_numpy(np.ascontiguousarray(
+            last[:, lo:lo + fold_tile])).to(dev)
+        acc = torch.randint(0, p, (blk.shape[1],), dtype=torch.int64,
+                            device=dev)
+        k10_err = max(k10_err, _equal(
+            f"fold tile {j} [{blk.shape[0]}, {blk.shape[1]}]",
+            fold_columns(acc.clone(), blk, p),
+            fold_columns_plain(acc, blk, p)))
+        print(f"  K10 at the fold's tile {j} [{blk.shape[0]}, "
+              f"{blk.shape[1]}]: equal to plain")
+    fold_profile = (_fold_profile(dev, p, bundles, fold_tile)
+                    if on_card else None)
     return {"stage": "streamed_round", "participants": P, "dim": D,
             "participants_chunk": chunk, "dim_chunk": dc, "tiles": tiles,
             "exact": True, "wall_s": wall, "elements_per_s": P * D / wall,
@@ -1644,8 +1956,68 @@ def streamed_round(dev, P, D, chunk, fold_rows=FOLD_ROWS,
             "k6_launches_oracle": k6_oracle, "k6_max_abs_err": k6_err,
             "k7_launches": k7_round, "k8_launches": k8_round,
             "fold": {"rows": fold_rows, "dim": fold_dim,
-                     "bundles": fold_bundles, "tile": comb._dim_tile,
-                     "exact": True, "wall_s": fold_s}}
+                     "bundles": fold_bundles, "tile": folds[0]["tile"],
+                     "exact": True, "wall_s": folds[0]["wall_s"],
+                     "k10_launches": folds[0]["k10_launches"],
+                     "tiled": folds[1], "k10_max_abs_err": k10_err,
+                     "profile": fold_profile}}
+
+
+def _fold_profile(dev, p, bundles, tile):
+    """``DeviceTileCombiner`` at ``tile`` folds ``bundles`` under the
+    profiler (after one unprofiled fold to build and pin, and one more in
+    the profiler's warm-up step): in the trace, each tile's host-to-device
+    copy but the first of a bundle must overlap the previous tile's K10
+    (``traceparse.overlaps``): every K10 but a bundle's last has the next
+    tile's copy in flight beside it, and at least half of those the trace
+    holds must show it. The trace must hold a whole bundle's K10 events at
+    least: a trace can miss a window's first device events (phase 17's
+    round once lost its first tiles, and this fold 7 of its 16 K10s).
+    Returns the overlap record."""
+    import tempfile as _tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from sda_tpu_torch.mesh import DeviceTileCombiner
+    from sda_tpu_torch.utils import traceparse
+
+    comb = DeviceTileCombiner(p, dim_tile=tile, device=dev)
+    comb.fold(bundles[0])
+    comb.result()
+    with _tempfile.TemporaryDirectory() as tmp:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+            comb.fold(bundles[0])   # warm-up: the same copies and kernels
+            comb.result()
+            torch.cuda.synchronize(dev)
+            prof.step()
+            t0 = time.perf_counter()
+            for bundle in bundles:
+                comb.fold(bundle)
+            comb.result()
+            wall = time.perf_counter() - t0
+        prof.export_chrome_trace(str(Path(tmp) / "fold.json"))
+        trace = traceparse.load_latest_trace(tmp)
+    rec = traceparse.overlaps(trace, "HtoD", K10_KERNEL)
+    tiles = comb._plan_t.n_tiles
+    rec.update(wall_s=wall, tiles=tiles, bundles=len(bundles))
+    _check(rec["second"] >= tiles,
+           f"fold under the profiler: {rec['second']} K10 events, want a "
+           f"bundle's {tiles} at least")
+    # the traced K10 events that have the next tile's copy beside them:
+    # all but one a bundle
+    want = max(1, (rec["second"] - -(-rec["second"] // tiles)) // 2)
+    _check(rec["overlapping"] >= want, f"fold under the profiler: "
+           f"{rec['overlapping']} K10 events overlap a host-to-device copy, "
+           f"want {want} or more ({rec})")
+    print(f"  fold under the profiler ({tiles * len(bundles)} K10 launches): "
+          f"{rec['first']} host-to-device "
+          f"copies, {rec['second']} K10 events, {rec['overlapping']} of "
+          f"them overlapped by a copy ({rec['overlap_us']:.1f} us of their "
+          f"{rec['second_us']:.1f} us); wall {wall:.3f} s")
+    return rec
 
 
 def bench_phase(dev, k1_ms, P=P_MAIN, D=D_MAIN, seconds=BENCH_SECONDS,
@@ -2127,8 +2499,12 @@ def pod_phase(dev, P=P_MAIN, D=D_MAIN, reps=POD_REPS):
     dropped; each round exact against the int64 column sum mod p, with its
     K1 and K3 launches (checked on a card: one K1 launch a shard, one K3
     window a shard on K1's lane, one a shard and participant chunk on the
-    plain lane). K1 and K3 are then held to their plain versions at a 4x2
-    shard's shape and offsets. Returns the phase's JSON record."""
+    plain lane) and its K9 launches (one a d column; the old combine
+    chain, ``simpod._sum_on``, never called); the timed K1 rounds are
+    profiled (device events and busy time a round). K1 and K3 are then
+    held to their plain versions at a 4x2 shard's shape and offsets, and
+    K9 at the 1x1 and 4x2 rounds' d columns. Returns the phase's JSON
+    record."""
     import numpy as np
     import torch
 
@@ -2157,6 +2533,7 @@ def pod_phase(dev, P=P_MAIN, D=D_MAIN, reps=POD_REPS):
     rounds = []
     k1_total = 0  # every launch of the phase, timed repeats included
     seed0 = _count_seed_words()
+    sum_on0 = _count_sum_on()
     for shape, mask, pallas, survivors, timed in cases:
         pod = SimulatedPod(scheme, masks[mask], mesh=meshes[shape],
                            use_pallas=pallas, surviving_clerks=survivors)
@@ -2164,11 +2541,12 @@ def pod_phase(dev, P=P_MAIN, D=D_MAIN, reps=POD_REPS):
                  + ("" if survivors is None else " quorum without clerk 5"))
         k1, k3 = _k1_reset(), _k3_reset()
         k7, k8 = _k7_k8_reset()
+        k9, _ = _k9_k10_reset()
         t0 = time.perf_counter()
         out = pod.aggregate(inputs, seed=18)
         first_ms = (time.perf_counter() - t0) * 1e3
         k1_n, k3_n = k1.launches, k3.launches
-        k7_n, k8_n = k7.launches, k8.launches
+        k7_n, k8_n, k9_n = k7.launches, k8.launches, k9.launches
         _check(out.dtype == torch.int64 and out.shape == (D,),
                f"pod {label}: output {out.dtype}{tuple(out.shape)}")
         _check(torch.equal(out, expect), f"pod {label}: != column sum mod p")
@@ -2186,20 +2564,27 @@ def pod_phase(dev, P=P_MAIN, D=D_MAIN, reps=POD_REPS):
             _check((k7_n, k8_n) == (want_k7, want_k8),
                    f"pod {label}: K7 and K8 launched {k7_n} and {k8_n} "
                    f"times, want {want_k7} and {want_k8}")
+            # one K9 combine a d column (the same count as K7's reveals)
+            _check(k9_n == want_k7, f"pod {label}: K9 launched {k9_n} "
+                   f"times, want {want_k7}")
             _check(k1_n == want_k1, f"pod {label}: K1 launched {k1_n} "
                    f"times, want {want_k1}")
             _check(k3_n == want_k3, f"pod {label}: K3 launched {k3_n} "
                    f"times, want {want_k3}")
         ms = (_median_ms(lambda: pod.aggregate(inputs, seed=18), reps=reps,
                          warmup=1) if timed and on_card else None)
+        prof = (_profile(f"pod {label}", lambda: pod.aggregate(
+            inputs, seed=18)) if timed and pallas and on_card else None)
         k1_total += k1.launches
         rounds.append({"mesh": shape, "mask": mask, "k1": pallas,
                        "survivors": survivors, "exact": True,
                        "k1_launches": k1_n, "k3_launches": k3_n,
                        "k7_launches": k7_n, "k8_launches": k8_n,
-                       "first_round_ms": first_ms, "round_ms": ms})
+                       "k9_launches": k9_n,
+                       "first_round_ms": first_ms, "round_ms": ms,
+                       "profile": prof})
         print(f"  pod {label}: exact, K1 {k1_n}, K3 {k3_n}, K7 {k7_n}, K8 "
-              f"{k8_n} launches, first "
+              f"{k8_n}, K9 {k9_n} launches, first "
               f"round {first_ms:.1f} ms"
               + ("" if ms is None else f", median of {reps} {ms:.3f} ms"))
     # the kernels at a 4x2 shard's shape and offsets: the last shard
@@ -2217,6 +2602,17 @@ def pod_phase(dev, P=P_MAIN, D=D_MAIN, reps=POD_REPS):
     k3_err = _k3_window("pod shard (3, 1)", dev, 18, pi * P_loc, P_loc,
                         di * (d_loc // 8), d_loc, p, x=x,
                         out_dtype=torch.int32)
+    del x
+    # K9 at the rounds' d columns: the 4x2 pod's and the 1x1 pod's
+    k9_err = max(
+        _k9_hold("pod 4x2 d column", dev, 4, 8, d_loc // 3, d_loc, p),
+        _k9_hold("pod 4x2 d column at m - 1", dev, 4, 8, d_loc // 3, d_loc,
+                 p, "edge"),
+        _k9_hold("pod 1x1 d column", dev, 1, 8, -(-D // 3), -(-D // 3) * 3,
+                 p))
+    sum_on = _count_sum_on() - sum_on0
+    _check(not on_card or sum_on == 0,
+           f"pod: the old combine chain (_sum_on) ran {sum_on} times")
     key = lambda r: (f"{r['mesh']} {r['mask']} "
                      f"{'K1' if r['k1'] else 'plain'}"
                      + ("" if r["survivors"] is None else " quorum"))
@@ -2224,10 +2620,12 @@ def pod_phase(dev, P=P_MAIN, D=D_MAIN, reps=POD_REPS):
     _check(not on_card or seed_calls == 0,
            f"pod: the seed words derived on the host {seed_calls} times")
     return {"stage": "pod_round", "participants": P, "dim": D,
-            "seed_word_calls": seed_calls,
+            "seed_word_calls": seed_calls, "sum_on_calls": sum_on,
             "rounds": rounds, "k1_launches_phase": k1_total,
             "k7_launches": {key(r): r["k7_launches"] for r in rounds},
             "k8_launches": {key(r): r["k8_launches"] for r in rounds},
+            "k9_launches": {key(r): r["k9_launches"] for r in rounds},
+            "k9_max_abs_err": k9_err,
             "k1_shard_max_abs_err": k1_err,
             "k3_window_max_abs_err": k3_err,
             "k1_launches": {f"{r['mesh']} {r['mask']}"
@@ -2239,7 +2637,8 @@ def pod_phase(dev, P=P_MAIN, D=D_MAIN, reps=POD_REPS):
                             if r["mask"] == "chacha"}}
 
 
-def devscale_phase(dev, dim=DEVSCALE_DIM, rounds=2):
+def devscale_phase(dev, dim=DEVSCALE_DIM, rounds=2,
+                   msr=(MSR_P, MSR_D, MSR_TILE)):
     """Phase 19: ``run_devscale`` at ``BENCH_r15_devscale.json``'s
     configuration (dim 1e8, P=8 on a 4x2 mesh, here virtual on ``dev``,
     full masks, seed 20260804) on K1, with the ``DeviceTileSink``-fed lane:
@@ -2254,7 +2653,14 @@ def devscale_phase(dev, dim=DEVSCALE_DIM, rounds=2):
     must have launched at least once a tile of each round, and once a tile
     of the profiled round; it is held to its plain version at the round's
     first tile block [8, dim tile] (the provider's bounds of phase 14b) and
-    at that shard's block. Returns the phase's JSON record."""
+    at that shard's block. K9 must have combined each d column of every
+    round's finales (2 a dim tile), and never the old chain
+    (``simpod._sum_on``); it is held to its plain version at a finale's d
+    column. Last, ``ModelScaleRound`` on K1 at ``msr`` (P, d, tile) with
+    Full, ChaCha and no masks, each shard's last tile ragged: exact, with
+    one K9 a d column a tile and K8 (K3's mask op for ChaCha masks) a
+    shard a tile reading the ragged tile at its own width. Returns the
+    phase's JSON record."""
     from sda_tpu_torch.loadgen import DevScaleProfile, run_devscale
     from sda_tpu_torch.mesh import (StreamedPod, make_mesh, simpod,
                                     synthetic_device_block_provider32)
@@ -2262,6 +2668,8 @@ def devscale_phase(dev, dim=DEVSCALE_DIM, rounds=2):
     on_card = dev.type == "cuda"
     k1, k3, k6 = _k1_reset(), _k3_reset(), _k6_reset()
     k7, k8 = _k7_k8_reset()
+    k9, _ = _k9_k10_reset()
+    sum_on0 = _count_sum_on()
     t0 = time.perf_counter()
     rec = run_devscale(DevScaleProfile(
         dim=dim, participants=8, participants_chunk=8, p_shards=4,
@@ -2291,8 +2699,13 @@ def devscale_phase(dev, dim=DEVSCALE_DIM, rounds=2):
         _check(k8.launches == k1.launches == 4 * k7.launches,
                f"devscale: K1, K7 and K8 launched {k1.launches}, "
                f"{k7.launches} and {k8.launches} times")
+        # one K9 combine a d column of each finale (a dim tile's)
+        want_k9 = rec["tiles"] * 2 * (rounds + 1)
+        _check(k9.launches == want_k9 == k7.launches,
+               f"devscale: K9 launched {k9.launches} times, want {want_k9}")
     k6_devscale = k6.launches
     k7_devscale, k8_devscale = k7.launches, k8.launches
+    k9_devscale = k9.launches
     keep = ("value", "round_seconds_marginal", "dim", "dim_tile", "tiles",
             "p_shards", "d_shards", "exact", "oracle", "device_oracle",
             "clerk_fed",
@@ -2301,7 +2714,7 @@ def devscale_phase(dev, dim=DEVSCALE_DIM, rounds=2):
     out = {"stage": "devscale", **{key: rec[key] for key in keep},
            "k1_launches": k1.launches, "k6_launches": k6_devscale,
            "k7_launches": k7_devscale, "k8_launches": k8_devscale,
-           "wall_s": wall}
+           "k9_launches": k9_devscale, "wall_s": wall}
     print(f"  devscale: dim {rec['dim']}, tile {rec['dim_tile']} x "
           f"{rec['tiles']}, value {rec['value']} elements/s, marginal "
           f"{rec['round_seconds_marginal']} s, exact {rec['exact']} (all "
@@ -2309,8 +2722,8 @@ def devscale_phase(dev, dim=DEVSCALE_DIM, rounds=2):
           f"device oracle), steps' peak {rec['hbm']['hbm_peak_bytes']} B "
           f"of a {rec['hbm']['watermark_bytes']} B watermark, K1 "
           f"{k1.launches} launches, K6 {k6_devscale} (the rounds and the "
-          f"device oracle), K7 {k7_devscale}, K8 {k8_devscale}, wall "
-          f"{wall:.1f} s")
+          f"device oracle), K7 {k7_devscale}, K8 {k8_devscale}, K9 "
+          f"{k9_devscale}, wall {wall:.1f} s")
     scheme, full, p = _flagship()
     pod = StreamedPod(scheme, full, mesh=make_mesh(4, 2, devices=[dev] * 8),
                       participants_chunk=8, dim_chunk=rec["dim_tile"],
@@ -2325,10 +2738,20 @@ def devscale_phase(dev, dim=DEVSCALE_DIM, rounds=2):
         _check(k6.launches - k6_before == 2 * rec["tiles"],
                f"devscale: K6 launched {k6.launches - k6_before} times in "
                f"two profiled rounds of {rec['tiles']} tiles")
+        _check(k9.launches - k9_devscale == 2 * 2 * rec["tiles"],
+               f"devscale: K9 launched {k9.launches - k9_devscale} times in "
+               f"two profiled rounds of {rec['tiles']} tiles")
     out["k1_launches_phase"] = k1.launches
     out["k6_launches_phase"] = k6.launches
     out["k7_launches_phase"] = k7.launches
     out["k8_launches_phase"] = k8.launches
+    out["k9_launches_phase"] = k9.launches
+    # K9 at a finale's d column: 4 p shards' [8, B_loc] rows and [d_loc]
+    # mask sums of the round's dim tile
+    d_col = pod.dim_chunk // 2
+    out["k9_max_abs_err"] = _k9_hold("devscale finale d column", dev, 4, 8,
+                                     d_col // 3, d_col, p)
+    _empty_cache(dev)
     # K1 at the last shard of the warm round's first tile: its rows, its
     # columns and its seed (``_drive_stream``'s tile seed, then the
     # shard's)
@@ -2347,6 +2770,70 @@ def devscale_phase(dev, dim=DEVSCALE_DIM, rounds=2):
             "devscale tile 0", dev, 0, 8, 0, min(pod.dim_chunk, dim),
             20260804, bound))
     out["k6_max_abs_err"] = k6_err
+    sum_on = _count_sum_on() - sum_on0
+    _check(not on_card or sum_on == 0,
+           f"devscale: the old combine chain (_sum_on) ran {sum_on} times")
+    out["sum_on_calls"] = sum_on
+    out["model_scale_round"] = _model_scale_rounds(dev, *msr)
+    return out
+
+
+def _model_scale_rounds(dev, P=MSR_P, D=MSR_D, dim_tile=MSR_TILE):
+    """``ModelScaleRound(use_pallas=True)`` on a virtual 4x2 mesh of
+    ``dev`` at P x D (values below 2^20) with Full, ChaCha and no masks:
+    each exact against the column sum mod p; on a card one K1 launch a
+    shard a tile, one K7 reveal and one K9 combine a d column a tile, K8's
+    residues (K3's mask op for ChaCha masks) a shard a tile, the ragged
+    last tile's among them at its own width, and no ``_sum_on``. Returns
+    {mask: launches}."""
+    import numpy as np
+    import torch
+
+    from sda_tpu_torch.fields.dimtile import tile_plan
+    from sda_tpu_torch.mesh import ModelScaleRound, make_mesh
+    from sda_tpu_torch.protocol import ChaChaMasking, NoMasking
+
+    scheme, full, p = _flagship()
+    on_card = dev.type == "cuda"
+    x = np.random.default_rng(19).integers(0, 1 << 20, size=(P, D),
+                                           dtype=np.uint32)
+    expect = torch.from_numpy(x.astype(np.int64).sum(0) % p)
+    mesh = make_mesh(4, 2, devices=[dev] * 8)
+    sum_on0 = _count_sum_on()
+    out = {}
+    for name, mask in (("full", full), ("chacha", ChaChaMasking(p, D, 128)),
+                       ("none", NoMasking())):
+        r = ModelScaleRound(scheme, mask, mesh=mesh, dim_tile=dim_tile,
+                            use_pallas=True)
+        d_loc = r.padded_shape(P, D)[1] // 2
+        plan = tile_plan(d_loc, r._grain_loc, r._tile_loc)
+        k1, k3 = _k1_reset(), _k3_reset()
+        k7, k8 = _k7_k8_reset()
+        k9, _ = _k9_k10_reset()
+        t0 = time.perf_counter()
+        got = r.aggregate(x, seed=19)
+        wall = time.perf_counter() - t0
+        _check(torch.equal(got.cpu(), expect),
+               f"model-scale round {name}: != column sum mod p")
+        tiles = plan.n_tiles
+        ragged = d_loc - (tiles - 1) * plan.width
+        counts = {"K1": k1.launches, "K3": k3.launches, "K7": k7.launches,
+                  "K8": k8.launches, "K9": k9.launches}
+        want = {"K1": 8 * tiles, "K3": 8 * tiles if name == "chacha" else 0,
+                "K7": 2 * tiles, "K8": 0 if name == "chacha" else 8 * tiles,
+                "K9": 2 * tiles}
+        _check(tiles >= 2 and ragged < plan.width,
+               f"model-scale round {name}: tiles {plan}, want a ragged last")
+        _check(not on_card or counts == want,
+               f"model-scale round {name}: launches {counts}, want {want}")
+        out[name] = {"tiles": tiles, "tile": plan.width, "ragged": ragged,
+                     "launches": counts, "exact": True, "wall_s": wall}
+        print(f"  model-scale round, {name} masks, K1: P={P} x d={D} on the "
+              f"4x2 mesh, {tiles} tiles of {plan.width} a shard (the last "
+              f"{ragged}): exact, launches {counts}, {wall:.2f} s")
+    sum_on = _count_sum_on() - sum_on0
+    _check(not on_card or sum_on == 0,
+           f"model-scale round: _sum_on ran {sum_on} times")
     return out
 
 
@@ -2740,7 +3227,11 @@ def fedavg_phase(dev, P=P_FEDAVG, mobilelite_kw=None, lora_kw=None,
     ``StreamedPod(use_pallas=True)`` over the virtual 4x2 mesh at the
     watermark rule's tile, exact as above. Then ``run_devscale`` with each
     of ``devscale_families``, exact. K1 is held to its plain version at
-    the 1x1 shard, a 4x2 shard and a streamed tile's shard.
+    the 1x1 shard, a 4x2 shard and a streamed tile's shard. Every round
+    combines its clerk rows on K9, one launch a d column (a d column a
+    dim tile on the streamed pods), never through the old chain
+    (``simpod._sum_on``), and K9 is held to its plain version at the
+    streamed finale's d column.
     ``mobilelite_kw``/``lora_kw`` shrink the families for a rehearsal on
     the CPU. Returns the phase's JSON record."""
     import math
@@ -2767,21 +3258,29 @@ def fedavg_phase(dev, P=P_FEDAVG, mobilelite_kw=None, lora_kw=None,
     frac_bits = min(16, int(math.floor(math.log2(q_cap / FEDAVG_CLIP))))
     codec = FixedPointCodec(p, frac_bits, P, clip=FEDAVG_CLIP)
     k1 = _k1_reset()
-    launches, k1_total, rounds = {}, 0, {}
+    k9, _ = _k9_k10_reset()
+    sum_on0 = _count_sum_on()
+    launches, k1_total, rounds, k9_launches = {}, 0, {}, {}
 
-    def fedavg_round(label, pod, cohort, gvec, want, seed, shards_a_round):
+    def fedavg_round(label, pod, cohort, gvec, want, seed, shards_a_round,
+                     columns_a_round):
         """Warm round (its sum ``want``, its new global ``global +
         decode_mean(want)``), then the median of ``reps`` timed ones."""
         nonlocal k1_total
         seen = _captured(pod)
         _k1_reset()
+        _k9_k10_reset()
         t0 = time.perf_counter()
         new_vec = pod_fedavg_round(pod, codec, gvec, cohort, seed)
         first_ms = (time.perf_counter() - t0) * 1e3
         n = k1.launches
+        k9_launches[label] = k9.launches
         _check(not on_card or n == shards_a_round,
                f"fedavg {label}: K1 launched {n} times, want "
                f"{shards_a_round}")
+        _check(not on_card or k9.launches == columns_a_round,
+               f"fedavg {label}: K9 launched {k9.launches} times, want "
+               f"{columns_a_round}")
         summed = seen[0]
         summed = (summed.cpu().numpy() if isinstance(summed, torch.Tensor)
                   else np.asarray(summed))
@@ -2826,7 +3325,8 @@ def fedavg_phase(dev, P=P_FEDAVG, mobilelite_kw=None, lora_kw=None,
     want = _fedavg_oracle(codec, cohort, gvec, p)
     for name, pod in pods.items():
         new_vec = fedavg_round(f"mobilelite {name}", pod, cohort, gvec, want,
-                               21, pod.mesh.devices.size)
+                               21, pod.mesh.devices.size,
+                               pod.mesh.devices.shape[1])
     profile = None
     if on_card:
         _k1_reset()
@@ -2889,7 +3389,8 @@ def fedavg_phase(dev, P=P_FEDAVG, mobilelite_kw=None, lora_kw=None,
                        dim_chunk=tile, use_pallas=True)
     tiles = -(-d_lora // spod.dim_chunk)
     fedavg_round("lora streamed 4x2", spod, cohort, gvec,
-                 _fedavg_oracle(codec, cohort, gvec, p), 22, 8 * tiles)
+                 _fedavg_oracle(codec, cohort, gvec, p), 22, 8 * tiles,
+                 2 * tiles)
     peaks["lora round"] = _peak(dev)
     rounds["lora streamed 4x2"].update(dim_tile=spod.dim_chunk, tiles=tiles)
     Pc_loc, d_loc = spod.participants_chunk // 4, spod.dim_chunk // 2
@@ -2903,6 +3404,9 @@ def fedavg_phase(dev, P=P_FEDAVG, mobilelite_kw=None, lora_kw=None,
         simpod._tile_seed(simpod._tile_seed(22, 0, 0), 3, 1)))
     del cohort, rows, x
     _empty_cache(dev)
+    k9_err = _k9_hold("fedavg streamed finale d column", dev, 4, 8,
+                      d_loc // 3, d_loc, p)
+    _empty_cache(dev)
 
     # before run_devscale, whose cost capture resets the peak counter at
     # each instrumented step (its record carries its own)
@@ -2912,6 +3416,7 @@ def fedavg_phase(dev, P=P_FEDAVG, mobilelite_kw=None, lora_kw=None,
     devscale = {}
     for family in devscale_families:
         _k1_reset()
+        _k9_k10_reset()
         rec = run_devscale(DevScaleProfile(
             family=family, dim=0, participants=8, participants_chunk=8,
             p_shards=4, d_shards=2, mask="full", pallas=True, rounds=2,
@@ -2926,14 +3431,21 @@ def fedavg_phase(dev, P=P_FEDAVG, mobilelite_kw=None, lora_kw=None,
         _check(not on_card or k1.launches == want,
                f"devscale {family}: K1 launched {k1.launches} times, want "
                f"{want}")
+        _check(not on_card or k9.launches == want // 4,
+               f"devscale {family}: K9 launched {k9.launches} times, want "
+               f"{want // 4} (2 a dim tile a round)")
         k1_total += k1.launches
         launches[f"devscale {family}"] = k1.launches
+        k9_launches[f"devscale {family}"] = k9.launches
         devscale[family] = {key: rec[key] for key in (
             "value", "round_seconds_marginal", "dim", "dim_tile", "tiles",
             "exact", "device_oracle", "hbm")}
         print(f"  run_devscale family={family}: dim {rec['dim']}, value "
               f"{rec['value']} elements/s, exact, K1 {k1.launches} launches")
 
+    sum_on = _count_sum_on() - sum_on0
+    _check(not on_card or sum_on == 0,
+           f"fedavg: the old combine chain (_sum_on) ran {sum_on} times")
     return {"stage": "fedavg", "participants": P,
             "fractional_bits": frac_bits, "clip": FEDAVG_CLIP,
             "mobilelite": {"dim": d_mob, "steps": FEDAVG_STEPS["mobilelite"],
@@ -2950,6 +3462,8 @@ def fedavg_phase(dev, P=P_FEDAVG, mobilelite_kw=None, lora_kw=None,
                      "mean_loss": statistics.mean(losses)},
             "rounds": rounds, "devscale": devscale,
             "k1_launches": launches, "k1_launches_phase": k1_total,
+            "k9_launches": k9_launches, "k9_max_abs_err": k9_err,
+            "sum_on_calls": sum_on,
             "k1_shard_max_abs_err": max(holds),
             "device_bytes_at_start": at_start, "peak_device_bytes": peaks,
             "pod_round_profile": profile}
@@ -5351,10 +5865,11 @@ def main() -> int:
     print(f"device: {kind}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}, Python {sys.version.split()[0]}")
 
-    # -- 2. build K1, K5, K3, K4, K6, K7 and K8, one nvcc each, side by side
+    # -- 2. build K1, K5, K3, K4, K6, K7, K8 with K10, and K9, one nvcc
+    # each, side by side
     t0 = time.perf_counter()
     names = ("fused_round", "kernel_probe", "chacha", "montgomery",
-             "blockgen", "reveal", "residues")
+             "blockgen", "reveal", "residues", "shardsum")
     with ThreadPoolExecutor(len(names)) as pool:
         built = dict(zip(names, pool.map(_build.build, names)))
     print(f"build: {', '.join(built[n][0].name for n in names)} in "
@@ -5791,6 +6306,14 @@ def main() -> int:
     print(json.dumps(k78_rec), flush=True)
     print(f"phase 14c: {k78_rec['phase_s']:.1f} s")
 
+    # -- 14d. K9, the pod's clerk combine, and K10, the clerk's fold -------
+    print(f"K9 and K10 vs plain, K8 and K3 on a ragged tile (tolerance: "
+          f"exact, torch.equal; {smi}):")
+    k910_rec = shardsum_fold_kernels(dev, p, built["shardsum"][1],
+                                     built["residues"][1])
+    print(json.dumps(k910_rec), flush=True)
+    print(f"phase 14d: {k910_rec['phase_s']:.1f} s")
+
     # -- 15. the streamed round on K1 and K3, and the device-tile fold -----
     print(f"streamed round: ChaCha masking, use_pallas=True ({smi}):")
     t15 = time.perf_counter()
@@ -5936,7 +6459,8 @@ def main() -> int:
                  rec18["k3_window_max_abs_err"],
                  rec22["k3_window_max_abs_err"],
                  rec22["k3_drills_max_abs_err"], rec23["k3_max_abs_err"],
-                 rec25["k3_max_abs_err"], k78_rec["k3_raw_max_abs_err"])
+                 rec25["k3_max_abs_err"], k78_rec["k3_raw_max_abs_err"],
+                 k910_rec["ragged_max_abs_err"])
     print(smi)
     print(json.dumps({"kernels": [{
         "name": "fused_mask_share_combine",
@@ -6052,14 +6576,70 @@ def main() -> int:
             "pod_round": rec18["k8_launches"],
             "devscale": rec19["k8_launches"],
             "devscale_phase": rec19["k8_launches_phase"],
+            "model_scale_round": {
+                mask: r["launches"]["K8"]
+                for mask, r in rec19["model_scale_round"].items()},
             "fedavg": rec21["k8_launches"],
             "sim": rec22["k8_launches"]},
-        "max_abs_err": k78_rec["k8_max_abs_err"],
+        "max_abs_err": max(k78_rec["k8_max_abs_err"],
+                           k910_rec["ragged_max_abs_err"]),
         **{key: k78_rec["k8"][key] for key in (
             "ms", "plain_ms", "bound_ms", "bound_by", "share", "shape",
             "dtype", "library_ms", "no_slower_than_library")},
         "library_of": "torch.remainder(x, p).to(torch.int32)",
         "ptxas": k78_rec["ptxas"]["K8"],
+    }, {
+        "name": "shard_combine",
+        "route": "cuda",
+        "source": "sda_tpu_torch/fields/csrc/shardsum.cu",
+        "replaces": "sda_tpu/mesh/simpod.py:588-610 (psum_scatter, canon, "
+                    "all_gather and the mask psum; also streaming.py:740-755 "
+                    "and devscale.py:287-297)",
+        "launches": sum(rec18["k9_launches"].values()),
+        "launches_of": "the pod rounds (phase 18)",
+        "launches_by_phase": {
+            "pod_round": rec18["k9_launches"],
+            "devscale": rec19["k9_launches"],
+            "devscale_phase": rec19["k9_launches_phase"],
+            "model_scale_round": {
+                mask: r["launches"]["K9"]
+                for mask, r in rec19["model_scale_round"].items()},
+            "fedavg": rec21["k9_launches"]},
+        "sum_on_calls": {"pod_round": rec18["sum_on_calls"],
+                         "devscale": rec19["sum_on_calls"],
+                         "fedavg": rec21["sum_on_calls"]},
+        "max_abs_err": max(k910_rec["k9_max_abs_err"],
+                           rec18["k9_max_abs_err"],
+                           rec19["k9_max_abs_err"],
+                           rec21["k9_max_abs_err"]),
+        **{key: k910_rec["k9_timed"][0][key] for key in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "share", "library_ms",
+            "shape")},
+        "ms_of": k910_rec["k9_timed"][0]["case"],
+        "library_of": "torch.remainder(torch.stack(parts).sum(0), m), rows "
+                      "and mask",
+        "timed": k910_rec["k9_timed"],
+        "ptxas": k910_rec["ptxas"]["K9"],
+    }, {
+        "name": "fold_columns",
+        "route": "cuda",
+        "source": "sda_tpu_torch/fields/csrc/residues.cu",
+        "replaces": "sda_tpu/mesh/devscale.py:501-511",
+        "launches": rec15["fold"]["k10_launches"]
+        + rec15["fold"]["tiled"]["k10_launches"],
+        "launches_of": "the device-tile clerk folds (phase 15)",
+        "launches_by_phase": {
+            "fold": rec15["fold"]["k10_launches"],
+            "fold_tiled": rec15["fold"]["tiled"]["k10_launches"]},
+        "max_abs_err": max(k910_rec["k10_max_abs_err"],
+                           rec15["fold"]["k10_max_abs_err"]),
+        **{key: k910_rec["k10"][key] for key in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "share", "library_ms",
+            "shape")},
+        "library_of": "torch.remainder(acc + torch.remainder(blk, m).sum(0), "
+                      "m)",
+        "copy_overlap": rec15["fold"]["profile"],
+        "ptxas": k910_rec["ptxas"]["K10"],
     }, {
         "name": "premix",
         "route": "cuda",

@@ -1,6 +1,6 @@
-"""The least time an H100 could take for the work of K1, K3, K4, K6, K7 and
-K8, counted from the algorithm and the bytes: shared by ``chip_smoke.py``,
-``k1_ab``, ``k3_ab`` and ``k4_ab``."""
+"""The least time an H100 could take for the work of K1, K3, K4, K6, K7,
+K8, K9 and K10, counted from the algorithm and the bytes: shared by
+``chip_smoke.py``, ``k1_ab``, ``k3_ab`` and ``k4_ab``."""
 
 from __future__ import annotations
 
@@ -304,3 +304,57 @@ def residues_bound(n: int, in_itemsize: int = 8):
               f"ops an element -> {ops_ms:.4f} ms")
     return (max(bytes_ms, ops_ms),
             "operations" if ops_ms >= bytes_ms else "bytes", detail)
+
+
+#: K9 (fields/csrc/shardsum.cu) and K10 (the fold of csrc/residues.cu),
+#: counted from their sources. Both reduce a 64-bit word mod m by Barrett:
+#: the high product v mu is 4 wide multiplies and 4 carry adds, q m's low
+#: half 3 multiplies, v - q m 2 subtracts, the conditional subtract a
+#: 64-bit compare and select (4): 7 on the FMA pipe, 10 on the ALU pipe.
+#: K9 adds each further partial with a 64-bit add (2, ALU pipe); K10 flips
+#: the word's sign bit (1), adds the fold constant mod m and accumulates
+#: the column mod m (a 64-bit add, compare and select each: 6 + 6).
+BARRETT_FMA_OPS = 7
+BARRETT_ALU_OPS = 10
+K10_ALU_OPS = 1 + BARRETT_ALU_OPS + 6 + 6
+
+
+def _bytes_or_ops(bytes_moved: int, fma: float, alu: float, what: str):
+    bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = max(max(fma, alu) / PIPE_OPS_PER_S,
+                 (fma + alu) / INSTR_PER_S) * 1e3
+    detail = (f"{bytes_moved} bytes -> {bytes_ms:.4f} ms; {fma:.0f} "
+              f"FMA-pipe + {alu:.0f} ALU-pipe ops ({what}) -> "
+              f"{ops_ms:.4f} ms")
+    return (max(bytes_ms, ops_ms),
+            "operations" if ops_ms >= bytes_ms else "bytes", detail)
+
+
+def k9_bound(p_shards: int, rows: int, cols: int, mask_cols: int = 0):
+    """Least time (ms) the card could take for K9's combine of one d
+    column, and what bounds it: the larger of its bytes (the p_shards
+    [rows, cols] share partials and [mask_cols] mask partials read once,
+    the [rows, cols] gathered rows and the [mask_cols] total written once,
+    all int64) at the memory rate and its integer operations (p_shards - 1
+    adds and one reduction an output) at a pipe's rate and at the issue
+    rate. Returns (bound_ms, bound_by, detail)."""
+    n = rows * cols + mask_cols
+    fma = BARRETT_FMA_OPS * n
+    alu = (2 * (p_shards - 1) + BARRETT_ALU_OPS) * n
+    return _bytes_or_ops(8 * (p_shards + 1) * n, fma, alu,
+                         f"{p_shards - 1} adds and a Barrett reduction an "
+                         f"output")
+
+
+def k10_bound(rows: int, cols: int):
+    """Least time (ms) the card could take for K10's fold of a [rows,
+    cols] int64 tile into its [cols] accumulator, and what bounds it: the
+    larger of its bytes (the tile read once, the accumulator read and
+    written once) at the memory rate and its integer operations (a sign
+    flip, a Barrett reduction, the fold constant's and the accumulate's
+    adds mod m an element) at a pipe's rate and at the issue rate.
+    Returns (bound_ms, bound_by, detail)."""
+    n = rows * cols
+    return _bytes_or_ops(8 * n + 16 * cols, BARRETT_FMA_OPS * n,
+                         K10_ALU_OPS * n,
+                         f"{BARRETT_FMA_OPS} + {K10_ALU_OPS} an element")

@@ -219,14 +219,19 @@ def chacha_seed_words(round_seed: int, global_ids, seed_bitsize: int):
 
 
 def mask_plain(seed_words, counter0: int, x, modulus: int, out_dtype,
-               acc=None):
+               acc=None, width=None):
     """The kernel's ``mask`` in plain torch: ([S, d] ``(x + w) mod m`` as
     ``out_dtype``, [d] int64 ``sum_s w mod m``) for any int64 ``x`` (its
     floor mod m taken first, the round's residue pass) and ``w`` the
     CHACHA_PRG_V1 windows of the S seeds from block ``counter0``:
     ``torch.remainder`` -> ``expand_plain`` -> mod add -> mod sum. With
     ``acc`` ([d] int64 canonical residues) the sum is added mod m into it
-    in place, and ``acc`` comes back as the second result."""
+    in place, and ``acc`` comes back as the second result. ``width``: d,
+    when ``x`` is a narrower ragged tile; its columns past x's are zeros
+    (appended here with a ``torch.cat``)."""
+    if width is not None and width > x.shape[1]:
+        x = torch.cat([x, x.new_zeros((x.shape[0], width - x.shape[1]))],
+                      dim=1)
     masks, _ = _draws_plain(seed_words, counter0, x.shape[1], modulus, False)
     masked = torch.remainder(x, modulus) + masks
     masked = torch.where(masked >= modulus, masked - modulus, masked)
@@ -272,8 +277,8 @@ def _library() -> ctypes.CDLL:
     lib.sda_chacha_mask.argtypes = [ptr, i32, u32, i64, u64, u64, ptr, i64,
                                     i32, ptr, ptr, i32, ptr, ptr]
     lib.sda_chacha_mask_into.argtypes = [ptr, ptr, u64, i32, i32, u32, i64,
-                                         u64, u64, ptr, i64, i32, ptr, ptr,
-                                         i32, i32, ptr, ptr]
+                                         u64, u64, ptr, i64, i64, i32, ptr,
+                                         ptr, i32, i32, ptr, ptr]
     lib.sda_chacha_chunks.argtypes = [i32, i32, i64, u64, ptr]
     for fn in (lib.sda_chacha_blocks, lib.sda_chacha_expand,
                lib.sda_chacha_combine, lib.sda_chacha_mask,
@@ -339,7 +344,8 @@ def check_accumulator(acc, shape, device, what: str) -> None:
 
 
 def _check_mask_args(S: int, dev, x, modulus: int, prg: str, out_dtype,
-                     acc):
+                     acc, width=None) -> int:
+    """-> the mask op's dimension d: ``width``, or x's columns."""
     if x is None:
         raise ValueError("the mask op needs x")
     if x.dim() != 2 or x.shape[0] != S:
@@ -349,9 +355,13 @@ def _check_mask_args(S: int, dev, x, modulus: int, prg: str, out_dtype,
         raise ValueError(f"x must be int64, got {x.dtype}")
     if x.device != dev:
         raise ValueError(f"x on {x.device}, seeds on {dev}")
-    if x.shape[1] % 8:
+    d = x.shape[1] if width is None else int(width)
+    if x.shape[1] % 8 or d % 8:
         raise ValueError(
             "dimension must be a multiple of 8 (one ChaCha block)")
+    if d < x.shape[1]:
+        raise ValueError(f"width {d} is narrower than x's {x.shape[1]} "
+                         "columns")
     if out_dtype not in (torch.int32, torch.int64):
         raise ValueError(f"out_dtype must be int32 or int64, got {out_dtype}")
     if out_dtype == torch.int32 and modulus >= 1 << 31:
@@ -359,7 +369,8 @@ def _check_mask_args(S: int, dev, x, modulus: int, prg: str, out_dtype,
     if prg != chacha.CHACHA_PRG_V1:
         raise ValueError("the mask op takes the CHACHA_PRG_V1 window")
     if acc is not None:
-        check_accumulator(acc, (x.shape[1],), dev, "acc_mask")
+        check_accumulator(acc, (d,), dev, "acc_mask")
+    return d
 
 
 def _check_derive(derive, x):
@@ -378,7 +389,8 @@ def _check_derive(derive, x):
 def chacha_kernel(op: str, seed_words, *, counter0: int = 0,
                   dimension: int = 0, nblocks: int = 0, modulus: int = 1,
                   prg: str = chacha.CHACHA_PRG_V1, flags: bool = True,
-                  x=None, out_dtype=None, derive=None, acc=None):
+                  x=None, out_dtype=None, derive=None, acc=None,
+                  width=None):
     """One K3 call on ``seed_words`` ([S, 8] int64 words in [0, 2^32); for
     ``blocks``, S = 1) on their device:
 
@@ -397,7 +409,10 @@ def chacha_kernel(op: str, seed_words, *, counter0: int = 0,
       ``chacha_seed_words`` for ids first .. first + S - 1, which the
       kernel derives itself. ``acc`` (derived mode only): a contiguous [d]
       int64 accumulator of canonical residues the sum is added into mod m,
-      in place; it comes back as the second result.
+      in place; it comes back as the second result. ``width``: the mask
+      op's d when x is a narrower ragged tile ([S, cols], cols <= d, a
+      multiple of 8): its columns past x's are read as zeros, so the tile
+      needs no padded copy.
 
     A CUDA tensor launches the kernel (a launch error raises); a CPU tensor
     runs the plain version.
@@ -422,9 +437,12 @@ def chacha_kernel(op: str, seed_words, *, counter0: int = 0,
         _check_prg(prg)
     if acc is not None and derive is None:
         raise ValueError("only the derived mask mode accumulates")
+    if width is not None and op != "mask":
+        raise ValueError("only the mask op takes a width")
     if op == "mask":
         out_dtype = torch.int64 if out_dtype is None else out_dtype
-        _check_mask_args(S, dev, x, modulus, prg, out_dtype, acc)
+        width = _check_mask_args(S, dev, x, modulus, prg, out_dtype, acc,
+                                 width)
     if dev.type == "cpu":
         if derive is not None:
             round_seed, pid_base, bits = derive
@@ -439,7 +457,7 @@ def chacha_kernel(op: str, seed_words, *, counter0: int = 0,
             return masks, (rej if flags else None)
         if op == "mask":
             return mask_plain(seed_words, counter0, x, modulus, out_dtype,
-                              acc)
+                              acc, width)
         return combine_plain(seed_words, dimension, modulus, prg)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
@@ -459,7 +477,8 @@ def chacha_kernel(op: str, seed_words, *, counter0: int = 0,
             result = out.to(torch.int64) & _MASK32
         elif op == "mask":
             err, result = _launch_mask(lib, keys, derive, S, counter0, x,
-                                       modulus, out_dtype, acc, dev, stream)
+                                       modulus, out_dtype, acc, dev, stream,
+                                       width)
         else:
             mu, zone = _U64_MAX // modulus, _zone(prg, modulus)
             rej = torch.zeros(S, dtype=torch.int32, device=dev)
@@ -489,18 +508,19 @@ def chacha_kernel(op: str, seed_words, *, counter0: int = 0,
 
 
 def _launch_mask(lib, keys, derive, S: int, counter0: int, x, modulus: int,
-                 out_dtype, acc, dev, stream):
+                 out_dtype, acc, dev, stream, d: int):
     """The mask op's C entry on the current stream: (CUDA error code,
-    (masked, mask sum or ``acc``)). ``x`` is read in place when its rows
-    are 16-byte aligned with unit column stride (any contiguous tensor, or
-    rows of one), else copied contiguous first. ``keys``: the int32 key
-    words, or None with ``derive`` (round seed, first id, seed bits), whose
-    round keys go to the kernel by value."""
+    (masked [S, d], mask sum or ``acc``)). ``x`` ([S, cols], cols <= d;
+    the kernel reads the columns past cols as zeros) is read in place when
+    its rows are 16-byte aligned with unit column stride (any contiguous
+    tensor, or rows of one), else copied contiguous first. ``keys``: the
+    int32 key words, or None with ``derive`` (round seed, first id, seed
+    bits), whose round keys go to the kernel by value."""
     from .fused_round import philox_round_keys
 
-    d = x.shape[1]
-    if S and (x.stride(1) != 1 or x.stride(0) % 2 or x.stride(0) < d
-              or x.data_ptr() % 16):
+    cols = x.shape[1]
+    if S and cols and (x.stride(1) != 1 or x.stride(0) % 2
+                       or x.stride(0) < cols or x.data_ptr() % 16):
         x = x.contiguous()
     out = torch.empty((S, d), dtype=out_dtype, device=dev)
     sums = torch.empty(d, dtype=torch.int64, device=dev) if acc is None \
@@ -516,9 +536,9 @@ def _launch_mask(lib, keys, derive, S: int, counter0: int, x, modulus: int,
     err = lib.sda_chacha_mask_into(
         _ptr(keys), None if round_keys is None else round_keys.ctypes.data,
         pid_base, words, S, counter0, d, modulus, _U64_MAX // modulus,
-        x.data_ptr(), x.stride(0) if S else d, int(out32), out.data_ptr(),
-        sums.data_ptr(), int(acc is not None), chunks, _ptr(partials),
-        stream)
+        x.data_ptr() if cols else None, x.stride(0) if S and cols else cols,
+        cols, int(out32), out.data_ptr(), sums.data_ptr(),
+        int(acc is not None), chunks, _ptr(partials), stream)
     return err, (out, sums)
 
 
@@ -594,7 +614,7 @@ def mask_residues_at(seed_words, counter0, x, *, modulus: int,
 
 def mask_residues_derived(round_seed: int, pid_base: int, seed_bitsize: int,
                           counter0, x, *, modulus: int, out_dtype=None,
-                          acc_mask=None):
+                          acc_mask=None, width=None):
     """``mask_residues_at`` on the seeds of global participants
     ``pid_base .. pid_base + S - 1`` under ``round_seed``
     (``chacha_seed_words``' keys), derived inside the kernel: the whole
@@ -602,11 +622,13 @@ def mask_residues_derived(round_seed: int, pid_base: int, seed_bitsize: int,
     no seed tensor. On the CPU: ``chacha_seed_words`` then ``mask_plain``.
     ``acc_mask``: a contiguous [d] int64 accumulator of canonical residues
     on x's device that the sum is added into mod ``modulus`` in place (the
-    step's donated accumulator, returned in place of a fresh sum)."""
+    step's donated accumulator, returned in place of a fresh sum).
+    ``width``: the window's d when ``x`` is a narrower ragged tile (the
+    kernel reads its columns past x's as zeros)."""
     return chacha_kernel("mask", None, counter0=counter0, modulus=modulus,
                          x=x, out_dtype=out_dtype,
                          derive=(round_seed, pid_base, seed_bitsize),
-                         acc=acc_mask)
+                         acc=acc_mask, width=width)
 
 
 def combine_masks(seeds, dimension: int, modulus: int, *, prg: str,

@@ -429,7 +429,8 @@ chacha_combine_kernel(const uint32_t* __restrict__ seeds, int S, int per,
 // per)): out[s, i] = (x[s, i] mod m + w[s, i]) mod m as int32 (OUT32) or
 // int64, and the chunk's mask sum into sums (y = 0) or partials row y - 1.
 // d is a multiple of 8 (every block whole); x rows are x_stride apart and
-// 16-byte aligned. With seeds null the keys are derived (dv); with
+// 16-byte aligned, and hold x_blocks blocks (<= d / 8): the columns past
+// them read as zeros. With seeds null the keys are derived (dv); with
 // `accumulate` chunk 0 adds its sum mod m to what sums holds.
 template <bool OUT32, bool SMALL>
 __global__ void __launch_bounds__(kStrip)
@@ -437,8 +438,9 @@ chacha_mask_kernel(const uint32_t* __restrict__ seeds, const Derive dv,
                    int S, int per, uint32_t counter0, long long d,
                    long long nblocks, Modulus md,
                    const long long* __restrict__ x, long long x_stride,
-                   void* __restrict__ out, long long* __restrict__ sums,
-                   int accumulate, long long* __restrict__ partials) {
+                   long long x_blocks, void* __restrict__ out,
+                   long long* __restrict__ sums, int accumulate,
+                   long long* __restrict__ partials) {
   using R = Res<SMALL>;
   constexpr int kOutSlots = OUT32 ? 64 : 128;
   __shared__ uint4 keys[2 * kKeyBatch];
@@ -451,8 +453,12 @@ chacha_mask_kernel(const uint32_t* __restrict__ seeds, const Derive dv,
   const long long col0 = 8 * wb0;
   const long long s0 = (long long)blockIdx.y * per;
   const int n = (int)min((long long)per, (long long)S - s0);
-  // the warp's whole blocks inside the row: 4 x slots, 2 or 4 out slots each
+  // the warp's whole blocks inside the row: 4 x slots, 2 or 4 out slots each;
+  // of them those inside x (a ragged tile's x ends at block x_blocks, and
+  // its columns past that read as zeros)
   const int blocks = (int)max(0LL, min(32LL, nblocks - wb0));
+  const int x_live = (int)max(0LL, min(32LL, x_blocks - wb0));
+  const bool in_x = b < x_blocks;
   uint4* st = stage[warp];
 
   // seed i's x tile into ring slot i mod kStages (an empty group past n)
@@ -463,7 +469,7 @@ chacha_mask_kernel(const uint32_t* __restrict__ seeds, const Derive dv,
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
         const int c = lane + 32 * q;
-        if (c < 4 * blocks) copy16(dst + swz64(c), src + 2 * c);
+        if (c < 4 * x_live) copy16(dst + swz64(c), src + 2 * c);
       }
     }
     copy_commit();
@@ -494,9 +500,13 @@ chacha_mask_kernel(const uint32_t* __restrict__ seeds, const Derive dv,
       const uint4* xt = ring[warp][i % kStages];
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
-        const uint4 t = xt[swz64(4 * lane + q)];
-        v[2 * q] = raw_residue<SMALL>(lo64(t), md);
-        v[2 * q + 1] = raw_residue<SMALL>(hi64(t), md);
+        if (in_x) {
+          const uint4 t = xt[swz64(4 * lane + q)];
+          v[2 * q] = raw_residue<SMALL>(lo64(t), md);
+          v[2 * q + 1] = raw_residue<SMALL>(hi64(t), md);
+        } else {
+          v[2 * q] = v[2 * q + 1] = 0;
+        }
       }
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
@@ -725,9 +735,11 @@ extern "C" int sda_chacha_combine(const uint32_t* seeds, int S, long long d,
 // The mask op: out [S, d] (int32 when out32, which needs m < 2^31, else
 // int64) = (x + w) mod m and sums [d] = sum_s w mod m (with accumulate:
 // sums = (sums + sum_s w) mod m, in place), w the V1 window of each seed
-// from block counter0; d a multiple of 8; x [S, d] any int64 (its floor
-// mod m taken in the kernel), rows x_stride int64 apart and 16-byte
-// aligned; `chunks` and partials as for the combine. The seeds' keys are
+// from block counter0; d a multiple of 8; x [S, x_cols] any int64 (its
+// floor mod m taken in the kernel; x_cols <= d, a multiple of 8, and the
+// columns from x_cols to d read as zeros: a ragged tile's padding), rows
+// x_stride int64 apart and 16-byte aligned; `chunks` and partials as for
+// the combine. The seeds' keys are
 // the [S, 8] words `seeds` or, with seeds null, derived in the kernel:
 // derive_keys under the host [2][10] round keys `round_keys` of the round
 // seed (chacha_device.py), gid = pid_base + s, `words` key words kept.
@@ -735,11 +747,12 @@ extern "C" int sda_chacha_mask_into(
     const uint32_t* seeds, const unsigned int* round_keys,
     unsigned long long pid_base, int words, int S, uint32_t counter0,
     long long d, unsigned long long m, unsigned long long mu,
-    const long long* x, long long x_stride, int out32, void* out,
-    long long* sums, int accumulate, int chunks, long long* partials,
-    cudaStream_t stream) {
+    const long long* x, long long x_stride, long long x_cols, int out32,
+    void* out, long long* sums, int accumulate, int chunks,
+    long long* partials, cudaStream_t stream) {
   if (S < 0 || d < 0 || d % 8 || m == 0 || m >= (1ull << 62) ||
-      (out32 && m >= (1ull << 31)) || x_stride < d || x_stride % 2 ||
+      (out32 && m >= (1ull << 31)) || x_cols < 0 || x_cols > d ||
+      x_cols % 8 || x_stride < x_cols || x_stride % 2 ||
       (reinterpret_cast<uintptr_t>(x) & 15) || chunks < 1 ||
       (chunks > 1 && partials == nullptr) ||
       (S > 0 && (seeds == nullptr) == (round_keys == nullptr)) ||
@@ -765,8 +778,9 @@ extern "C" int sda_chacha_mask_into(
   dispatch(out32, small(m), [&](auto o32, auto sm) {
     chacha_mask_kernel<decltype(o32)::value, decltype(sm)::value>
         <<<grid, kStrip, 0, stream>>>(seeds, dv, S, per, counter0, d,
-                                      nblocks, md, x, x_stride, out, sums,
-                                      accumulate, partials);
+                                      nblocks, md, x, x_stride,
+                                      x_cols / 8, out, sums, accumulate,
+                                      partials);
   });
   const int err = (int)cudaGetLastError();
   return err != 0 ? err : fold(grid, partials, d, md, sums, stream);
@@ -782,6 +796,6 @@ extern "C" int sda_chacha_mask(const uint32_t* seeds, int S,
                                int chunks, long long* partials,
                                cudaStream_t stream) {
   return sda_chacha_mask_into(seeds, nullptr, 0, 8, S, counter0, d, m, mu, x,
-                              x_stride, out32, out, sums, 0, chunks, partials,
-                              stream);
+                              x_stride, d, out32, out, sums, 0, chunks,
+                              partials, stream);
 }

@@ -12,7 +12,10 @@
   dim]`` round over the ``('p', 'd')`` mesh, each shard streaming its
   local dim shard in watermark-wide tiles; per tile: mask + share + local
   combine (K1 when active, one launch a shard a tile), the clerk scatter
-  and gather, reconstruct, unmask.
+  and gather (K9, one launch a d column), reconstruct, unmask. A ragged
+  last tile reaches the kernel that first reads it at its own width (K8,
+  or K3's mask op with ChaCha masks), which writes the zero columns past
+  its edge: no copy pads it.
 
 - **The host -> device landing of share tiles**: the clerk decrypt
   pipeline (``crypto/batch.prefetch_map``) lands decoded ``[B, tile]``
@@ -21,11 +24,13 @@
   streamed drivers consume device tensors instead of host arrays;
   :class:`DeviceTileCombiner` is the clerk-side consumer
   (``SDA_CLERK_DEVICE_TILES=1``), bit-exact with
-  ``crypto.sharing.mod_combine``.
+  ``crypto.sharing.mod_combine``: one K10 launch a tile, each tile landed
+  through pinned staging buffers on a copy stream while the previous one
+  folds.
 
 The benched configuration itself lives in ``loadgen/devscale.py``
-(``run_devscale``). The stages are plain torch but for K1 and K3, as
-they are jnp in the reference.
+(``run_devscale``). The stages run on the port's kernels (K1, K3, K7,
+K8, K9, K10) where the reference's are jitted or Pallas.
 """
 
 from __future__ import annotations
@@ -39,6 +44,7 @@ import torch
 
 from ..device import resolve_device
 from ..fields.dimtile import tile_plan
+from ..fields.residues import fold_columns, fold_constants
 from ..fields.ops import FieldOps
 from ..obs import devprof
 from ..utils import metrics, timed_phase
@@ -261,18 +267,17 @@ class ModelScaleRound:
                     dev = self.mesh.devices[pi, di]
                     blk = inputs[pi * P_loc:(pi + 1) * P_loc,
                                  di * d_loc + lo:di * d_loc + hi].to(dev)
+                    # a ragged last tile's zero columns (which aggregate
+                    # as zero) come from the kernel that first reads it
                     x = _fold_input(f, self.masking, self.pallas_active,
-                                    blk)
-                    if hi - lo < width:  # zero columns aggregate as zero
-                        x = torch.cat([x, x.new_zeros(
-                            (P_loc, width - (hi - lo)))], dim=1)
+                                    blk, width=width)
                     # the tile's window of the global ChaCha streams
                     s, m = _fold_stage(
                         self.scheme, f, self._M_host, self.masking,
                         self.pallas_active, x,
                         _tile_seed(round_seed, i, pi, di),
                         round_seed=round_seed, pid_base=pi * P_loc,
-                        d_block0=(di * d_loc + lo) // 8)
+                        d_block0=(di * d_loc + lo) // 8, width=width)
                     srow.append(s)
                     mrow.append(m)
                 sums.append(srow)
@@ -403,49 +408,139 @@ class DeviceTileSink:
         return get_block
 
 
+#: bytes of one pinned host staging buffer of the device-tile fold at most:
+#: on a card the fold's tile is also capped so that rows x tile int64 fit
+#: one (two of them are staged)
+STAGE_BYTES = 256 << 20
+
+
+class _TileStager:
+    """The host -> device landing of the fold's [rows, width] tiles: two
+    pinned host buffers and two device buffers used in turn, the copies on
+    a copy stream of their own, ordered by CUDA events: a host buffer is
+    refilled only once its last copy has finished (the host waits for
+    that copy's event), and a device buffer is overwritten only once the
+    fold that read it has run (the copy stream waits for that fold's
+    event). A pin that fails raises."""
+
+    def __init__(self, device: torch.device):
+        self._device = device
+        self._cap = 0
+        self._host = self._dev = None
+        self._copy = torch.cuda.Stream(device)
+        self._copied = [torch.cuda.Event(), torch.cuda.Event()]
+        self._folded = [torch.cuda.Event(), torch.cuda.Event()]
+        self._done = torch.cuda.Event()
+        self._used = [False, False]
+        self._slot = 0
+
+    def _reserve(self, elements: int) -> None:
+        if elements <= self._cap:
+            return
+        # nothing may still read or write the buffers being replaced
+        torch.cuda.synchronize(self._device)
+        host = [torch.empty(elements, dtype=torch.int64, pin_memory=True)
+                for _ in range(2)]
+        if not all(h.is_pinned() for h in host):
+            raise RuntimeError("could not pin the fold's staging buffers")
+        self._host = host
+        self._dev = [torch.empty(elements, dtype=torch.int64,
+                                 device=self._device) for _ in range(2)]
+        self._cap = elements
+        self._used = [False, False]
+
+    def land(self, tile: np.ndarray):
+        """Issue the copy of ``tile`` (an int64 [rows, cols] view, any
+        strides) to the device -> (slot, its [rows, cols] device tensor);
+        the tensor may be read once the current stream waits on
+        :meth:`wait`."""
+        rows, cols = tile.shape
+        self._reserve(rows * cols)
+        s = self._slot
+        self._slot ^= 1
+        if self._used[s]:
+            self._copied[s].synchronize()   # the buffer's last copy is done
+        host = self._host[s][:rows * cols].view(rows, cols)
+        np.copyto(host.numpy(), tile)
+        dst = self._dev[s][:rows * cols].view(rows, cols)
+        with torch.cuda.stream(self._copy):
+            if self._used[s]:
+                self._copy.wait_event(self._folded[s])
+            dst.copy_(host, non_blocking=True)
+            self._copied[s].record(self._copy)
+        self._used[s] = True
+        return s, dst
+
+    def wait(self, slot: int) -> None:
+        """The current stream waits for ``slot``'s copy."""
+        torch.cuda.current_stream(self._device).wait_event(
+            self._copied[slot])
+
+    def release(self, slot: int) -> None:
+        """``slot``'s device tile has been read by the work queued so far
+        on the current stream."""
+        self._folded[slot].record(torch.cuda.current_stream(self._device))
+
+    def done(self) -> None:
+        """A bundle's folds are queued on the current stream."""
+        self._done.record(torch.cuda.current_stream(self._device))
+
+    def wait_done(self) -> None:
+        """The current stream waits for the last bundle's folds (a reader
+        on another stream sees the whole sum)."""
+        torch.cuda.current_stream(self._device).wait_event(self._done)
+
+
 class DeviceTileCombiner:
     """Device-resident clerk combine: fold decoded share bundles into a
     tiled device accumulator, bit-exact with
     ``crypto.sharing.mod_combine``.
 
-    The clerk hot path's per-bundle ``[B, dim]`` fold runs as uniform
-    ``[B, tile]`` device tiles on ``device`` (CUDA unless
-    ``device="cpu"``; width from the device-memory watermark unless
-    given). The fold is synchronous: each tile's copy from pageable host
-    memory blocks the host before its sum is queued on the device, and
-    no copy is staged ahead. What runs alongside is the decrypt pipeline
-    (``prefetch_map``), decoding the next bundles. Enabled on the clerk via
-    ``SDA_CLERK_DEVICE_TILES=1`` (``client.process_clerking_job``).
+    The clerk hot path's per-bundle ``[B, dim]`` fold runs as ``[B,
+    tile]`` device tiles on ``device`` (CUDA unless ``device="cpu"``;
+    width from the device-memory watermark unless given), one K10 launch a
+    tile (``fields.residues.fold_columns``: the tile's floor mod m added
+    into the tile's accumulator in place). On a card each tile lands
+    through two pinned host buffers on a copy stream
+    (:class:`_TileStager`): tile j+1's copy is issued before tile j's fold,
+    so the host -> device transfer overlaps the fold, as the reference's
+    ``pending`` tile does; a ragged last tile is copied and folded at its
+    own width. On the CPU the fold is today's synchronous plain path. What
+    runs alongside is the decrypt pipeline (``prefetch_map``), decoding
+    the next bundles. Enabled on the clerk via ``SDA_CLERK_DEVICE_TILES=1``
+    (``client.process_clerking_job``).
     """
 
     def __init__(self, modulus: int, dim_tile: Optional[int] = None,
                  device=None):
         self._device = resolve_device(device)
-        self._f = FieldOps.create(int(modulus))
+        self._m = int(modulus)
+        fold_constants(self._m)   # a modulus K10 cannot fold raises here
         self._dim_tile = None if dim_tile is None else max(128, int(dim_tile))
         self._tiles = None     # list of per-tile device accumulators
         self._dim = None
         self._folds = 0
+        self._stager = (_TileStager(self._device)
+                        if self._device.type == "cuda" else None)
 
     def _plan(self, rows: int, dim: int):
         if self._dim_tile is None:
             # watermark rule, combiner flavor: the live set per tile is
             # the [rows, tile] bundle (double-buffered), its residue
             # copy, and the accumulator — ~ (2*rows + 2) int64 lanes per
-            # column, 25% slack
+            # column, 25% slack; on a card no wider than a staging buffer
             per_col = int((2 * rows + 2) * 8 * 1.25)
             self._dim_tile = max(
                 128, devprof.hbm_watermark(self._device) // per_col)
+            if self._stager is not None:
+                self._dim_tile = max(128, min(
+                    self._dim_tile, STAGE_BYTES // (8 * max(1, rows))))
         plan = tile_plan(dim, 1, self._dim_tile)
         self._dim = dim
         self._plan_t = plan
         self._tiles = [torch.zeros(plan.width, dtype=torch.int64,
                                    device=self._device)
                        for _ in range(plan.n_tiles)]
-
-    def _step(self, acc, blk):
-        f = self._f
-        return f.add(acc, f.sum(f.to_residues(blk), axis=0))
 
     def fold(self, share_rows) -> None:
         """Fold one decoded bundle (``[B, dim]`` array or sequence of
@@ -459,14 +554,26 @@ class DeviceTileCombiner:
             raise ValueError(
                 f"bundle dim {stacked.shape[1]} != combiner dim {self._dim}")
         plan = self._plan_t
-        if plan.pad:
-            stacked = np.pad(stacked, ((0, 0), (0, plan.pad)))
-
-        for j in range(plan.n_tiles):
-            lo = j * plan.width
-            tile = torch.from_numpy(np.ascontiguousarray(
-                stacked[:, lo: lo + plan.width])).to(self._device)
-            self._tiles[j] = self._step(self._tiles[j], tile)
+        spans = [(j * plan.width, min((j + 1) * plan.width, self._dim))
+                 for j in range(plan.n_tiles)]
+        if self._stager is None:
+            for j, (lo, hi) in enumerate(spans):
+                tile = torch.from_numpy(np.ascontiguousarray(
+                    stacked[:, lo:hi]))
+                fold_columns(self._tiles[j][:hi - lo], tile, self._m)
+        else:
+            stager = self._stager
+            # land tile j+1 while tile j folds: transfer overlaps compute
+            pending = stager.land(stacked[:, spans[0][0]:spans[0][1]])
+            for j, (lo, hi) in enumerate(spans):
+                slot, tile = pending
+                if j + 1 < len(spans):
+                    pending = stager.land(
+                        stacked[:, spans[j + 1][0]:spans[j + 1][1]])
+                stager.wait(slot)
+                fold_columns(self._tiles[j][:hi - lo], tile, self._m)
+                stager.release(slot)
+            stager.done()
         self._folds += 1
         metrics.count("devscale.clerk_combine.bundles")
 
@@ -475,7 +582,10 @@ class DeviceTileCombiner:
         return self._folds
 
     def result(self) -> np.ndarray:
-        """The combined [dim] int64 vector (canonical residues)."""
+        """The combined [dim] int64 vector (canonical residues), read after
+        the last fold."""
         if self._tiles is None:
             return np.zeros(0, dtype=np.int64)
+        if self._stager is not None:
+            self._stager.wait_done()
         return torch.cat(self._tiles).cpu().numpy()[: self._dim]

@@ -20,11 +20,11 @@ ONE process, as the reference's single-controller ``shard_map`` does:
 
 Each shard ``(pi, di)`` masks, shares and folds its local [P/p, d/d']
 block on its device (``_local_round``), then the reference's collectives
-become explicit tensor moves between the shards' devices
-(``_ShardComm``): ``psum_scatter`` over ``p`` sums one ``d`` column's
-``p`` partials, canonicalizes and places clerk block c on device (c, di);
-``all_gather`` concatenates the blocks; the mask ``psum`` is a sum plus a
-canonicalize. ``mesh.multihost`` swaps in ``torch.distributed``
+become one pass a ``d`` column on the column's home device
+(``_ShardComm``): the ``p`` partials move there (the ``all_gather``'s
+move) and K9 (``fields.shardsum``) sums and canonicalizes them, which is
+the ``psum_scatter`` and the ``all_gather`` at once, and the mask
+``psum`` beside them. ``mesh.multihost`` swaps in ``torch.distributed``
 collectives across processes. A device may hold several shards (a mesh
 of ``[cuda:0] * 8`` is the port's counterpart of XLA's virtual host
 devices).
@@ -55,7 +55,7 @@ import torch
 from ..benchmarks import bounds
 from ..device import resolve_device
 from ..fields import (chacha_device, fastfield, fused_round, modular,
-                      numtheory, sharing)
+                      numtheory, sharing, shardsum)
 from ..fields.residues import residues_int32
 from ..fields.reveal import reconstruct
 from ..fields.ops import FieldOps
@@ -159,23 +159,34 @@ _chacha_seed_words = chacha_device.chacha_seed_words
 # Round stages. Every function takes what ``_fold_input`` makes of a block:
 # canonical residues, but for ChaCha masks, which reduce the raw block.
 
-def _fold_input(f: FieldOps, masking, pallas: bool, block):
+def _fold_input(f: FieldOps, masking, pallas: bool, block, width=None):
     """A block of integer inputs as the fold stage takes it, with the
     residue pass folded into the kernel that reads the block where there is
     one: ChaCha masks take the raw block as int64 (the same values; K3's
     mask op takes their floor mod m in registers), the K1 lane without them
     K8's int32 residues (``fields.residues``), the plain lane
-    ``f.to_residues``' int64 ones."""
-    if isinstance(masking, ChaChaMasking):
-        return block.to(torch.int64)
+    ``f.to_residues``' int64 ones.
+
+    ``width``: the tile's width when ``block`` is a narrower ragged last
+    tile. On the K1 lane the kernel that first reads the block writes the
+    zero columns past its edge into its own output (K8 here; K3's mask op,
+    given the width by ``_fold_stage``, for ChaCha masks), so no copy pads
+    the tile; the plain lane appends them with a ``torch.cat``."""
+    chacha = isinstance(masking, ChaChaMasking)
     if pallas:
-        return residues_int32(block, f.sp)
-    return f.to_residues(block)
+        if chacha:
+            return block.to(torch.int64)
+        return residues_int32(block, f.sp, width=width)
+    x = block.to(torch.int64) if chacha else f.to_residues(block)
+    if width is not None and x.shape[1] < width:
+        x = torch.cat([x, x.new_zeros((x.shape[0], width - x.shape[1]))],
+                      dim=1)
+    return x
 
 
 def _mask_stage(masking, f: FieldOps, x, generator, *, round_seed=None,
                 pid_base: int = 0, d_block0: int = 0, out_dtype=None,
-                acc_mask=None):
+                acc_mask=None, width=None):
     """-> (masked [S, d_loc], local_mask_sum [d_loc] or None).
 
     Full masks are drawn from ``generator``. ChaCha masks are a function of
@@ -187,7 +198,9 @@ def _mask_stage(masking, f: FieldOps, x, generator, *, round_seed=None,
     masked rows as ``out_dtype`` (int64 when None; int32 for a modulus
     below 2^31). ``acc_mask``: the step's [d_loc] mask accumulator; the
     sum is added into it (in place by K3 for ChaCha masks) and it, or the
-    new sum, is returned in the sum's place (None masks leave it)."""
+    new sum, is returned in the sum's place (None masks leave it).
+    ``width``: ChaCha masks only, the tile's width when ``x`` is a
+    narrower ragged tile (K3 reads the columns past x's as zeros)."""
     if isinstance(masking, FullMasking):
         masks = f.uniform(generator, x.shape)
         total = f.sum(masks, axis=0)
@@ -196,7 +209,7 @@ def _mask_stage(masking, f: FieldOps, x, generator, *, round_seed=None,
     if isinstance(masking, ChaChaMasking):
         return chacha_device.mask_residues_derived(
             round_seed, pid_base, masking.seed_bitsize, d_block0, x,
-            modulus=f.m, out_dtype=out_dtype, acc_mask=acc_mask)
+            modulus=f.m, out_dtype=out_dtype, acc_mask=acc_mask, width=width)
     return x, acc_mask
 
 
@@ -256,7 +269,7 @@ def _resolve_pallas(scheme, masking, f: FieldOps, use_pallas: bool,
 
 def _pallas_stage(scheme, f: FieldOps, M_host, masking, x, seed: int, *,
                   round_seed=None, pid_base: int = 0, d_block0: int = 0,
-                  acc_shares=None, acc_mask=None):
+                  acc_shares=None, acc_mask=None, width=None):
     """[S, d_loc] block from ``_fold_input`` -> (combined shares [n, B0],
     mask sum [d_loc] | None) on K1 (``fields.fused_round``), keyed by
     ``seed``; with the step's accumulators (``acc_shares`` [n, B0],
@@ -271,13 +284,15 @@ def _pallas_stage(scheme, f: FieldOps, M_host, masking, x, seed: int, *,
     _mask_stage, applied first by K3's mask op, which writes the masked
     rows as the int32 words K1 reads (p < 2^29); the kernel then runs
     mask-free on the pre-masked input (the ``columns_unmasked`` instance
-    for the flagship scheme).
+    for the flagship scheme). ``width``: the tile's width when the raw
+    ChaCha block ``x`` is a narrower ragged tile (``_fold_input``).
     """
     chacha_mask_sum = acc_mask
     if isinstance(masking, ChaChaMasking):
         x, chacha_mask_sum = _mask_stage(
             masking, f, x, None, round_seed=round_seed, pid_base=pid_base,
-            d_block0=d_block0, out_dtype=torch.int32, acc_mask=acc_mask)
+            d_block0=d_block0, out_dtype=torch.int32, acc_mask=acc_mask,
+            width=width)
         masking = NoMasking()
     d_loc = x.shape[1]
     masked = isinstance(masking, FullMasking)
@@ -295,7 +310,8 @@ def _pallas_stage(scheme, f: FieldOps, M_host, masking, x, seed: int, *,
 
 def _fold_stage(scheme, f: FieldOps, M_host, masking, pallas: bool, x,
                 seed: int, *, round_seed=None, pid_base: int = 0,
-                d_block0: int = 0, acc_shares=None, acc_mask=None):
+                d_block0: int = 0, acc_shares=None, acc_mask=None,
+                width=None):
     """[S, d_loc] block from ``_fold_input`` -> (participant-summed shares
     [n, B], mask sum [d_loc] | None), keyed by ``seed``: K1 when
     ``pallas``, else the plain mask and share stages drawing from a
@@ -307,12 +323,16 @@ def _fold_stage(scheme, f: FieldOps, M_host, masking, pallas: bool, x,
     or neither; the fold is added into them and (acc_shares, acc_mask)
     come back. On the K1 lane the kernels add in their stores, in place
     (K3's mask op for ChaCha masks, K1 for the shares and Full masks); the
-    plain lane adds with ``f.add``, as the reference's XLA lane does."""
+    plain lane adds with ``f.add``, as the reference's XLA lane does.
+
+    ``width``: the tile's width, where ``x`` from ``_fold_input`` of a
+    ragged last tile may still be narrower (the K1 lane's raw ChaCha
+    block, which K3's mask op pads as it reads)."""
     if pallas:
         return _pallas_stage(scheme, f, M_host, masking, x, seed,
                              round_seed=round_seed, pid_base=pid_base,
                              d_block0=d_block0, acc_shares=acc_shares,
-                             acc_mask=acc_mask)
+                             acc_mask=acc_mask, width=width)
     generator = torch.Generator(device=x.device)
     generator.manual_seed(seed)
     masked, mask_sum = _mask_stage(masking, f, x, generator,
@@ -552,7 +572,8 @@ def _sync(devices) -> None:
 
 
 def _sum_on(device, parts):
-    """The int64 sum of ``parts`` on ``device`` (no canonicalize)."""
+    """The int64 sum of ``parts`` on ``device`` (no canonicalize): the
+    cross-process combine's local sum (``multihost._ProcessComm``)."""
     total = parts[0].to(device)
     for part in parts[1:]:
         total = total + part.to(device)
@@ -578,23 +599,24 @@ class _ShardComm:
         participant-summed shares; ``masks[j][di]`` its [d_loc] mask sum
         (``masks`` None without masking). -> (per ``d`` column: the
         gathered [n, B_loc] clerk rows, the [d_loc] mask total or None),
-        both on ``home(di)``."""
-        p_shards, d_shards = self.mesh.devices.shape
+        both on ``home(di)``.
+
+        A column's ``psum_scatter`` (clerk block c of the p partials' sum,
+        canonicalized), its ``all_gather`` and the mask ``psum`` are one
+        K9 pass on the column's home (``fields.shardsum``; its plain
+        version on the CPU): each partial moves there first, the
+        ``all_gather``'s move, which copies nothing where the shards share
+        the device."""
+        _, d_shards = self.mesh.devices.shape
         gathered, totals = [], []
         for di in range(d_shards):
-            parts = [row[di] for row in sums]
-            blk = parts[0].shape[0] // p_shards
-            # psum_scatter: clerk block c of the p partials' sum, summed
-            # and canonicalized on shard (c, di)
-            blocks = [f.canon(_sum_on(self.mesh.devices[c, di],
-                                      [x[c * blk:(c + 1) * blk]
-                                       for x in parts]))
-                      for c in range(p_shards)]
-            # all_gather: the recipient's view of every clerk row
             home = self.home(di)
-            gathered.append(torch.cat([b.to(home) for b in blocks]))
-            totals.append(None if masks is None else f.canon(
-                _sum_on(home, [row[di] for row in masks])))
+            parts = [row[di].to(home) for row in sums]
+            mask_parts = (None if masks is None
+                          else [row[di].to(home) for row in masks])
+            rows, total = shardsum.shard_combine(parts, mask_parts, f.m)
+            gathered.append(rows)
+            totals.append(total)
         return gathered, totals
 
 

@@ -175,3 +175,34 @@ def device_events_in(trace: dict, ranges: Dict[str, str]
         key = name if cat == "kernel" else f"{cat}: {name}"
         out[group][key] = out[group].get(key, 0) + 1
     return out
+
+
+def overlaps(trace: dict, first: str, second: str) -> Dict[str, float]:
+    """How the device events named like ``second`` overlap in time those
+    named like ``first`` (substrings of an event's name, a copy's or
+    memset's prefixed by its ``cat`` as in ``device_events_in``; on
+    different streams two events can run at once): {"first": count,
+    "second": count, "overlapping": the ``second`` events that overlap
+    some ``first`` event, "overlap_us": their time inside ``first``
+    events, "second_us": the ``second`` events' time}."""
+    def spans(hint):
+        out = []
+        for e in _device_events(trace):
+            cat, name = e.get("cat"), e.get("name", "")
+            key = name if cat == "kernel" else f"{cat}: {name}"
+            if hint in key:
+                start = float(e["ts"])
+                out.append((start, start + float(e["dur"])))
+        return sorted(out)
+
+    a, b = spans(first), spans(second)
+    overlapping, inside = 0, 0.0
+    for start, end in b:
+        cut = sum(max(0.0, min(end, a_end) - max(start, a_start))
+                  for a_start, a_end in a)
+        if cut > 0:
+            overlapping += 1
+            inside += min(cut, end - start)
+    return {"first": len(a), "second": len(b), "overlapping": overlapping,
+            "overlap_us": inside,
+            "second_us": sum(end - start for start, end in b)}

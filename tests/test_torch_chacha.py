@@ -490,3 +490,40 @@ def test_k3_bound_counts_derived_keys_and_the_accumulator():
     _, alu0, fma0, _ = bounds._k3_ops(S, d, "mask")
     assert alu - alu0 == fma - fma0 == S * 40
     assert derived[1] == "operations" and derived[0] > given[0]
+
+
+@pytest.mark.parametrize("cols, width", [(0, 16), (8, 16), (40, 96),
+                                         (96, 96)])
+@pytest.mark.parametrize("acc", [False, True])
+def test_mask_op_width_reads_zeros_past_a_ragged_tile(cols, width, acc):
+    """``mask_residues_derived(..., width=)`` on a ragged tile's [S, cols]
+    x equals the op on x zero-padded to the width: the masks cover the
+    whole window, and the columns past x's mask zeros; an accumulator is
+    [width]."""
+    S, c0, round_seed = 5, 77, 1234
+    rng = np.random.default_rng(cols + width)
+    x = torch.from_numpy(rng.integers(-(1 << 62), 1 << 62, size=(S, cols)))
+    padded = torch.zeros((S, width), dtype=torch.int64)
+    padded[:, :cols] = x
+    into = (lambda: torch.full((width,), P29 - 2, dtype=torch.int64)) \
+        if acc else (lambda: None)
+    got = chacha_device.mask_residues_derived(
+        round_seed, 3, 128, c0, x, modulus=P29, out_dtype=torch.int32,
+        acc_mask=into(), width=width)
+    want = chacha_device.mask_residues_derived(
+        round_seed, 3, 128, c0, padded, modulus=P29, out_dtype=torch.int32,
+        acc_mask=into())
+    assert got[0].shape == (S, width)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("x_cols, width, match", [
+    (16, 8, "narrower"), (12, 16, "multiple of 8"), (8, 12, "multiple of 8")])
+def test_mask_op_width_is_checked(x_cols, width, match):
+    with pytest.raises(ValueError, match=match):
+        chacha_device.mask_residues_derived(
+            1, 0, 128, 0, torch.zeros((2, x_cols), dtype=torch.int64),
+            modulus=P29, width=width)
+    with pytest.raises(ValueError, match="only the mask op"):
+        chacha_device.chacha_kernel("expand", torch.zeros((1, 8)),
+                                    dimension=8, modulus=P29, width=16)

@@ -437,6 +437,54 @@ def test_model_scale_round_exact(mesh_shape, masking, lane):
             np.asarray(ref.aggregate(x, jax.random.PRNGKey(2))), out.numpy())
 
 
+@pytest.mark.parametrize("masking", sorted(MASKINGS))
+@pytest.mark.parametrize("lane", ["plain", "k1"])
+def test_model_scale_round_ragged_tile_without_a_copy(monkeypatch, masking,
+                                                      lane):
+    """A shard of 264 columns in tiles of 96 ends in a ragged 72-wide tile:
+    on every lane the round gives the reference's aggregate (its XLA lane,
+    which pads the input once) and the column sum. On the K1 lane the
+    ragged tile reaches the kernel that first reads it at its own width,
+    with the tile's width to pad to (K8's residues; K3's mask op for
+    ChaCha masks)."""
+    import jax
+
+    from sda_tpu_torch.mesh import simpod
+
+    s = fast_scheme()
+    p = s.prime_modulus
+    mask = MASKINGS[masking](p)
+    seen = []
+    real_k8, real_k3 = simpod.residues_int32, \
+        simpod.chacha_device.mask_residues_derived
+
+    def k8(x, sp, width=None):
+        seen.append(("K8", x.shape[1], width))
+        return real_k8(x, sp, width=width)
+
+    def k3(*args, **kw):
+        seen.append(("K3", args[4].shape[1], kw.get("width")))
+        return real_k3(*args, **kw)
+
+    monkeypatch.setattr(simpod, "residues_int32", k8)
+    monkeypatch.setattr(simpod.chacha_device, "mask_residues_derived", k3)
+    x = np.random.default_rng(12).integers(0, 1 << 20, size=(16, 528),
+                                           dtype=np.int64)
+    r = _msr(s, mask, (4, 2), dim_tile=192, use_pallas=lane == "k1")
+    out = r.aggregate(x, 9).numpy()
+    np.testing.assert_array_equal(out, x.sum(axis=0) % p)
+    ref = ref_devscale.ModelScaleRound(
+        _ref(s), _ref(mask), mesh=ref_mesh.make_mesh(4, 2), dim_tile=192)
+    np.testing.assert_array_equal(
+        np.asarray(ref.aggregate(x, jax.random.PRNGKey(9))), out)
+    if lane == "k1":
+        kernel = "K3" if masking == "chacha" else "K8"
+        widths = [(cols, width) for name, cols, width in seen
+                  if name == kernel]
+        # 8 shards x 3 tiles; the last tile of each shard 72 wide
+        assert sorted(widths) == sorted([(96, 96)] * 16 + [(72, 96)] * 8)
+
+
 def test_model_scale_round_one_k1_call_a_shard_a_tile(monkeypatch):
     s = fast_scheme()
     p = s.prime_modulus

@@ -22,7 +22,8 @@ from sda_tpu import protocol as ref_proto
 from sda_tpu.fields.ops import FieldOps as RefFieldOps
 from sda_tpu.mesh import simpod as ref_simpod
 
-from sda_tpu_torch.fields import chacha_device, fused_round, numtheory
+from sda_tpu_torch.fields import (chacha_device, fused_round, numtheory,
+                                  shardsum)
 from sda_tpu_torch.fields.ops import FieldOps
 from sda_tpu_torch.mesh import (
     Mesh,
@@ -410,13 +411,15 @@ def test_pod_calls_each_kernel_once_a_shard(monkeypatch, masking):
     card), and ChaCha masks call K3's mask op once a shard at that shard's
     participant ids and block counter (its derived mode: the seeds' keys
     from the round seed and the first id), writing the int32 words K1
-    reads."""
+    reads; the clerk combine calls K9's wrapper once a d column, with the
+    4 p shards' share and mask partials."""
     s = fast_scheme()
     p = s.prime_modulus
     mask = FullMasking(p) if masking == "full" else ChaChaMasking(p, 96, 128)
-    k1_shapes, k3_windows = [], []
+    k1_shapes, k3_windows, k9_calls = [], [], []
     real_k1 = fused_round.fused_mask_share_combine
     real_k3 = chacha_device.mask_residues_derived
+    real_k9 = shardsum.shard_combine
 
     def k1(x_cols, *args, **kw):
         k1_shapes.append(tuple(x_cols.shape))
@@ -427,13 +430,20 @@ def test_pod_calls_each_kernel_once_a_shard(monkeypatch, masking):
         assert kw["out_dtype"] == torch.int32 and bits == 128
         return real_k3(round_seed, pid_base, bits, counter0, x, **kw)
 
+    def k9(parts, mask_parts, modulus):
+        k9_calls.append((len(parts), tuple(parts[0].shape),
+                         len(mask_parts), tuple(mask_parts[0].shape)))
+        return real_k9(parts, mask_parts, modulus)
+
     monkeypatch.setattr(fused_round, "fused_mask_share_combine", k1)
     monkeypatch.setattr(chacha_device, "mask_residues_derived", k3)
+    monkeypatch.setattr(shardsum, "shard_combine", k9)
     pod = port_pod(s, mask, (4, 2), use_pallas=True)
     inputs = np.random.default_rng(5).integers(0, 1 << 20, size=(16, 96))
     np.testing.assert_array_equal(pod.aggregate(inputs, 1).numpy(),
                                   inputs.sum(axis=0) % p)
     assert k1_shapes == [(4, 3, 16)] * 8
+    assert k9_calls == [(4, (8, 16), 4, (48,))] * 2
     if masking == "chacha":
         assert sorted(k3_windows) == sorted(
             (4 * pi, (4, 48), di * 6) for pi in range(4) for di in range(2))

@@ -188,3 +188,49 @@ def test_residues_bound_at_the_streamed_tile():
     assert by == "bytes" and ms == pytest.approx(2.8171, abs=1e-4)
     assert detail.startswith(f"{n * 12} bytes")
     assert bounds.residues_bound(n, 4)[0] == pytest.approx(ms * 8 / 12)
+
+
+@pytest.mark.parametrize("dtype_name", list(DTYPES))
+def test_residues_width_writes_zero_columns_past_a_ragged_tile(dtype_name):
+    """``residues_int32(..., width=)``: a ragged last tile read at its own
+    width leaves at the tile's, its columns past the block zeros; a width
+    below the block's raises."""
+    sp = SolinasPrime.try_from(P29)
+    rng = np.random.default_rng(4)
+    lo, hi = (0, 1 << 32) if dtype_name == "uint32" else (-(1 << 31), 1 << 31)
+    x = _tensor(rng.integers(lo, hi, size=(5, 37)), dtype_name)
+    got = residues.residues_int32(x, sp, width=48)
+    assert got.dtype == torch.int32 and got.shape == (5, 48)
+    assert torch.equal(got[:, :37], residues.residues_int32(x, sp))
+    assert not got[:, 37:].any()
+    assert torch.equal(residues.residues_int32(x[0], sp, width=40)[:37],
+                       got[0, :37])
+    assert torch.equal(residues.residues_int32(x, sp, width=37),
+                       residues.residues_int32(x, sp))
+    with pytest.raises(ValueError, match="narrower"):
+        residues.residues_int32(x, sp, width=36)
+
+
+@pytest.mark.parametrize("cols, out_cols", [(0, 5), (1, 9), (37, 48),
+                                            (997, 1024), (1003, 1003),
+                                            (16, 16), (5, 7)])
+def test_k8_store_layout_covers_the_padded_row(cols, out_cols):
+    """The kernel's store layout (``csrc/residues.cu``): for every row i
+    of an [rows, out_cols] output, the head columns before the first
+    16-byte aligned one, the whole groups of 4 (each store aligned) and
+    the tail after them write every column once; the group loads read
+    inside the block (c + 4 <= cols) or take each column alone, so a
+    column >= cols is never read and leaves as 0."""
+    for i in range(9):
+        base = i * out_cols
+        head = min((4 - (base & 3)) & 3, out_cols)
+        groups = (out_cols - head) >> 2
+        tail = head + 4 * groups
+        written = list(range(head)) + list(range(tail, out_cols))
+        for q in range(groups):
+            c = head + 4 * q
+            assert (base + c) % 4 == 0
+            written += range(c, c + 4)
+            if c + 4 > cols:   # the guarded path: per column, < cols only
+                assert all(k < out_cols for k in range(c, c + 4))
+        assert sorted(written) == list(range(out_cols))

@@ -170,3 +170,31 @@ def test_device_split_by_kernel_name_and_launching_range():
         {"block provider": "stream.feed"}) == {
             "K3": 600.0, "K1": 250.0, "block provider": 40.0, "rest": 10.0}
     assert traceparse.device_split(tr, {}, {}) == {"rest": 900.0}
+
+
+def test_overlaps_of_copies_and_kernels_on_two_streams():
+    """``overlaps``: the K10 events that run while a host-to-device copy
+    does (on the copy stream), and their time inside copies; a copy's
+    name is matched with its ``cat`` prefix."""
+    def ev(cat, name, ts, dur, tid):
+        return {"ph": "X", "cat": cat, "pid": 0, "tid": tid, "name": name,
+                "ts": ts, "dur": dur}
+    copy = "Memcpy HtoD (Pinned -> Device)"
+    k10 = "(anonymous namespace)::fold_columns_kernel(long long const*)"
+    trace = {"traceEvents": [
+        ev("gpu_memcpy", copy, 0, 100.0, 20),      # tile 0 lands
+        ev("gpu_memcpy", copy, 100, 100.0, 20),    # tile 1 lands ...
+        ev("kernel", k10, 110, 20.0, 7),           # ... while tile 0 folds
+        ev("gpu_memcpy", copy, 200, 100.0, 20),
+        ev("kernel", k10, 190, 30.0, 7),           # half inside a copy
+        ev("kernel", k10, 320, 10.0, 7),           # the last: no copy
+        ev("gpu_memcpy", "Memcpy DtoH (Device -> Pinned)", 330, 5.0, 7),
+    ]}
+    rec = traceparse.overlaps(trace, "HtoD", "fold_columns_kernel")
+    assert rec == {"first": 3, "second": 3, "overlapping": 2,
+                   "overlap_us": 50.0, "second_us": 60.0}
+    assert traceparse.overlaps(trace, "gpu_memcpy: Memcpy DtoH",
+                               "fold_columns")["overlapping"] == 0
+    assert traceparse.overlaps({}, "HtoD", "x") == {
+        "first": 0, "second": 0, "overlapping": 0, "overlap_us": 0.0,
+        "second_us": 0}
