@@ -298,8 +298,9 @@ def _block_tensor(raw, rows: int, d_size: int, device) -> torch.Tensor:
         raw = torch.from_numpy(np.ascontiguousarray(np.asarray(raw)))
     block = raw.to(device).to(torch.int64)
     if tuple(block.shape) != (rows, d_size):
-        padded = block.new_zeros((rows, d_size))
-        padded[:block.shape[0], :block.shape[1]] = block
+        with timed_phase("stream.feed.pad"):
+            padded = block.new_zeros((rows, d_size))
+            padded[:block.shape[0], :block.shape[1]] = block
         block = padded
     return block
 
@@ -384,8 +385,17 @@ def _drive_stream(owner, participants, dimension, seed, *, make_block,
         # the queued accumulate backlog
         with timed_phase("stream.steps_sync"):
             _sync(owner._devices)
+        # the finale's parts as ranges of their own: the reveal launches
+        # K7 (after K9 on a pod), the copy waits for it and brings the
+        # tile to the host, the store writes it into the round's output
         with timed_phase("stream.finale"):
-            out[d0:d1] = _host(final(acc_shares, acc_mask))[: d1 - d0]
+            with timed_phase("stream.finale.reveal"):
+                tile = final(acc_shares, acc_mask)
+            with timed_phase("stream.finale.copy"):
+                tile = _host(tile)
+            with timed_phase("stream.finale.store"):
+                out[d0:d1] = tile[: d1 - d0]
+            del tile
         if checkpointer is not None:
             with timed_phase("stream.checkpoint"):
                 checkpointer.save(out, d1, di + 1, 0, empty, empty)

@@ -216,14 +216,23 @@ def chrome_trace_from_records(records: List[dict]) -> dict:
 
 def merge_chrome_traces(*traces: dict) -> dict:
     """Concatenate Chrome trace dicts (e.g. the span export plus a
-    ``jax.profiler`` device trace loaded via ``traceparse``), remapping
-    pids so lanes from different sources never collide."""
+    ``torch.profiler`` trace loaded via ``traceparse.load_latest_trace``),
+    remapping pids so lanes from different sources never collide.
+
+    The span layer writes epoch microseconds. A ``torch.profiler`` trace
+    counts its ``ts`` from its own ``baseTimeNanoseconds``; such a trace is
+    shifted onto the epoch by adding that base, so a span and a profiler
+    range opened together land together. The merged trace carries no
+    base."""
     events = []
     next_pid = 0
     for t in traces:
         remap: Dict[object, int] = {}
+        shift = float(t.get("baseTimeNanoseconds", 0)) / 1000.0
         for e in t.get("traceEvents", []):
             e = dict(e)
+            if shift and "ts" in e:
+                e["ts"] = float(e["ts"]) + shift
             pid = e.get("pid")
             if pid is not None:
                 if pid not in remap:

@@ -162,7 +162,9 @@ DEVICE_KEYWORD_COPIES = [
 #: the port's counterpart of ``JAX_PLATFORMS`` (``sda --device``: the
 #: agent's field arithmetic; ``sdad --device``: the Paillier premix); the
 #: drills' and benches' client lines pass the clients' ``device`` (a
-#: profile field, or a keyword), CUDA unless ``"cpu"``
+#: profile field, or a keyword), CUDA unless ``"cpu"``; ``obs/timeline.py``'s
+#: merge shifts a ``torch.profiler`` trace, which counts ``ts`` from its
+#: own ``baseTimeNanoseconds``, onto the span layer's epoch clock
 _DEVICE_FIELD = ("    device: Optional[str] = None  # the clients' device: "
                  "CUDA unless \"cpu\"")
 EDITS = {
@@ -270,6 +272,27 @@ EDITS = {
             'arithmetic "\n'
             '                             "(cuda, or cpu for the host)")',
         206: "    return SdaClient(agent, store, service, device=args.device)",
+    },
+    "obs/timeline.py": {
+        219: "    ``torch.profiler`` trace loaded via "
+             "``traceparse.load_latest_trace``),",
+        220: "    remapping pids so lanes from different sources never "
+             "collide.\n\n"
+             "    The span layer writes epoch microseconds. A "
+             "``torch.profiler`` trace\n"
+             "    counts its ``ts`` from its own ``baseTimeNanoseconds``; "
+             "such a trace is\n"
+             "    shifted onto the epoch by adding that base, so a span and "
+             "a profiler\n"
+             "    range opened together land together. The merged trace "
+             "carries no\n"
+             "    base.\"\"\"",
+        224: "        remap: Dict[object, int] = {}\n"
+             "        shift = float(t.get(\"baseTimeNanoseconds\", 0)) / "
+             "1000.0",
+        226: "            e = dict(e)\n"
+             "            if shift and \"ts\" in e:\n"
+             "                e[\"ts\"] = float(e[\"ts\"]) + shift",
     },
     "cli/serverd.py": {
         6: "or in-memory (--memory). ``--device`` (``cuda``, or ``cpu`` for "

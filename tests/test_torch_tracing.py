@@ -168,6 +168,40 @@ def test_merge_chrome_traces_remaps_pids():
     assert ref_obs.merge_chrome_traces(a, b) == merged
 
 
+def test_merge_puts_a_profiler_trace_on_the_span_clock(tmp_path):
+    """A ``torch.profiler`` trace counts ``ts`` from its own
+    ``baseTimeNanoseconds``; merged, a span and a profiler range opened
+    back to back start within 2 ms, and no base is carried over."""
+    import torch
+
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        with obs.span("clock.span"):
+            with torch.profiler.record_function("clock.range"):
+                torch.arange(4096).sum()
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    device = json.loads(path.read_text())
+    assert "baseTimeNanoseconds" in device
+    merged = obs.merge_chrome_traces(obs.chrome_trace(), device)
+    assert "baseTimeNanoseconds" not in merged
+
+    def start(name):
+        (ts,) = [e["ts"] for e in merged["traceEvents"]
+                 if e.get("ph") == "X" and e.get("name") == name]
+        return ts
+
+    assert abs(start("clock.range") - start("clock.span")) < 2000.0
+
+
+def test_merge_leaves_a_trace_without_a_base_unshifted():
+    a = {"traceEvents": [{"name": "x", "ph": "X", "pid": 1, "ts": 5.5,
+                          "dur": 1}]}
+    merged = obs.merge_chrome_traces(a)
+    assert [e["ts"] for e in merged["traceEvents"]] == [5.5]
+    assert ref_obs.merge_chrome_traces(a) == merged
+
+
 def test_timeline_critical_path_and_slowest():
     def fake(name, span_id, parent_id, start, dur, trace="t1" * 16):
         s = obs.Span(name, trace, span_id, parent_id, "internal", None)
