@@ -39,6 +39,15 @@ totals. A step on that lane is K6 (the device provider's block), K3's mask
 op (and its chunk fold) and K1: no other launch. The plain lane adds with
 ``f.add``. Accumulators are owned contiguous int64 tensors on the step's
 device (fresh zeros, or a snapshot's copies on resume).
+
+The ragged last dim tile: a tile is as wide as the grain-rounded
+accumulators. On the K1 lane the single-device feed hands the step a
+ragged tile's block at its own width, and the kernel that first reads it
+writes the zero columns past its edge (K8, or K3's mask op under ChaCha
+masks where the block is whole ChaCha blocks of 8 columns), so no padded
+copy of the block is made (``stream.feed.in_place`` counts such blocks).
+Elsewhere ``_block_tensor`` pads the block inside a ``stream.feed.pad``
+range.
 """
 
 from __future__ import annotations
@@ -55,7 +64,7 @@ from ..fields import blockgen
 from ..fields.ops import FieldOps
 from ..obs import devprof
 from ..protocol import ChaChaMasking, FullMasking, LinearMaskingScheme, NoMasking
-from ..utils import timed_phase
+from ..utils import metrics, timed_phase
 from .simpod import (
     Mesh,
     _ShardComm,
@@ -353,8 +362,10 @@ def _drive_stream(owner, participants, dimension, seed, *, make_block,
     empty = np.zeros((0,), np.int64)
     for di, d0 in enumerate(range(0, dimension, dc)):
         d1 = min(d0 + dc, dimension)
-        # the dim tail pads to the grain; the participant tail keeps its
-        # ragged row count (a pod pads it to the chunk in make_block)
+        # the dim tail's tile is the grain-rounded d_size (the feed pads
+        # its block, or the step's kernels write its zero columns); the
+        # participant tail keeps its ragged row count (a pod pads it to
+        # the chunk in make_block)
         d_size = -(-(d1 - d0) // owner._grain) * owner._grain
         if resume is not None and di < resume_di:
             continue  # completed tile: out prefix already restored
@@ -470,18 +481,32 @@ class StreamingAggregator:
         )
 
     # -- the device pieces ------------------------------------------------
+    def _reads_in_place(self, cols: int) -> bool:
+        """Whether a ragged tile's block of ``cols`` columns goes to the
+        step unpadded: on the K1 lane the kernel that first reads it writes
+        the tile's zero columns, K8, or under ChaCha masks K3's mask op,
+        which takes whole ChaCha blocks (``cols`` a multiple of 8)."""
+        return self.pallas_active and (
+            not isinstance(self.masking, ChaChaMasking) or cols % 8 == 0)
+
     def _step(self, block, tile_seed, round_seed, pid0, dblk0, acc_shares,
               acc_mask):
-        """Fold one [rows, d_size] block into the accumulators."""
+        """Fold one [rows, cols] block into the [d_size] tile's
+        accumulators; a ragged tile's block read in place is narrower
+        (cols < d_size) and the kernels write its zero columns."""
         f = self._field
+        d_size = acc_mask.shape[0]
+        width = d_size if block.shape[1] < d_size else None
         # fused mask + share + combine on K1 when active, keyed by the
         # tile's seed, added into the accumulators in the kernels' stores;
         # pid0/dblk0 locate the tile in the ChaCha streams
         return _fold_stage(
             self.scheme, f, self._M_host, self.masking, self.pallas_active,
-            _fold_input(f, self.masking, self.pallas_active, block),
+            _fold_input(f, self.masking, self.pallas_active, block,
+                        width=width),
             tile_seed, round_seed=round_seed, pid_base=pid0,
-            d_block0=dblk0, acc_shares=acc_shares, acc_mask=acc_mask)
+            d_block0=dblk0, acc_shares=acc_shares, acc_mask=acc_mask,
+            width=width)
 
     def _final(self, acc_shares, acc_mask):
         """[n, B] share and [d_size] mask accumulators -> [d_size] int64
@@ -493,13 +518,20 @@ class StreamingAggregator:
                        acc_mask if masked else None, acc_mask.shape[0])
 
     # -- counted costs (obs.devprof) ---------------------------------------
-    def _step_ops(self, block, *_args) -> int:
-        """Integer operations of one accumulate step, counted from the
-        algorithm: the fold's (``simpod._fold_ops``) and the accumulates."""
-        rows, width = block.shape
+    def _tile_ops(self, rows: int, width: int) -> int:
+        """Integer operations of one accumulate step over a [rows, width]
+        tile, counted from the algorithm: the fold's
+        (``simpod._fold_ops``) and the accumulates."""
         n = self.scheme.output_size
         return (_fold_ops(self, rows, width)
                 + n * (width // self.scheme.input_size) + width)
+
+    def _step_ops(self, block, tile_seed=None, round_seed=None, pid0=0,
+                  dblk0=0, acc_shares=None, acc_mask=None) -> int:
+        """``_tile_ops`` of one step, over the tile's width (its mask
+        accumulator's), whether or not the feed padded the block."""
+        return self._tile_ops(block.shape[0], block.shape[1]
+                              if acc_mask is None else acc_mask.shape[0])
 
     def _final_ops(self, acc_shares, acc_mask) -> int:
         """Integer operations of one finale: the reconstruction's
@@ -549,6 +581,10 @@ class StreamingAggregator:
         s, dev = self.scheme, self.device
 
         def make_block(p0, p1, d0, d1, d_size):
+            if d1 - d0 < d_size and self._reads_in_place(d1 - d0):
+                # the step's kernels write the ragged tile's zero columns
+                metrics.count("stream.feed.in_place")
+                d_size = d1 - d0
             # zero columns sum to zero; the participant tail keeps its rows
             return _block_tensor(get_block(p0, p1, d0, d1), p1 - p0, d_size,
                                  dev)
@@ -709,7 +745,11 @@ class StreamedPod:
             for di, row in enumerate(acc_mask[0])])
 
     # the same counted algorithm as the single-device step, over the tile
-    _step_ops = StreamingAggregator._step_ops
+    # (a pod's blocks are padded to it)
+    _tile_ops = StreamingAggregator._tile_ops
+
+    def _step_ops(self, block, *_args) -> int:
+        return self._tile_ops(*block.shape)
 
     def _final_ops(self, acc_shares, acc_mask) -> int:
         """Integer operations of one finale (``simpod._reveal_ops``): the

@@ -39,6 +39,7 @@ from sda_tpu_torch.protocol import (
     NoMasking,
     PackedShamirSharing,
 )
+from sda_tpu_torch.utils import metrics, phase_report, reset_phase_report
 
 GOLDEN = PackedShamirSharing(3, 8, 4, 433, 354, 150)  # generic lane
 
@@ -572,8 +573,10 @@ def test_single_tile_keeps_its_grain_rounded_size(monkeypatch):
 
 @pytest.mark.parametrize("masking", ["full", "chacha"])
 def test_ragged_tails_k1_lane_exact(monkeypatch, masking):
-    """The K1 lane over ragged tails on both axes: exact; a ChaCha tile's
-    grain is lcm(3, 8) = 24, so the 4-column dim tail pads to 24."""
+    """The K1 lane over ragged tails on both axes: exact; the Full tail's
+    28 columns are read in place (K8 writes the tile's 2 zero columns); a
+    ChaCha tile's grain is lcm(3, 8) = 24, and the 4-column dim tail, not
+    whole ChaCha blocks, pads to 24."""
     scheme = fast_scheme()
     p = scheme.prime_modulus
     x = np.random.default_rng(91).integers(0, 1 << 16, size=(10, 100))
@@ -584,8 +587,104 @@ def test_ragged_tails_k1_lane_exact(monkeypatch, masking):
     assert agg.pallas_active
     np.testing.assert_array_equal(agg.aggregate(x, seed=7),
                                   x.sum(axis=0) % p)
-    tail = {"full": (2, 30), "chacha": (2, 24)}[masking]
+    tail = {"full": (2, 28), "chacha": (2, 24)}[masking]
     assert shapes[-1] == tail
+
+
+# -- the ragged tile read in place: on the K1 lane the kernel that first
+# reads a ragged block (K8, or K3's mask op) writes the tile's zero
+# columns, so the feed makes no padded copy --------------------------------
+
+def _in_place_round(monkeypatch, masking, d, padded=False):
+    """A K1-lane round over P=10 x ``d`` (chunks of 4 rows, dim tiles of
+    48): (aggregate, x, {dim tile start: [(block shape, acc_shares,
+    acc_mask) after each step]}, phase_report, stream.feed counters).
+    ``padded`` forces today's padded copy of every ragged block."""
+    scheme = fast_scheme()
+    p = scheme.prime_modulus
+    x = np.random.default_rng(113).integers(0, 1 << 16, size=(10, d))
+    mk = FullMasking(p) if masking == "full" else ChaChaMasking(p, d, 128)
+    agg = _agg(scheme, mk, participants_chunk=4, dim_chunk=48,
+               use_pallas=True)
+    if padded:
+        monkeypatch.setattr(agg, "_reads_in_place", lambda cols: False)
+    steps = {}
+    real = agg._step
+
+    def step(block, tile_seed, round_seed, pid0, dblk0, *accs):
+        out = real(block, tile_seed, round_seed, pid0, dblk0, *accs)
+        steps.setdefault(dblk0 * 8, []).append(
+            (tuple(block.shape), *(a.clone() for a in out)))
+        return out
+
+    monkeypatch.setattr(agg, "_step", step)
+    metrics.reset_counters()
+    reset_phase_report()
+    out = agg.aggregate(x, seed=29)
+    return (out, x, steps, phase_report(),
+            metrics.counter_report("stream.feed"))
+
+
+@pytest.mark.parametrize("masking,d_size", [("full", 18), ("chacha", 24)])
+def test_ragged_tile_read_in_place_on_the_k1_lane(monkeypatch, masking,
+                                                  d_size):
+    """d=112 in tiles of 48: a 16-column tail, whole ChaCha blocks but no
+    multiple of the grain (3 under Full, 24 under ChaCha). Its three
+    chunks reach the step unpadded, counted, with no pad range; the
+    accumulators after each tail step are those of the padded round, bit
+    for bit, and the aggregate is exact."""
+    out, x, steps, report, counters = _in_place_round(monkeypatch, masking,
+                                                      112)
+    p = fast_scheme().prime_modulus
+    np.testing.assert_array_equal(out, x.sum(axis=0) % p)
+    assert [s[0] for s in steps[96]] == [(4, 16), (4, 16), (2, 16)]
+    assert all(s[0][1] == 48 for d0 in (0, 48) for s in steps[d0])
+    assert counters == {"stream.feed.in_place": 3}
+    assert "stream.feed.pad" not in report
+    assert report["stream.feed"]["count"] == 9
+    padded, _, padded_steps, padded_report, padded_counters = \
+        _in_place_round(monkeypatch, masking, 112, padded=True)
+    np.testing.assert_array_equal(padded, out)
+    assert padded_counters == {}
+    assert padded_report["stream.feed.pad"]["count"] == 3
+    assert [s[0] for s in padded_steps[96]] == [
+        (4, d_size), (4, d_size), (2, d_size)]
+    for (_, shares, mask), (_, want_shares, want_mask) in zip(
+            steps[96], padded_steps[96], strict=True):
+        assert mask.shape == (d_size,)
+        assert torch.equal(shares, want_shares)
+        assert torch.equal(mask, want_mask)
+
+
+def test_chacha_tail_off_the_chacha_block_still_pads(monkeypatch):
+    """A ChaCha tail whose width is no multiple of 8 (d=100: 4 columns)
+    cannot go to K3's mask op unpadded: the feed pads it to the grain in
+    a ``stream.feed.pad`` range once a chunk, and the round stays exact."""
+    out, x, steps, report, counters = _in_place_round(monkeypatch, "chacha",
+                                                      100)
+    p = fast_scheme().prime_modulus
+    np.testing.assert_array_equal(out, x.sum(axis=0) % p)
+    assert [s[0] for s in steps[96]] == [(4, 24), (4, 24), (2, 24)]
+    assert counters == {}
+    assert report["stream.feed.pad"]["count"] == 3
+
+
+@pytest.mark.parametrize("masking", ["none", "full", "chacha"])
+def test_plain_lane_pads_the_ragged_tile(masking):
+    """Off the K1 lane no kernel writes the zero columns: the plain lane
+    pads a ragged tile's every chunk and counts no block read in place."""
+    scheme = fast_scheme()
+    p = scheme.prime_modulus
+    x = np.random.default_rng(117).integers(0, 1 << 16, size=(10, 112))
+    mk = {"none": NoMasking(), "full": FullMasking(p),
+          "chacha": ChaChaMasking(p, 112, 128)}[masking]
+    agg = _agg(scheme, mk, participants_chunk=4, dim_chunk=48)
+    metrics.reset_counters()
+    reset_phase_report()
+    np.testing.assert_array_equal(agg.aggregate(x, seed=31),
+                                  x.sum(axis=0) % p)
+    assert metrics.counter_report("stream.feed") == {}
+    assert phase_report()["stream.feed.pad"]["count"] == 3
 
 
 def test_ragged_tail_checkpoint_resume_and_fingerprint(tmp_path):
